@@ -1,0 +1,128 @@
+"""Build and load the CUDA kernels; count their launches.
+
+All sources in ``gsplat_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``. The build runs at first use, once per process, into
+``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``); the library's name
+carries a hash of the sources and flags, so an edited source is rebuilt.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*``,
+launches on that stream, and returns ``cudaGetLastError()``; ``check``
+raises on a non-zero code.
+
+``launches`` counts, per kernel wrapper, the calls that launched the CUDA
+kernel (never the plain-PyTorch CPU path): a run can show that the main
+path went through each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: name -> argtypes (every function returns the cudaError_t).
+SIGNATURES = {
+    # out, records, offsets_ext, num_cols, num_records, total, stream
+    "gs_segment_expand": [_P, _P, _P, _I, _I, _I, _P],
+    # keys_in, keys_a, vals_a, keys_b, vals_b, hist, n, key_bits, stream
+    "gs_radix_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
+    # num_tiles_x, bg, stream
+    "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+}
+
+launches = {"segment_expand": 0, "radix_sort": 0, "rasterize_forward": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log: str = ""  # nvcc's output of this process's build (ptxas -v)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []) + [
+        Path("/usr/local/cuda/bin/nvcc")
+    ]:
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build kernels")
+    return found
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; idempotent."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC.glob("*.cu"))
+        lib_path = BUILD_DIR / f"libgsplat_kernels_{_digest(sources)}.so"
+        if not lib_path.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+                )
+            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: tensors must share one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

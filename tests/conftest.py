@@ -51,6 +51,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: deep/redundant check, skipped unless --runslow"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a card"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
