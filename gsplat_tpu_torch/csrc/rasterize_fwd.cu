@@ -20,7 +20,9 @@
 //   at that post-crossing value; n_splats counts every splat iterated while
 //   the pixel is alive (sub-cutoff ones included); colour + T_final * bg.
 //   Pixel centres sit at integer global coordinates. ``opa`` is already the
-//   sigmoid of the logit (ops/render.py::pack_attrs).
+//   sigmoid of the logit (ops/render.py::pack_attrs). Alpha is rounded as
+//   the backward kernel and the plain versions round it
+//   (raster_common.cuh), so all agree on which splats pass the cutoff.
 //
 // What bounds it on an H100: FP32 issue and latency. At the bench point
 // (~5.5M pairs at 1M Gaussians, 1296x840) it is ~1.4G pair-pixel
@@ -34,15 +36,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kAttrs = 9;   // [u v c00 c01 c11 opa r g b]
-constexpr int kOutRows = 5; // [r g b T_final n_splats]
-constexpr float kAlphaCutoff = 0.00392156862f;  // 1/255
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaMax = 0.99f;
+using gs::kAlphaCutoff;
+using gs::kAttrs;
+using gs::kOutRows;
+using gs::kPix;
+using gs::kTEps;
+using gs::kTile;
 
 __global__ void __launch_bounds__(kPix)
 rasterize_forward_kernel(float* __restrict__ out,
@@ -76,11 +79,9 @@ rasterize_forward_kernel(float* __restrict__ out,
       ++n;
       const float dx = s_attr[0][j] - px;
       const float dy = s_attr[1][j] - py;
-      float power = -0.5f * (s_attr[2][j] * dx * dx
-                             + 2.0f * s_attr[3][j] * dx * dy
-                             + s_attr[4][j] * dy * dy);
-      power = fminf(0.0f, power);
-      float alpha = fminf(kAlphaMax, s_attr[5][j] * expf(power));
+      float alpha = gs::splat_alpha(
+          s_attr[5][j],
+          gs::splat_falloff(s_attr[2][j], s_attr[3][j], s_attr[4][j], dx, dy));
       if (!(alpha > kAlphaCutoff)) alpha = 0.0f;
       const float test_T = T * (1.0f - alpha);
       if (test_T < kTEps) done = true;

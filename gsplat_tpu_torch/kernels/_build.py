@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels; count their launches.
 
 All sources in ``gsplat_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use, once per process, into
+``sm_90a`` (one ``nvcc`` per source, in parallel) and linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use, once per process, into
 ``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``); the library's name
 carries a hash of the sources and flags, so an edited source is rebuilt.
 
@@ -32,8 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]  # per-source compile flags; the link adds -shared
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,9 +47,18 @@ SIGNATURES = {
     # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
     # num_tiles_x, bg, stream
     "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+    # grads, attrs, splat_gid, tile_start, tile_count, out, d_tiles,
+    # num_tiles, num_tiles_x, bg, scale_u, scale_v, stream
+    "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                              ctypes.c_float, ctypes.c_float, _P],
+    # out, rows, perm, sorted_gid, p, n, stream
+    "gs_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
 }
 
-launches = {"segment_expand": 0, "radix_sort": 0, "rasterize_forward": 0}
+launches = {
+    "segment_expand": 0, "radix_sort": 0, "rasterize_forward": 0,
+    "rasterize_backward": 0, "segment_sum": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -88,17 +98,32 @@ def build() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = sorted(CSRC.glob("*.cu"))
-        lib_path = BUILD_DIR / f"libgsplat_kernels_{_digest(sources)}.so"
+        digest = _digest(sources + sorted(CSRC.glob("*.cuh")))
+        lib_path = BUILD_DIR / f"libgsplat_kernels_{digest}.so"
         if not lib_path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = f"{digest}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+            # One nvcc per source, all started together, then one link.
+            procs = [
+                (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                            for src, obj in zip(sources, objs))
+            ]
+            logs = [(cmd, proc.communicate(timeout=900)[0], proc.returncode)
+                    for cmd, proc in procs]
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-                )
+            link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            if all(rc == 0 for _, _, rc in logs):
+                proc = subprocess.run(link, capture_output=True, text=True, timeout=300)
+                logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            build_log = "".join(out for _, out, _ in logs)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            for cmd, out, rc in logs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
             os.replace(tmp, lib_path)  # atomic: concurrent builds agree
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():

@@ -1,14 +1,23 @@
-"""Forward tile rasterizer (port of
-``gsplat_tpu/kernels/rasterize.py::rasterize_forward``).
+"""Tile rasterizer, forward and backward (port of
+``gsplat_tpu/kernels/rasterize.py::rasterize_forward`` and
+``rasterize_backward``, exact f32 mode).
 
-Per tile: front-to-back alpha compositing of the tile's depth-sorted pairs
-with the T < 1e-4 early stop, per-pixel splat count and background. Pairs
-are read through ``splat_gid`` from per-Gaussian attribute rows
-``[u v c00 c01 c11 opa r g b]`` (``opa`` already sigmoid-ed). CUDA kernel:
-``csrc/rasterize_fwd.cu`` (16x16 tiles only).
-
+Forward, per tile: front-to-back alpha compositing of the tile's
+depth-sorted pairs with the T < 1e-4 early stop, per-pixel splat count and
+background. Pairs are read through ``splat_gid`` from per-Gaussian
+attribute rows ``[u v c00 c01 c11 opa r g b]`` (``opa`` already sigmoid-ed).
 Output (T, 5, PIX) f32 rows ``[r g b T_final n_splats]``: the reference's
-(T, 8, PIX) layout without its three zero rows.
+(T, 8, PIX) layout without its three zero rows. CUDA kernel:
+``csrc/rasterize_fwd.cu``.
+
+Backward, per tile: back-to-front replay from each pixel's T_final and
+n_splats, one (9,) gradient row per pair ``[du dv dc00 dc01 dc11 dopa dr dg
+db]`` in sorted-pair order. CUDA kernel: ``csrc/rasterize_bwd.cu``. Both
+kernels take 16x16 tiles only.
+
+The plain versions evaluate ``power`` and alpha op by op in the order
+``csrc/raster_common.cuh`` rounds them, so kernels and plain versions agree
+on which pair-pixels pass the 1/255 cutoff: change both together.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ ALPHA_CUTOFF = 0.00392156862  # 1/255
 T_EPS = 1e-4
 ALPHA_MAX = 0.99
 ATTR_COLS = 9
+GRAD_COLS = 9
 OUT_ROWS = 5
 KERNEL_TILE = 16
 _PLAIN_CHUNK = 64  # pairs per step of the plain version
@@ -45,6 +55,28 @@ def _tile_lists(splat_gid, tile_start, tile_count):
     return lists, valid
 
 
+def _pixel_centres(num_tiles, num_tiles_x, tile, dev):
+    """(T, PIX, 1) float32 global x and y of every tile pixel."""
+    t_idx = torch.arange(num_tiles, device=dev)
+    p_idx = torch.arange(tile * tile, device=dev)
+    px = ((t_idx % num_tiles_x) * tile)[:, None] + (p_idx % tile)[None, :]
+    py = ((t_idx // num_tiles_x) * tile)[:, None] + (p_idx // tile)[None, :]
+    return px.to(torch.float32)[:, :, None], py.to(torch.float32)[:, :, None]
+
+
+def _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile):
+    """Raise unless the kernel takes these table and attribute tensors."""
+    if tile != KERNEL_TILE:
+        raise ValueError(f"{name}: the kernel takes tile={KERNEL_TILE}, got {tile}")
+    if attrs.dtype != torch.float32 or attrs.dim() != 2 or attrs.shape[1] != ATTR_COLS:
+        raise ValueError(f"{name}: attrs must be (N, {ATTR_COLS}) float32")
+    for t in (splat_gid, tile_start, tile_count):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name}: index tensors must be 1-D int32")
+    if tile_count.shape[0] != tile_start.shape[0]:
+        raise ValueError(f"{name}: tile_start/tile_count lengths differ")
+
+
 def rasterize_forward_plain(
     attrs: torch.Tensor,
     splat_gid: torch.Tensor,
@@ -66,12 +98,7 @@ def rasterize_forward_plain(
     dev = attrs.device
     pix = tile * tile
     lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
-    t_idx = torch.arange(num_tiles, device=dev)
-    p_idx = torch.arange(pix, device=dev)
-    px = ((t_idx % num_tiles_x) * tile)[:, None] + (p_idx % tile)[None, :]
-    py = ((t_idx // num_tiles_x) * tile)[:, None] + (p_idx // tile)[None, :]
-    px = px.to(torch.float32)[:, :, None]  # (T, PIX, 1)
-    py = py.to(torch.float32)[:, :, None]
+    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev)
 
     tcar = torch.ones((num_tiles, pix, 1), dtype=torch.float32, device=dev)
     tf = torch.full((num_tiles, pix), -1.0, dtype=torch.float32, device=dev)
@@ -129,16 +156,8 @@ def rasterize_forward(
             num_tiles_x=num_tiles_x, tile=tile,
         )
     name = "rasterize_forward"
-    if tile != KERNEL_TILE:
-        raise ValueError(f"{name}: the kernel takes tile={KERNEL_TILE}, got {tile}")
-    if attrs.dtype != torch.float32 or attrs.dim() != 2 or attrs.shape[1] != ATTR_COLS:
-        raise ValueError(f"{name}: attrs must be (N, {ATTR_COLS}) float32")
-    for t in (splat_gid, tile_start, tile_count):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name}: index tensors must be 1-D int32")
+    _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
     num_tiles = tile_start.shape[0]
-    if tile_count.shape[0] != num_tiles:
-        raise ValueError(f"{name}: tile_start/tile_count lengths differ")
     _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count)
     lib = _build.build()
     out = torch.empty(
@@ -152,3 +171,150 @@ def rasterize_forward(
     _build.check(err, name)
     _build.launches[name] += 1
     return out
+
+
+def grad_scales(num_tiles_x: int, num_tiles_y: int, tile: int = KERNEL_TILE):
+    """The uv-gradient scale (0.5 * padded grid width, 0.5 * height).
+
+    The reference scales by the padded tile grid, not by the image's W and
+    H (``gsplat_tpu/ops/render.py:120-124``).
+    """
+    return 0.5 * num_tiles_x * tile, 0.5 * num_tiles_y * tile
+
+
+def rasterize_backward_plain(
+    attrs: torch.Tensor,
+    splat_gid: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    out: torch.Tensor,
+    d_tiles: torch.Tensor,
+    bg: float,
+    *,
+    num_tiles_x: int,
+    num_tiles_y: int,
+    tile: int = KERNEL_TILE,
+) -> torch.Tensor:
+    """Plain PyTorch version: every tile at once, 64 pairs a step, last
+    chunk first (the reference kernel's formulation).
+
+    A chunk recovers T at its entry from T at its exit by dividing by the
+    product of its (1 - alpha), takes per-splat entry transmittances as
+    exclusive cumulative products, and the suffix sum of w (c . dI) as a
+    reversed cumulative sum carried across chunks. Chunks past every
+    pixel's n_splats are not visited; their rows stay zero.
+    """
+    num_tiles = tile_start.shape[0]
+    dev = attrs.device
+    rows = torch.zeros((splat_gid.shape[0], GRAD_COLS), dtype=attrs.dtype, device=dev)
+    if splat_gid.shape[0] == 0:
+        return rows
+    lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
+    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev)
+    scale_u, scale_v = grad_scales(num_tiles_x, num_tiles_y, tile)
+    tfin = out[:, 3, :, None]  # (T, PIX, 1)
+    nspl = out[:, 4, :, None]
+    di = d_tiles.permute(0, 2, 1)  # (T, PIX, 3)
+    bg_term = tfin * (bg * d_tiles.sum(dim=1))[:, :, None]
+    used = min(int(nspl.max()), lists.shape[1])
+    tcar = tfin  # T at the exit of the chunk being replayed
+    pq = torch.zeros_like(tfin)  # suffix sum of the chunks behind it
+    for c0 in reversed(range(0, used, _PLAIN_CHUNK)):
+        sel = valid[:, c0 : c0 + _PLAIN_CHUNK]  # (T, K)
+        kk = sel.shape[1]
+        a = attrs[lists[:, c0 : c0 + _PLAIN_CHUNK]][:, None]  # (T, 1, K, 9)
+        dx = a[..., 0] - px  # (T, PIX, K)
+        dy = a[..., 1] - py
+        c00, c01, c11, opa = a[..., 2], a[..., 3], a[..., 4], a[..., 5]
+        power = torch.clamp(
+            -0.5 * (c00 * dx * dx + 2.0 * c01 * dx * dy + c11 * dy * dy), max=0.0
+        )
+        gval = torch.exp(power)
+        alpha = torch.clamp(opa * gval, max=ALPHA_MAX)
+        rel = torch.arange(c0, c0 + kk, device=dev, dtype=torch.float32)
+        ok = sel[:, None, :] & (rel < nspl) & (alpha > ALPHA_CUTOFF)
+        alpha_v = torch.where(ok, alpha, 0.0)
+        g_v = torch.where(ok, gval, 0.0)
+        incl = torch.cumprod(1.0 - alpha_v, dim=-1)
+        t_in = tcar / torch.clamp(incl[..., -1:], min=1e-30)
+        excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+        t_entry = t_in * excl
+        w = alpha_v * t_entry
+        cdi = torch.einsum("tkc,tpc->tpk", a[:, 0, :, 6:9], di)
+        q = w * cdi
+        pk = torch.flip(torch.cumsum(torch.flip(q, [-1]), dim=-1), [-1]) + pq
+        pn = pk - q
+        inv = 1.0 / (1.0 - alpha_v)
+        grad_alpha = cdi * t_entry - pn * inv - bg_term * inv
+        gp = g_v * grad_alpha * opa
+        vals = torch.stack(
+            [
+                scale_u * torch.sum(-(c00 * dx + c01 * dy) * gp, dim=1),
+                scale_v * torch.sum(-(c11 * dy + c01 * dx) * gp, dim=1),
+                torch.sum(-0.5 * dx * dx * gp, dim=1),
+                torch.sum(-dx * dy * gp, dim=1),
+                torch.sum(-0.5 * dy * dy * gp, dim=1),
+                torch.sum(g_v * grad_alpha, dim=1),
+            ],
+            dim=-1,
+        )  # (T, K, 6)
+        vals = torch.cat([vals, torch.einsum("tpk,tpc->tkc", w, di)], dim=-1)
+        slot = tile_start.to(torch.int64)[:, None] + c0 + torch.arange(kk, device=dev)
+        rows[slot[sel]] = vals[sel]
+        tcar = t_in
+        pq = pk[..., :1]
+    return rows
+
+
+def rasterize_backward(
+    attrs: torch.Tensor,
+    splat_gid: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    out: torch.Tensor,
+    d_tiles: torch.Tensor,
+    bg: float,
+    *,
+    num_tiles_x: int,
+    num_tiles_y: int,
+    tile: int = KERNEL_TILE,
+) -> torch.Tensor:
+    """Per-pair gradient rows (P, 9) f32, in sorted-pair order.
+
+    ``attrs``, ``splat_gid``, ``tile_start``, ``tile_count`` as for
+    ``rasterize_forward``; ``out`` is its (T, 5, PIX) output and ``d_tiles``
+    the (T, 3, PIX) image cotangent in tile layout (zero on padded pixels).
+    Rows are ``[du dv dc00 dc01 dc11 dopa dr dg db]``: du, dv scaled by
+    ``grad_scales``, dopa with respect to the sigmoid-ed opacity. Every row
+    is written, zeros for pairs no pixel reached. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel.
+    """
+    if attrs.device.type == "cpu":
+        return rasterize_backward_plain(
+            attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
+            num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
+        )
+    name = "rasterize_backward"
+    _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
+    num_tiles = tile_start.shape[0]
+    if num_tiles != num_tiles_x * num_tiles_y:
+        raise ValueError(f"{name}: {num_tiles} tiles is not {num_tiles_x}x{num_tiles_y}")
+    pix = tile * tile
+    for t, rows_ in ((out, OUT_ROWS), (d_tiles, 3)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (num_tiles, rows_, pix):
+            raise ValueError(f"{name}: expected ({num_tiles}, {rows_}, {pix}) float32")
+    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, out, d_tiles)
+    lib = _build.build()
+    grads = torch.empty(
+        (splat_gid.shape[0], GRAD_COLS), dtype=torch.float32, device=attrs.device
+    )
+    scale_u, scale_v = grad_scales(num_tiles_x, num_tiles_y, tile)
+    err = lib.gs_rasterize_backward(
+        grads.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
+        tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
+        d_tiles.data_ptr(), num_tiles, num_tiles_x, float(bg), scale_u, scale_v,
+        _build.stream_ptr(attrs.device),
+    )
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return grads

@@ -1,9 +1,25 @@
-"""Forward tile rasterization op (port of ``gsplat_tpu/ops/render.py``).
+"""Differentiable tile rasterization op (port of ``gsplat_tpu/ops/render.py``,
+exact f32 mode).
 
-Forward only: ``pack_attrs`` builds the per-Gaussian attribute rows, the
-rasterizer kernel reads them through the binning's ``splat_gid``, and
-``tiles_to_image`` crops the tile pixels to the image. The backward (and
-its regroup sort and segment sum) comes with training.
+The custom-gradient boundary is the reference's: per-Gaussian attribute
+rows ``attrs`` (N, 9) -> (T, 5, PIX) tile pixels. The forward is the
+forward rasterizer kernel, reading ``attrs`` through binning's
+``splat_gid``. The backward is
+
+  backward rasterizer (one gradient row per pair, in tile order)
+  -> stable radix sort of ``splat_gid`` (the regroup: pairs in Gaussian
+     order; the reference's ``sample_sort`` call site)
+  -> segment sum by Gaussian id -> ``d_attrs`` (N, 9).
+
+The reference's chunk-coverage mask, side buffers and packed bf16/e5s9
+gradient words are not ported: they exist only because of how its TPU
+kernel assigns chunks to tiles. The backward kernel here writes every pair
+row itself.
+
+Gradient conventions (the reference's): uv cotangents are scaled by 0.5 x
+the padded tile grid's width and height inside the backward; the 0.99
+alpha clamp and the power <= 0 clamp are ignored in the derivative; the
+background gets no gradient; ``t_final`` and ``n_splats`` carry none.
 """
 
 from __future__ import annotations
@@ -12,7 +28,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.rasterize import rasterize_forward
+from ..kernels.rasterize import rasterize_backward, rasterize_forward
+from ..kernels.segsum import segment_sum
+from ..kernels.sort import radix_sort
 from .binning import TileTables
 
 
@@ -22,13 +40,52 @@ class RenderOutput(NamedTuple):
     n_splats: torch.Tensor  # (T, PIX) float32 counts
 
 
+def regroup_key_bits(n: int) -> int:
+    """Bits of the largest Gaussian id of an (n,)-row attribute table."""
+    return max(1, (int(n) - 1).bit_length())
+
+
+class _Rasterize(torch.autograd.Function):
+    """attrs (N, 9) -> (T, 5, PIX) tile pixels; differentiable in attrs."""
+
+    @staticmethod
+    def forward(ctx, attrs, splat_gid, tile_start, tile_count, bg,
+                num_tiles_x, num_tiles_y, tile):
+        out = rasterize_forward(
+            attrs, splat_gid, tile_start, tile_count, bg,
+            num_tiles_x=num_tiles_x, tile=tile,
+        )
+        ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, out)
+        ctx.bg = bg
+        ctx.grid = (num_tiles_x, num_tiles_y, tile)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        attrs, splat_gid, tile_start, tile_count, out = ctx.saved_tensors
+        num_tiles_x, num_tiles_y, tile = ctx.grid
+        rows = rasterize_backward(
+            attrs, splat_gid, tile_start, tile_count, out,
+            d_out[:, 0:3, :].contiguous(), ctx.bg,
+            num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
+        )
+        n = attrs.shape[0]
+        sorted_gid, perm = radix_sort(splat_gid, regroup_key_bits(n))
+        d_attrs = segment_sum(rows, perm, sorted_gid, n)
+        return d_attrs, None, None, None, None, None, None, None
+
+
 def pack_attrs(
     uv: torch.Tensor,
     conic: torch.Tensor,
     rgb: torch.Tensor,
     opacity_logit: torch.Tensor,
 ) -> torch.Tensor:
-    """Per-Gaussian (N, 9) attribute rows [u v c00 c01 c11 opa r g b]."""
+    """Per-Gaussian (N, 9) attribute rows [u v c00 c01 c11 opa r g b].
+
+    Differentiable: autograd through the sigmoid gives the opacity chain
+    o (1 - o) of the backward's d/d(opa) row.
+    """
     opa = torch.sigmoid(opacity_logit)
     return torch.stack(
         [uv[:, 0], uv[:, 1], conic[:, 0], conic[:, 1], conic[:, 2], opa,
@@ -64,14 +121,19 @@ def rasterize(
     height: int,
     tile: int,
 ) -> RenderOutput:
-    """Render the image from binning's ``tables`` (same uv as binned)."""
+    """Render the image from binning's ``tables`` (same uv as binned);
+    differentiable with respect to uv, conic, rgb and opacity_logit."""
     num_tiles_x = (width + tile - 1) // tile
     num_tiles_y = (height + tile - 1) // tile
     attrs = pack_attrs(uv, conic, rgb, opacity_logit)
-    out = rasterize_forward(
+    out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
-        float(bg), num_tiles_x=num_tiles_x, tile=tile,
+        float(bg), num_tiles_x, num_tiles_y, tile,
     )
+    # Cropping outside the Function: autograd gives the padded pixels zero
+    # cotangents, as the reference's tiles_to_image does.
     image = tiles_to_image(out[:, 0:3, :], num_tiles_x, num_tiles_y, tile,
                            width, height)
-    return RenderOutput(image=image, t_final=out[:, 3, :], n_splats=out[:, 4, :])
+    return RenderOutput(
+        image=image, t_final=out[:, 3, :].detach(), n_splats=out[:, 4, :].detach()
+    )

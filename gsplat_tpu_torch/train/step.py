@@ -1,22 +1,34 @@
-"""Forward render (port of ``gsplat_tpu/train/step.py:32-130``).
+"""Forward render and training step (port of ``gsplat_tpu/train/step.py``).
 
-``render_image`` is the port's entry point for eval renders and image
-dumps: per-Gaussian projection, covariance and SH colour, exact tile
-binning, then the forward rasterizer. It runs eagerly (no jit); binning
-syncs the host twice per frame to size its outputs exactly.
+``render_image`` is the entry point for eval renders and image dumps;
+``train_step`` = ``compute_loss_and_grads`` + ``apply_adam`` is one
+optimizer step on one camera: per-Gaussian projection, covariance and SH
+colour, exact tile binning, the forward rasterizer, the fused SSIM+L1
+loss, then autograd back through the rasterizer's custom backward (backward
+kernel, regroup sort, segment sum) and the per-Gaussian maths, and a
+visibility-masked Adam update.
+
+Everything runs eagerly (no jit); binning syncs the host twice per frame
+to size its outputs exactly, so the reference's ``overflow`` and
+``row_overflow`` metrics have no counterpart. The uv-gradient statistic of
+densification comes from a zero probe added to uv before rasterization:
+its gradient is exactly the reference's scaled ``grad_uv``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from ..ops import adam as adam_ops
 from ..ops import covariance, projection
 from ..ops import sh as sh_ops
 from ..ops.binning import TileTables, build_tile_tables
+from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
-from .state import GaussianParams
+from .state import PARAM_DIMS, GaussianParams, TrainState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +121,116 @@ def render_image(
         width=st.width, height=st.height, tile=st.tile,
     )
     return out.image, tables
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    psnr: torch.Tensor
+    num_visible: torch.Tensor
+    num_pairs: int
+
+
+def compute_loss_and_grads(
+    params: GaussianParams, view, proj, campos, gt_image: torch.Tensor,
+    bg: float, st: StepStatics,
+):
+    """Forward and backward for one camera.
+
+    Returns (loss, image, mask, tables, grads, g_uv): ``grads`` maps each
+    parameter name to its gradient (zeros where a parameter is unused, as
+    for SH bands above ``l_max``); ``g_uv`` (N_cap, 2) is the gradient of
+    the uv probe. Dead capacity rows may carry NaN gradients, which
+    ``apply_adam`` scrubs.
+    """
+    dev = params.xyz.device
+    view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
+    names = list(PARAM_DIMS)
+    leaves = [getattr(params, name) for name in names]
+    with torch.enable_grad():
+        uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
+                               requires_grad=True)
+        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+        uv = uv + uv_probe
+        tables = build_tile_tables(
+            uv.detach(), z.detach(), radius, mask,
+            num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile,
+        )
+        out = rasterize(
+            uv, conic, rgb, params.opacity, tables, bg,
+            width=st.width, height=st.height, tile=st.tile,
+        )
+        loss = fused_loss(out.image, gt_image, st.ssim_frac)
+        got = torch.autograd.grad(loss, leaves + [uv_probe], allow_unused=True)
+    grads = {
+        name: torch.zeros_like(leaf) if g is None else g
+        for name, leaf, g in zip(names, leaves, got)
+    }
+    return loss.detach(), out.image.detach(), mask, tables, grads, got[-1]
+
+
+@torch.no_grad()
+def apply_adam(
+    state: TrainState,
+    grads: dict[str, torch.Tensor],
+    g_uv: torch.Tensor,
+    mask: torch.Tensor,
+    iteration: int,
+    st: StepStatics,
+) -> TrainState:
+    """Masked Adam update and densification accumulators, in place.
+
+    The reference returns a new state; updating in place here saves a copy
+    of the parameters and moments. The xyz learning rate decays
+    exponentially and is scaled by ``scene_extent``; with ``l_max == 0``
+    SH is not optimized.
+    """
+    dev = g_uv.device
+    it = torch.tensor(float(iteration), dtype=torch.float32, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    bias1 = 1.0 - torch.pow(f32(adam_ops.B1), it + 1.0)
+    bias2 = 1.0 - torch.pow(f32(adam_ops.B2), it + 1.0)
+    decay = torch.pow(f32(st.xyz_lr_final / st.xyz_lr_init), it / float(st.num_iters))
+    lrs = {
+        "xyz": st.scene_extent * st.base_lr * st.xyz_lr_init * decay,
+        "rgb": st.base_lr * st.rgb_lr,
+        "opacity": st.base_lr * st.opacity_lr,
+        "scale": st.base_lr * st.scale_lr,
+        "quat": st.base_lr * st.quat_lr,
+        "sh": st.base_lr * st.sh_lr,
+    }
+    for name in PARAM_DIMS:
+        if name == "sh" and st.l_max == 0:
+            continue  # l_max = 0: SH is not optimized
+        param = getattr(state.params, name)
+        p, m, v = adam_ops.masked_adam_update(
+            param, grads[name], state.adam_m[name], state.adam_v[name],
+            mask, lrs[name], bias1, bias2,
+        )
+        param.copy_(p)
+        state.adam_m[name].copy_(m)
+        state.adam_v[name].copy_(v)
+    g_norm = torch.sqrt(torch.sum(g_uv * g_uv, dim=1))
+    state.uv_grad_accum.copy_(
+        torch.where(mask, state.uv_grad_accum + g_norm, state.uv_grad_accum)
+    )
+    state.accum_dur.add_(mask.to(torch.int32))
+    return state
+
+
+def train_step(
+    state: TrainState, view, proj, campos, gt_image: torch.Tensor, bg: float,
+    iteration: int, st: StepStatics,
+) -> tuple[TrainState, StepMetrics]:
+    """One optimizer step on one camera; updates ``state`` in place and
+    returns it with the step's metrics."""
+    loss, image, mask, tables, grads, g_uv = compute_loss_and_grads(
+        state.params, view, proj, campos, gt_image, bg, st
+    )
+    apply_adam(state, grads, g_uv, mask, iteration, st)
+    metrics = StepMetrics(
+        loss=loss,
+        psnr=compute_psnr(image, gt_image),
+        num_visible=torch.sum(mask.to(torch.int32)),
+        num_pairs=tables.num_pairs,
+    )
+    return state, metrics

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and one train step
+against the port's CPU path, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -17,10 +18,13 @@ torch = pytest.importorskip("torch")
 from gsplat_tpu_torch.kernels import _build  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
-    rasterize_forward, rasterize_forward_plain,
+    rasterize_backward, rasterize_backward_plain, rasterize_forward,
+    rasterize_forward_plain,
 )
+from gsplat_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
+from gsplat_tpu_torch.ops.render import regroup_key_bits  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +122,137 @@ def test_binning_on_card_equals_cpu(dev):
     # Order may differ only where log2 rounds a depth into the next bucket.
     same = (gpu.splat_gid.cpu() == cpu.splat_gid).float().mean().item()
     assert same >= 0.999, same
+
+
+def _backward_inputs(rng, n, width, height, saturate=False):
+    """Tables, attrs, forward output and a random image cotangent (CPU)."""
+    ntx, nty = (width + 15) // 16, (height + 15) // 16
+    uv, radius, z, attrs = _scene(rng, n, width, height)
+    if saturate:  # opaque and wide: every pixel stops long before the last pair
+        attrs[:, 5] = 0.98
+        attrs[:, 2:5] = torch.tensor([0.01, 0.0, 0.01])
+        radius[:, :2] = 40.0
+    tables = build_tile_tables(uv, z, radius, torch.ones(n, dtype=torch.bool),
+                               num_tiles_x=ntx, num_tiles_y=nty, tile_size=16)
+    args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
+    out = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx)
+    d_tiles = torch.from_numpy(rng.normal(size=(ntx * nty, 3, 256)).astype(np.float32))
+    return args, out, d_tiles, ntx, nty
+
+
+@pytest.mark.parametrize("n,saturate", [(50, False), (3000, False), (400, True)])
+def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
+    args, out, d_tiles, ntx, nty = _backward_inputs(
+        np.random.default_rng(n), n, 160, 88, saturate)
+    kw = dict(num_tiles_x=ntx, num_tiles_y=nty)
+    dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
+    got = rasterize_backward(*dev_in, 0.3, **kw)
+    again = rasterize_backward(*dev_in, 0.3, **kw)
+    torch.cuda.synchronize()
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    assert torch.equal(got, again)  # no atomics: bit-identical reruns
+    # The 256-pixel sums run in another order (warp shuffles vs a tensor
+    # sum) and T is replayed by division vs chunked products: compare each
+    # row relative to its largest |value|. Against a float64 replay both
+    # are off by up to 1.5e-4 of that (H100, these scenes); the two differ
+    # by up to 1.8e-4.
+    got = got.cpu()
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert ((got - ref).abs() <= 1e-3 * scale + 1e-6).all()
+    if saturate:
+        start, count = args[2], args[3]
+        maxn = out[:, 4].amax(dim=1).long()
+        assert (maxn < count.long()).any()
+        for t in torch.nonzero(maxn < count.long()).flatten().tolist():
+            tail = got[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
+            assert torch.equal(tail, torch.zeros_like(tail))  # written, as zeros
+
+
+@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
+def test_segment_sum_kernel_close_to_plain(dev, n, p):
+    rng = np.random.default_rng(p)
+    gids = rng.integers(0, n, p).astype(np.int32)
+    gids[: p // 5] = n // 2  # one Gaussian with hundreds of pairs
+    gids[gids % 3 == 1] = n // 3  # and empty runs around it
+    rows = torch.from_numpy(rng.standard_normal((p, 9)).astype(np.float32))
+    sorted_gid, perm = radix_sort_plain(torch.from_numpy(gids), 31)
+    got = segment_sum(rows.to(dev), perm.to(dev), sorted_gid.to(dev), n)
+    again = segment_sum(rows.to(dev), perm.to(dev), sorted_gid.to(dev), n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = segment_sum_plain(rows, perm, sorted_gid, n)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+    empty = torch.from_numpy(np.bincount(gids, minlength=n) == 0)
+    assert (got.cpu()[empty] == 0).all()
+
+
+@pytest.mark.parametrize("n_cap", [4096, 1 << 20])
+def test_regroup_sort_on_gid_keys(dev, n_cap):
+    # Tile-ordered Gaussian ids, as the backward regroups them.
+    rng = np.random.default_rng(n_cap)
+    gid = torch.from_numpy(rng.integers(0, n_cap, 5 * n_cap).astype(np.int32))
+    bits = regroup_key_bits(n_cap)
+    s_k, perm = radix_sort(gid.to(dev), bits)
+    torch.cuda.synchronize()
+    p_k, p_perm = radix_sort_plain(gid, bits)
+    assert torch.equal(s_k.cpu(), p_k) and torch.equal(perm.cpu(), p_perm)
+
+
+def test_train_step_on_card_close_to_cpu(dev):
+    from gsplat_tpu_torch.ops.camera import build_camera_matrices
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    w, h, n = 96, 56, 2000
+    rng = np.random.default_rng(5)
+    params = dict(
+        xyz=rng.normal(size=(n, 3)) * [1.0, 0.7, 0.6] + [0, 0, 4.0],
+        rgb=rng.normal(size=(n, 3)), opacity=rng.uniform(-1.0, 2.0, n),
+        scale=np.log(rng.uniform(0.02, 0.1, (n, 3))),
+        quat=np.concatenate([np.ones((n, 1)), 0.3 * rng.normal(size=(n, 3))], axis=1),
+        sh=0.1 * rng.normal(size=(n, 15, 3)),
+    )
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    alive = np.ones(n, bool)
+    cm = build_camera_matrices(np.array([1.0, 0, 0, 0]), np.zeros(3), w, h, w * 0.85, w * 0.85)
+    st = t_step.StepStatics(
+        width=w, height=h, tile=16, l_max=3, focal_x=cm.focal_x, focal_y=cm.focal_y,
+        tan_fovx=cm.tan_fovx, tan_fovy=cm.tan_fovy, near_thresh=0.3, mh_dist=3.0,
+        cull_padding=100, ssim_frac=0.2, base_lr=1e-3, xyz_lr_init=0.16,
+        xyz_lr_final=0.0016, quat_lr=1.0, scale_lr=5.0, opacity_lr=25.0, rgb_lr=2.5,
+        sh_lr=0.125, scene_extent=4.0, num_iters=7000,
+    )
+    gt = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32))
+    results = []
+    for d in ("cpu", dev):
+        state = t_state.init_state(t_state.params_from_jax(params, alive, d))
+        loss, _, mask, _, grads, g_uv = t_step.compute_loss_and_grads(
+            state.params, cm.view, cm.proj, cm.campos, gt.to(d), 0.2, st)
+        t_step.apply_adam(state, grads, g_uv, mask, 0, st)
+        results.append((float(loss), {k: v.cpu() for k, v in grads.items()}, g_uv.cpu(),
+                        t_state.state_to_numpy(state)))
+    (l_c, g_c, uv_c, s_c), (l_g, g_g, uv_g, s_g) = results
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    # Kernels and plain versions sum in other orders: 1e-3 of each
+    # tensor's largest value.
+    for name in g_c:
+        scale = float(g_c[name].nan_to_num().abs().max())
+        torch.testing.assert_close(g_g[name], g_c[name], rtol=1e-3, atol=1e-3 * scale,
+                                   equal_nan=True)
+    torch.testing.assert_close(uv_g, uv_c, rtol=1e-3, atol=1e-3 * float(uv_c.abs().max()))
+    np.testing.assert_array_equal(s_g["accum_dur"], s_c["accum_dur"])
+
+
+def test_backward_kernels_with_no_pairs(dev):
+    # An empty frame: nothing to replay, regroup or sum; every sum is zero.
+    i32 = lambda n: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    attrs = torch.zeros((5, 9), device=dev)
+    out = torch.zeros((2, 5, 256), device=dev)
+    rows = rasterize_backward(attrs, i32(0), i32(2), i32(2), out,
+                              torch.ones((2, 3, 256), device=dev), 0.5,
+                              num_tiles_x=2, num_tiles_y=1)
+    sorted_gid, perm = radix_sort(i32(0), regroup_key_bits(5))
+    sums = segment_sum(rows, perm, sorted_gid, 5)
+    torch.cuda.synchronize()
+    assert rows.shape == (0, 9) and sorted_gid.shape == (0,)
+    assert torch.equal(sums, torch.zeros((5, 9), device=dev))

@@ -23,7 +23,10 @@ from gsplat_tpu.kernels.expand import segment_expand as j_segment_expand  # noqa
 from gsplat_tpu.ops import oracle  # noqa: E402
 from gsplat_tpu_torch.kernels import _build  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
-from gsplat_tpu_torch.kernels.rasterize import rasterize_forward  # noqa: E402
+from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
+    rasterize_backward, rasterize_forward,
+)
+from gsplat_tpu_torch.kernels.segsum import segment_sum  # noqa: E402
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
 from gsplat_tpu_torch.ops.render import rasterize  # noqa: E402
@@ -83,6 +86,16 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         segment_expand(rec, off, 0)
     with pytest.raises(ValueError, match="CUDA"):
         radix_sort(torch.zeros((8,), dtype=torch.int32, device="meta"), 8)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")  # noqa: E731
+    f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        rasterize_forward(f32(4, 9), i32(3), i32(2), i32(2), 0.0, num_tiles_x=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        rasterize_backward(f32(4, 9), i32(3), i32(2), i32(2), f32(2, 5, 256),
+                           f32(2, 3, 256), 0.0, num_tiles_x=2, num_tiles_y=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_sum(f32(3, 9), i32(3), i32(3), 4)
+    assert _build.launches == dict.fromkeys(_build.launches, 0)
 
 
 @pytest.mark.parametrize("key_bits", [8, 20, 29])
