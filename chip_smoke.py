@@ -7,7 +7,12 @@ Builds the port's CUDA kernels (``gsplat_tpu_torch/csrc``) with nvcc for
 sm_90a, then:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA;
-2. builds the kernels and prints the build time and ptxas's register use;
+2. builds the kernels and prints the build time, ptxas's register use and
+   the instructions of expf in the forward rasterizer (cuobjdump);
+2b. holds the radix sort bit-equal to ``torch.sort(stable=True)``, keys and
+   permutation, at n = 0, 1, tile - 1, tile, tile + 1 and larger, on
+   random keys, equal keys and keys that differ only in the last pass's
+   digit, for key_bits 1, 20, 29 and 31;
 3. compares each kernel with its plain PyTorch version on the card, at the
    shapes of one view of the bench scene at 100K Gaussians (segment expand
    and radix sort bit-equal; rasterizer image PSNR >= 60 dB, n_splats equal
@@ -22,28 +27,49 @@ sm_90a, then:
    shapes;
 7. compares the backward kernels with their plain versions at 100K
    Gaussians, bench view, random image cotangent (backward rasterizer rows
-   within 1e-4 of each row's largest value, segment sum at rtol 1e-5, the
-   regroup sort bit-equal to ``torch.sort(stable=True)``);
+   within 1e-3 of each row's largest |value| and bit-identical on a rerun,
+   segment sum at rtol 1e-5, the regroup sort bit-equal to
+   ``torch.sort(stable=True)``);
 8. runs one ``train_step`` of a small scene (20K Gaussians, 320x200) on the
    card and on the port's CPU path: loss, gradients, moments and
    accumulators must agree;
 9. trains a perturbed copy of the 1M scene for 8 steps over the 4 views
    rendered from the scene itself (``train_step``): loss, ms per step and
    pairs; finite losses, a lower mean loss on the second pass, every kernel
-   launched, the radix sort exactly twice per step, peak memory, and
-   bit-identical gradients from two calls on the same state;
+   launched, the radix sort exactly once per step at each of its two call
+   sites, peak memory, and bit-identical gradients from two calls on the
+   same state; then a torch.profiler run of 4 more steps: device ms per
+   step, the device's busy share, and the device time of each kernel;
 10. times the backward kernels against their plain versions at the 1M
     view's shapes.
 
-Prints one JSON line of kernels, then the nvidia-smi line, then the result
-line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
-Exits non-zero at once when no CUDA device is present.
+Beside each kernel's time at the 1M view it prints the plain version's,
+the one PyTorch call that computes the same function (``library_ms``:
+``repeat_interleave``, ``torch.sort(stable=True)``, ``index_add_``; none
+for the rasterizers), and the least time an H100 could take for the work
+(``kernel_bound``; for the rasterizers from the pair-pixels these inputs
+need and those of them past the 1/255 cutoff, ``pair_pixel_counts``), then
+orders the kernels by launches per train step x (time - bound). Prints one
+JSON line of kernels (the radix sort once per call site), then the
+nvidia-smi line, then the result line ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero. Exits non-zero at once when no CUDA
+device is present.
+
+    python3 -P chip_smoke.py --train-profile
+
+runs [1] and [9]'s train steps and profile alone, without checks, with the
+``gsplat_tpu_torch`` that the import path finds first: with ``-P`` and
+``PYTHONPATH`` set to another checkout (an earlier commit unpacked by
+``git archive``), one copy of this script profiles that checkout's train
+step, so that two trees compare in one call.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,10 +95,89 @@ SOURCES = {
     "segment_sum": "gsplat_tpu_torch/csrc/segsum.cu",
 }
 TRAIN_STEPS = 8
+PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
+PROFILE_TOP = 10  # [9]: other kernels listed by device time
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory bytes/s and FP32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations the rasterizers need per pair-pixel, counted from the
+# kernel sources (an FMA is 2; a multiply, add, reciprocal, compare or min
+# is 1). expf is 10: 4 FFMA, 1 FADD and 1 FMUL beside an integer shift and
+# a MUFU.EX2 in the compiled rasterizers ([2] prints its instructions).
+# Every pair-pixel of a pixel's n_splats: dx, dy 2; power 11 (7 mul, 2 add,
+# the -0.5 mul, min); expf 10; alpha 2 (mul, min); the 1/255 cutoff 1.
+ALPHA_OPS = 26
+# Only a pair-pixel past the cutoff goes on. K1 (csrc/rasterize_fwd.cu):
+# T (1 - alpha) 2; the T test 1; w 1; three colour FMAs 6.
+K1_PASS_OPS = 10
+# K2 (csrc/rasterize_bwd.cu): 1 - alpha and its reciprocal 2; T 1; c . dI
+# 5; w 1; grad_alpha 3; the sum behind the splat 2; d/d power 2; the nine
+# values added into the pixel sums 5 + 5 + 4 + 3 + 4 + 1 + 6.
+K2_PASS_OPS = 44
+
+
+def kernel_bound(name: str, **work) -> dict:
+    """The least time an H100 could take for one kernel's work.
+
+    Bytes count each input read once and each output written once; FP32
+    operations count what these inputs need. For the rasterizers that is
+    ALPHA_OPS for each of ``pair_pixels`` (the sum of the forward's
+    n_splats row) and the kernel's PASS_OPS for each of ``passing`` (those
+    of them past the 1/255 cutoff, ``pair_pixel_counts``). ``work`` keys:
+    ``expand`` [(cols, records, total)] (segment_expand), ``keys``
+    (radix_sort), ``gaussians``, ``pairs``, ``tiles``, ``pair_pixels``,
+    ``passing`` (rasterizers; segment_sum takes gaussians and pairs).
+    Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
+    """
+    pix = TILE * TILE
+    if name == "segment_expand":  # records and offsets in, columns out
+        nbytes = sum(4 * (c * r + r + 1 + c * t) for c, r, t in work["expand"])
+        ops = 0
+    elif name == "radix_sort":  # keys in; sorted keys and permutation out
+        nbytes, ops = 12 * work["keys"], 0
+    elif name in ("rasterize_forward", "rasterize_backward"):
+        g, p, t = work["gaussians"], work["pairs"], work["tiles"]
+        # attribute rows, splat_gid, tile_start and tile_count; 5 output rows
+        nbytes = 36 * g + 4 * p + 8 * t + 4 * 5 * pix * t
+        ops = ALPHA_OPS * work["pair_pixels"]
+        if name == "rasterize_forward":
+            ops += K1_PASS_OPS * work["passing"]
+        else:  # + the image cotangent in, one 9-float row per pair out
+            nbytes += 4 * 3 * pix * t + 36 * p
+            ops += K2_PASS_OPS * work["passing"]
+    elif name == "segment_sum":  # rows, perm, sorted_gid in; sums out
+        nbytes = 44 * work["pairs"] + 36 * work["gaussians"]
+        ops = 9 * work["pairs"]
+    else:
+        raise ValueError(f"no bound for {name}")
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def exp_instructions(lib_path: str) -> str:
+    """The forward rasterizer's SASS opcodes from 10 before its first
+    MUFU.EX2 (the hardware exp2 inside expf) to 2 after, by cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                              timeout=120).stdout
+    except OSError as e:
+        return f"not read ({e})"
+    for body in sass.split("Function : ")[1:]:
+        if "rasterize_forward_kernel" in body.split("\n", 1)[0]:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                             body)
+            if "MUFU.EX2" in ops:
+                i = ops.index("MUFU.EX2")
+                return " ".join(ops[max(0, i - 10):i + 3])
+    return "not found in cuobjdump's output"
 
 
 def scene_arrays(n: int, seed: int, perturb_seed: int | None = None):
@@ -199,6 +304,40 @@ def path_inputs(params, cm, st):
     )
 
 
+def pair_pixel_counts(raster, out, num_tiles_x: int) -> dict:
+    """What the rasterizers' work is made of on these inputs: the
+    pair-pixels of the forward's n_splats row (``pair_pixels``), and those
+    of them whose alpha passes the 1/255 cutoff (``passing``), alpha
+    evaluated as the plain versions evaluate it, 64 pairs of every tile a
+    step. Also the pair-pixels that the kernels' warps step through, a
+    warp going on to its pixels' largest n_splats: K1's warps hold 32
+    pixels of a tile (``fwd_warp_pair_pixels``), K2's 128, 4 a thread
+    (``bwd_warp_pair_pixels``)."""
+    from gsplat_tpu_torch.kernels.rasterize import (
+        ALPHA_CUTOFF, ALPHA_MAX, _pixel_centres, _tile_lists)
+
+    attrs, gid, start, count = raster
+    nspl = out[:, 4, :, None]  # (T, PIX, 1)
+    lists, valid = _tile_lists(gid, start, count)
+    px, py = _pixel_centres(start.shape[0], num_tiles_x, TILE, attrs.device)
+    passing = 0
+    with torch.no_grad():
+        for c0 in range(0, min(int(nspl.max()), lists.shape[1]), 64):
+            a = attrs[lists[:, c0:c0 + 64]][:, None]  # (T, 1, K, 9)
+            dx, dy = a[..., 0] - px, a[..., 1] - py  # (T, PIX, K)
+            power = torch.clamp(-0.5 * (a[..., 2] * dx * dx + 2.0 * a[..., 3] * dx * dy
+                                        + a[..., 4] * dy * dy), max=0.0)
+            alpha = torch.clamp(a[..., 5] * torch.exp(power), max=ALPHA_MAX)
+            k = torch.arange(c0, c0 + a.shape[2], device=attrs.device)
+            live = valid[:, None, c0:c0 + 64] & (k < nspl) & (alpha > ALPHA_CUTOFF)
+            passing += int(live.sum().item())
+    n = out[:, 4].double()  # (T, PIX)
+    warp_steps = {w: int(n.view(n.shape[0], -1, w).amax(dim=2).sum().item()) * w
+                  for w in (32, 128)}
+    return dict(pair_pixels=int(n.sum().item()), passing=passing,
+                fwd_warp_pair_pixels=warp_steps[32], bwd_warp_pair_pixels=warp_steps[128])
+
+
 def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     """Each kernel vs its plain version on the card; raises on disagreement."""
     from gsplat_tpu_torch.kernels import expand, rasterize, sort
@@ -212,12 +351,18 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         ref = expand.segment_expand_plain(*args)
         if not torch.equal(got, ref):
             raise AssertionError("segment_expand differs from its plain version")
+    counts = [(rec, (off[1:] - off[:-1]).long(), total)
+              for rec, off, total in inp["expand"]]
     res["segment_expand"] = dict(
-        max_abs_err=0.0,
+        max_abs_err=0.0, calls=len(inp["expand"]),
         ms=sum(cuda_ms(lambda a=a: expand.segment_expand(*a), timing_iters)
                for a in inp["expand"]),
         plain_ms=sum(cuda_ms(lambda a=a: expand.segment_expand_plain(*a), timing_iters)
                      for a in inp["expand"]),
+        library_ms=sum(cuda_ms(lambda r=r, c=c, t=t: torch.repeat_interleave(
+            r, c, dim=1, output_size=t), timing_iters) for r, c, t in counts),
+        **kernel_bound("segment_expand", expand=[
+            (rec.shape[0], rec.shape[1], total) for rec, _, total in inp["expand"]]),
     )
     # K3: keys and permutation bit-equal to the stable torch.sort.
     keys, key_bits = inp["sort"]
@@ -229,6 +374,8 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         max_abs_err=0.0,
         ms=cuda_ms(lambda: sort.radix_sort(keys, key_bits), timing_iters),
         plain_ms=cuda_ms(lambda: sort.radix_sort_plain(keys, key_bits), timing_iters),
+        library_ms=cuda_ms(lambda: torch.sort(keys, stable=True), timing_iters),
+        **kernel_bound("radix_sort", keys=keys.shape[0]),
     )
     # K1: image PSNR >= 60 dB, n_splats equal on >= 99.9 % of pixels.
     kw = dict(num_tiles_x=st.num_tiles_x)
@@ -244,19 +391,41 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         f"max |T_final diff| {(got[:, 3] - ref[:, 3]).abs().max().item():.3g}")
     if not (img_psnr >= 60.0 and same_n >= 0.999 and math.isfinite(err)):
         raise AssertionError("rasterize_forward disagrees with its plain version")
+    attrs, gid, start, _ = inp["raster"]
+    work = pair_pixel_counts(inp["raster"], got, st.num_tiles_x)
+    log_work(work)
     res["rasterize_forward"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: rasterize.rasterize_forward(*inp["raster"], BG, **kw),
                    timing_iters),
         plain_ms=cuda_ms(lambda: rasterize.rasterize_forward_plain(
             *inp["raster"], BG, **kw), max(1, timing_iters // 4)),
+        library_ms=None,
+        **kernel_bound("rasterize_forward", gaussians=attrs.shape[0],
+                       pairs=gid.shape[0], tiles=start.shape[0], **work),
     )
     log(f"  rows {inp['num_rows']}, pairs {inp['num_pairs']}, "
         f"sort key bits {key_bits}")
-    for name, r in res.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+    log_times(res)
     return res
+
+
+def log_work(work: dict) -> None:
+    pp = max(work["pair_pixels"], 1)
+    log(f"  pair-pixels {work['pair_pixels']}, past the 1/255 cutoff "
+        f"{work['passing']} ({100 * work['passing'] / pp:.2f} %); stepped through "
+        f"by warps of 32 pixels {work['fwd_warp_pair_pixels']} "
+        f"({work['fwd_warp_pair_pixels'] / pp:.3f}x), of 128 pixels "
+        f"{work['bwd_warp_pair_pixels']} ({work['bwd_warp_pair_pixels'] / pp:.3f}x)")
+
+
+def log_times(res: dict) -> None:
+    for name, r in res.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{r['bytes']} bytes, {r['ops']} FP32 ops), max_abs_err "
+            f"{r['max_abs_err']:.3g}")
 
 
 def check_small_scene_against_cpu(dev) -> None:
@@ -305,10 +474,11 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
     args, n = backward_inputs(params, cm, st)
     kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y)
     res = {}
-    # K2. The 256-pixel sums run in another order (warp shuffles vs a tensor
-    # sum) and T is replayed by division instead of chunked products: each
-    # row must lie within 1e-3 of its largest |value| (+1e-6). Both are off
-    # a float64 replay by up to 1.5e-4 of it on small scenes.
+    # K2. The 256-pixel sums run in another order (registers and warp
+    # shuffles vs a tensor sum) and T is replayed by a reciprocal instead of
+    # chunked products: each row must lie within 1e-3 of its largest |value|
+    # (+1e-6). Both are off a float64 replay by up to 1.5e-4 of it on small
+    # scenes.
     rows = rasterize.rasterize_backward(*args, BG, **kw)
     again = rasterize.rasterize_backward(*args, BG, **kw)
     ref = rasterize.rasterize_backward_plain(*args, BG, **kw)
@@ -320,14 +490,20 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
     if not (bool((err <= 1e-3 * scale + 1e-6).all()) and torch.equal(rows, again)
             and bool(torch.isfinite(rows).all())):
         raise AssertionError("rasterize_backward disagrees with its plain version")
+    gid, start = args[1], args[2]
+    work = pair_pixel_counts(args[:4], args[4], st.num_tiles_x)
+    log_work(work)
     res["rasterize_backward"] = dict(
         max_abs_err=err.max().item(),
         ms=cuda_ms(lambda: rasterize.rasterize_backward(*args, BG, **kw), timing_iters),
         plain_ms=cuda_ms(lambda: rasterize.rasterize_backward_plain(*args, BG, **kw),
                          max(1, timing_iters // 4)),
+        library_ms=None,
+        **kernel_bound("rasterize_backward", gaussians=n, pairs=gid.shape[0],
+                       tiles=start.shape[0], **work),
     )
     # K3 at the regroup call site: bit-equal to the stable torch.sort.
-    gid, bits = args[1], regroup_key_bits(n)
+    bits = regroup_key_bits(n)
     sorted_gid, perm = sort.radix_sort(gid, bits)
     ref_k, ref_p = sort.radix_sort_plain(gid, bits)
     if not (torch.equal(sorted_gid, ref_k) and torch.equal(perm, ref_p)):
@@ -336,6 +512,8 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
         max_abs_err=0.0, key_bits=bits,
         ms=cuda_ms(lambda: sort.radix_sort(gid, bits), timing_iters),
         plain_ms=cuda_ms(lambda: sort.radix_sort_plain(gid, bits), timing_iters),
+        library_ms=cuda_ms(lambda: torch.sort(gid, stable=True), timing_iters),
+        **kernel_bound("radix_sort", keys=gid.shape[0]),
     )
     # K4 at rtol 1e-5; index_add_ on the card adds with atomics, in another
     # order, so cancelling sums also get 1e-5 of the column's largest |value|.
@@ -348,17 +526,48 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
     if not (bool((err <= 1e-5 * ref.abs() + 1e-5 * ref.abs().amax(dim=0)).all())
             and torch.equal(sums, again)):
         raise AssertionError("segment_sum disagrees with its plain version")
+    gid64 = gid.long()
     res["segment_sum"] = dict(
         max_abs_err=err.max().item(),
         ms=cuda_ms(lambda: segsum.segment_sum(rows, perm, sorted_gid, n), timing_iters),
         plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(rows, perm, sorted_gid, n),
                          timing_iters),
+        library_ms=cuda_ms(lambda: torch.zeros((n, 9), device=rows.device).index_add_(
+            0, gid64, rows), timing_iters),
+        **kernel_bound("segment_sum", gaussians=n, pairs=gid.shape[0]),
     )
     log(f"  pairs {gid.shape[0]}, Gaussians {n}, regroup key bits {bits}")
-    for name, r in res.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+    log_times(res)
     return res
+
+
+def check_sort_edge_cases(dev) -> None:
+    """K3 bit-equal to torch.sort(stable=True), keys and permutation, at the
+    sizes around one tile, on equal keys and on keys that use only the top
+    digit, for key_bits 1, 20, 29 and 31."""
+    from gsplat_tpu_torch.kernels import sort
+
+    tile = sort.TILE_KEYS
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = 0
+    for key_bits in (1, 20, 29, 31):
+        top = sort.sort_plan(1, key_bits).shifts[-1]  # the last pass's shift
+        for n in (0, 1, tile - 1, tile, tile + 1, 3 * tile + 5, 1_000_003):
+            rand = torch.randint(0, 1 << key_bits, (n,), generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            for kind, keys in (("random", rand),
+                               ("equal", torch.full_like(rand, (1 << key_bits) - 1)),
+                               ("top digit", (rand >> top) << top)):
+                got_k, got_p = sort.radix_sort(keys, key_bits)
+                ref = torch.sort(keys, stable=True)
+                if not (torch.equal(got_k, ref.values)
+                        and torch.equal(got_p, ref.indices.to(torch.int32))):
+                    raise AssertionError(f"radix_sort differs from torch.sort(stable="
+                                         f"True): {kind} keys, n {n}, key_bits {key_bits}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"  {cases} cases bit-equal to torch.sort(stable=True), keys and permutation "
+        f"(tile {tile} keys)")
 
 
 def one_step(state, cm, gt, it, st):
@@ -427,22 +636,25 @@ def check_small_train_against_cpu(dev) -> None:
         raise AssertionError(f"card disagrees with the CPU path: {failed}")
 
 
-def train_slice(cams, st, dev):
-    """The slice: train a perturbed 1M scene on the 4 views rendered from
-    the scene itself. Returns the launches of the training run."""
-    from gsplat_tpu_torch.kernels import _build
+def train_scene(cams, st, dev):
+    """The training run's targets (the 4 views rendered from the 1M scene)
+    and its start (a perturbed copy of the scene, as a TrainState)."""
     from gsplat_tpu_torch.train.state import init_state
-    from gsplat_tpu_torch.train.step import compute_loss_and_grads, render_image, train_step
+    from gsplat_tpu_torch.train.step import render_image
 
     truth = scene_params(1_000_000, seed=0, device=dev)
     gts = [render_image(truth, cm.view, cm.proj, cm.campos, BG, st)[0] for cm in cams]
     del truth
-    state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
+    return gts, init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
+
+
+def run_steps(state, cams, gts, st, its, quiet: bool = False):
+    """train_step at iterations ``its``, view it % 4: (state, losses, ms
+    between CUDA events per step)."""
+    from gsplat_tpu_torch.train.step import train_step
+
     losses, times = [], []
-    for it in range(TRAIN_STEPS):
+    for it in its:
         v = it % len(cams)
         cm = cams[v]
         start = torch.cuda.Event(enable_timing=True)
@@ -453,25 +665,87 @@ def train_slice(cams, st, dev):
         end.synchronize()
         losses.append(float(m.loss))
         times.append(start.elapsed_time(end))
-        log(f"  step {it} view {v}: loss {losses[-1]:.6f}, psnr {float(m.psnr):.3f} dB, "
-            f"{times[-1]:.3f} ms, pairs {m.num_pairs}, visible {int(m.num_visible)}")
+        if not quiet:
+            log(f"  step {it} view {v}: loss {losses[-1]:.6f}, psnr {float(m.psnr):.3f} "
+                f"dB, {times[-1]:.3f} ms, pairs {m.num_pairs}, visible "
+                f"{int(m.num_visible)}")
+    return state, losses, times
+
+
+def port_kernel_names() -> set:
+    """The __global__ functions of the imported package's csrc/*.cu."""
+    from gsplat_tpu_torch.kernels import _build
+
+    text = "\n".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
+
+
+def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float):
+    """torch.profiler over PROFILED_STEPS more train steps: device ms and
+    launches per step, the busy share (device ms over ``wall_ms``, the
+    median ms/step of the timed steps), the port's kernels and the other
+    kernels that take the most device time. Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _, _ = run_steps(state, cams, gts, st,
+                                range(first_it, first_it + PROFILED_STEPS), quiet=True)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3 / PROFILED_STEPS,
+                    e.count / PROFILED_STEPS)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    device = sum(ms for _, ms, _ in rows)
+    if device <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    names = port_kernel_names()
+    ours = [r for r in rows if any(k in r[0] for k in names)]
+    log(f"  device profile of {PROFILED_STEPS} steps: {device:.3f} ms/step, busy "
+        f"{100 * device / wall_ms:.1f} % of {wall_ms:.3f} ms, "
+        f"{sum(n for *_, n in rows):.1f} launches/step; port kernels "
+        f"{sum(ms for _, ms, _ in ours):.3f} ms/step")
+    others = [r for r in rows if r not in ours][:PROFILE_TOP]
+    for i, (key, ms, n) in enumerate(ours + others):
+        if i == len(ours):
+            log(f"  other kernels, top {PROFILE_TOP}:")
+        log(f"    {ms:8.3f} ms {n:6.1f}x  {key[:96]}")
+    return state
+
+
+def train_slice(cams, st, dev):
+    """The slice: train a perturbed 1M scene on the 4 views rendered from
+    the scene itself, then profile a few more steps. Returns the launches
+    of the training run and the trained parameters."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.train.step import compute_loss_and_grads
+
+    gts, state = train_scene(cams, st, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    state, losses, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS))
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
     half = len(cams)
     first, second = statistics.mean(losses[:half]), statistics.mean(losses[half:])
-    log(f"  median {statistics.median(times[1:]):.3f} ms/step over steps 1-"
-        f"{TRAIN_STEPS - 1}; mean loss pass 1 {first:.6f}, pass 2 {second:.6f}; "
-        f"peak allocated {peak:.0f} MiB; launches {launches}")
+    median = statistics.median(times[1:])
+    log(f"  median {median:.3f} ms/step over steps 1-{TRAIN_STEPS - 1}; mean loss "
+        f"pass 1 {first:.6f}, pass 2 {second:.6f}; peak allocated {peak:.0f} MiB; "
+        f"launches {launches}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"a loss is not finite: {losses}")
     if not second < first:
         raise AssertionError("the second pass over the views did not lower the loss")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
-    if launches["radix_sort"] != 2 * TRAIN_STEPS:
-        raise AssertionError(f"radix_sort launched {launches['radix_sort']} times, "
-                             f"not 2 per step")
+    # One train step sorts twice: the tile sort in the forward, the regroup
+    # in the backward.
+    if not (launches["radix_sort/tile"] == launches["radix_sort/regroup"] == TRAIN_STEPS
+            and launches["radix_sort"] == 2 * TRAIN_STEPS):
+        raise AssertionError(f"radix_sort did not launch once per step at each call "
+                             f"site: {launches}")
     runs = [compute_loss_and_grads(state.params, cams[0].view, cams[0].proj,
                                    cams[0].campos, gts[0], BG, st) for _ in range(2)]
     (_, _, _, _, g_a, uv_a), (_, _, _, _, g_b, uv_b) = runs
@@ -479,7 +753,27 @@ def train_slice(cams, st, dev):
     if not (same and torch.equal(bits_of(uv_a), bits_of(uv_b))):
         raise AssertionError("two gradient calls on the same state differ")
     log("  gradients of two calls on the same state are bit-identical")
+    del runs, g_a, g_b, uv_a, uv_b
+    state = profile_steps(state, cams, gts, st, TRAIN_STEPS, median)
     return launches, state.params
+
+
+def train_profile(dev) -> None:
+    """``--train-profile``: [9]'s train steps and device profile alone,
+    without its checks, with whatever ``gsplat_tpu_torch`` is imported, so
+    that one copy of this script can profile several checkouts (see the
+    module docstring)."""
+    from gsplat_tpu_torch.kernels import _build
+
+    _build.build()
+    cams = views()
+    st = statics(cams[0])
+    gts, state = train_scene(cams, st, dev)
+    state, _, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS), quiet=True)
+    median = statistics.median(times[1:])
+    log(f"[9] train_step, 1M Gaussians: median {median:.3f} ms/step over steps 1-"
+        f"{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)})")
+    profile_steps(state, cams, gts, st, TRAIN_STEPS, median)
 
 
 def main() -> int:
@@ -499,14 +793,22 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--train-profile"]:
+        train_profile(dev)
+        return 0
 
     # 2. Build.
     t0 = time.perf_counter()
-    _build.build()
+    lib = _build.build()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("    " + line.strip())
+    log(f"    expf in rasterize_forward_kernel: {exp_instructions(lib._name)}")
+
+    # 2b. The radix sort's edge cases.
+    log("[2b] radix sort edge cases vs torch.sort(stable=True)")
+    check_sort_edge_cases(dev)
 
     # 3. Kernels vs plain versions, 100K Gaussians, bench view.
     cams = views()
@@ -563,17 +865,29 @@ def main() -> int:
     # 10. Backward kernel times at the 1M view's shapes.
     log("[10] backward kernels vs plain versions at 1M Gaussians")
     bwd = compare_backward(trained, cams[0], st, 10)
-    res.update(rasterize_backward=bwd["rasterize_backward"],
-               segment_sum=bwd["segment_sum"])
-    # One train step sorts twice: the tile sort and the regroup.
-    for key in ("ms", "plain_ms"):
-        res["radix_sort"][key] += bwd["regroup_sort"][key]
 
-    kernels = [
-        dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-             launches=launches[name], **res[name])
-        for name in SOURCES
-    ]
+    table = [("segment_expand", None, res["segment_expand"]),
+             ("radix_sort", "tile", res["radix_sort"]),
+             ("radix_sort", "regroup", bwd["regroup_sort"]),
+             ("rasterize_forward", None, res["rasterize_forward"]),
+             ("rasterize_backward", None, bwd["rasterize_backward"]),
+             ("segment_sum", None, bwd["segment_sum"])]
+    kernels, gaps = [], []
+    for name, site, r in table:
+        n_launch = launches[name if site is None else f"{name}/{site}"]
+        entry = dict(name=name, route="cuda", source=SOURCES[name],
+                     replaces=REPLACES[name], launches=n_launch,
+                     launches_per_step=n_launch / TRAIN_STEPS)
+        if site is not None:
+            entry["site"] = site
+        entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")})
+        kernels.append(entry)
+        # K5's ms and bound cover the frame's two calls.
+        gaps.append((entry["launches_per_step"] / r.get("calls", 1)
+                     * (r["ms"] - r["bound_ms"]), f"{name} {site or ''}".strip()))
+    log("  launches per step x (time - bound), ms: " + ", ".join(
+        f"{label} {gap:.4f}" for gap, label in sorted(gaps, reverse=True)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

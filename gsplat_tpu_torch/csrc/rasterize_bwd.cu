@@ -1,25 +1,46 @@
 // Backward tile rasterizer: back-to-front replay, one gradient row per pair.
 //
 // Replaces the TPU kernel gsplat_tpu/kernels/rasterize.py::rasterize_backward
-// (_backward_kernel / _backward_tile) in its exact f32 mode. The TPU kernel
-// walks (256 pixel x K pair) chunks with lane-axis cumulative products,
-// writes only the chunks it owns and leaves the rest of its output
-// uninitialised (ops/render.py masks and patches it afterwards). Here:
+// (:815; _backward_kernel / _backward_tile) in its exact f32 mode. The TPU
+// kernel walks (256 pixel x K pair) chunks with lane-axis cumulative
+// products, writes only the chunks it owns and leaves the rest of its
+// output uninitialised (ops/render.py masks and patches it afterwards).
+// Here:
 //
-//   one CTA per 16x16 tile, 256 threads, one thread per pixel; the tile's
-//   pairs are read through splat_gid into shared memory in batches of 64,
-//   walked back to front from the batch that holds the tile's largest
-//   n_splats (a block max over the forward's n_splats row). Each pixel
-//   replays T from its T_final (T /= 1 - alpha) and keeps one scalar suffix
-//   sum of w_k (c_k . dI): the image cotangent is constant per pixel, so the
-//   reference's three per-colour sums collapse into one.
+//   one CTA per 16x16 tile, 64 threads, each replaying 4 neighbouring
+//   pixels of a row; the tile's pairs are read through splat_gid into
+//   shared memory in batches of 64, walked back to front from the batch
+//   that holds the tile's largest n_splats (a block max over the forward's
+//   n_splats row); a warp skips the pairs past its own deepest n_splats.
+//   Each pixel replays T from its T_final (T *= 1 / (1 - alpha), one
+//   approximate reciprocal per pair, within 2 ulp as 1 - alpha >= 0.01)
+//   and keeps one scalar sum of what lies behind the splat: the
+//   background's share T_final bg sum(dI) plus w_k (c_k . dI) of every
+//   later splat (the image cotangent is constant per pixel, so the
+//   reference's three per-colour sums collapse into one).
 //
-//   Each pair's nine values are summed over the 256 pixels by warp shuffles
-//   (skipped when no lane of the warp touches the pair), then one partial per
-//   warp goes to shared memory, and after the batch one thread per value adds
-//   the 8 warp partials in warp order and writes the row. Every row of the
-//   tile's range is written exactly once: rows past every pixel's n_splats
-//   are written as zeros. No atomics, so a rerun gives bit-identical rows.
+// What bounds it on an H100: instruction issue. Each replayed pair-pixel
+// is 26 FP32 operations up to the 1/255 cutoff (expf is 10 of them) and 44
+// more past it (chip_smoke.py counts both), and every pair's nine values
+// must be summed over the tile's 256 pixels. Summing each value with a
+// butterfly (5 shuffles) costs 45 shuffles per pair and warp, and the card
+// issues shuffles at a quarter of the FP32 rate, so those butterflies
+// would outweigh the arithmetic. Instead:
+//
+//   a thread sums its 4 pixels' values in registers, so the warp sums 128
+//   pixels at once; and it holds the nine values of a group of 4
+//   consecutive pairs of the walk (36 registers). A group with no live lane
+//   in the warp is skipped; otherwise the warp reduce-scatters the 36
+//   values: at each of five halving steps a lane keeps half of its partials
+//   and sends the other half to its partner, so every shuffle carries a
+//   distinct partial (31 shuffles leave lane L with value L summed over the
+//   warp; the last 4 values take 6 more), 37 shuffles per group instead of
+//   180. One partial per warp and value goes to shared memory; after the
+//   batch one thread per value adds the 2 warp partials in warp order and
+//   writes the row. Every row of the tile's range is written exactly once:
+//   rows past every pixel's n_splats are written as zeros. The summation
+//   order is fixed and there are no atomics, so a rerun gives bit-identical
+//   rows.
 //
 // Semantics (gsplat_tpu/ops/oracle.py::oracle_render_backward, and the TPU
 // kernel's exact mode): replay only for k < n_splats(pixel) and
@@ -30,13 +51,6 @@
 // clamps are ignored in the derivative. Rows [du dv dc00 dc01 dc11 dopa dr
 // dg db]; du and dv are scaled by 0.5 * the padded grid's width and height
 // (scale_u, scale_v); dopa is d/d(sigmoid-ed opacity).
-//
-// What bounds it on an H100: FP32 issue and shuffle throughput. At the bench
-// point (~5.5M pairs at 1M Gaussians, 1296x840) each replayed pair-pixel is
-// ~40 FP32 operations and one exp, and each pair a warp touches costs 45
-// shuffles; the replay stops at each tile's deepest n_splats, so saturated
-// pixels cost nothing behind their last splat, and warps with no live pixel
-// for a pair skip its shuffles.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,18 +64,30 @@ using gs::kAttrs;
 using gs::kOutRows;
 using gs::kPix;
 using gs::kTile;
-constexpr int kWarps = kPix / 32;
+constexpr int kPixPerThread = 4;  // pixels a thread replays
+constexpr int kThreads = kPix / kPixPerThread;
+constexpr int kWarps = kThreads / 32;
 constexpr int kGrads = 9;    // [du dv dc00 dc01 dc11 dopa dr dg db]
 constexpr int kBatch = 64;   // pairs staged per batch
+constexpr int kGroup = 4;    // pairs reduced together
+constexpr int kVals = kGroup * kGrads;  // 36 = 32 + 4
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One halving step over x[0, 2h): lanes with bit `o` clear keep x[0, h),
+// the others x[h, 2h); each adds the partner's partials of the half it
+// keeps, which land in x[0, h).
+template <int H>
+__device__ __forceinline__ void halve(float* x, int lane, int o) {
+  const bool upper = lane & o;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? x[i] : x[i + H];
+    const float keep = upper ? x[i + H] : x[i];
+    x[i] = keep + __shfl_xor_sync(kFull, send, o);
+  }
 }
 
-__global__ void __launch_bounds__(kPix)
+__global__ void __launch_bounds__(kThreads)
 rasterize_backward_kernel(float* __restrict__ grads,
                           const float* __restrict__ attrs,
                           const int32_t* __restrict__ splat_gid,
@@ -71,8 +97,10 @@ rasterize_backward_kernel(float* __restrict__ grads,
                           const float* __restrict__ d_tiles,
                           int num_tiles_x, float bg, float scale_u,
                           float scale_v) {
-  __shared__ float s_attr[kAttrs][kBatch];
-  __shared__ float s_part[kWarps][kGrads][kBatch];
+  // A pair's attributes as three float4s [u v c00 c01] [c11 opa r g] [b]:
+  // three broadcast loads a pair.
+  __shared__ float4 s_attr[3][kBatch];
+  __shared__ float s_part[kWarps][kBatch * kGrads];  // [warp][pair * 9 + value]
   __shared__ int s_maxn[kWarps];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -80,21 +108,37 @@ rasterize_backward_kernel(float* __restrict__ grads,
   const int warp = tid >> 5;
   const int start = tile_start[t];
   const int count = tile_count[t];
-  const float px = (float)((t % num_tiles_x) * kTile + tid % kTile);
-  const float py = (float)((t / num_tiles_x) * kTile + tid / kTile);
 
-  const float* o = out + (int64_t)t * kOutRows * kPix + tid;
-  const float t_final = o[3 * kPix];
-  const int nspl = (int)o[4 * kPix];
-  const float* d = d_tiles + (int64_t)t * 3 * kPix + tid;
-  const float dr = d[0], dg = d[kPix], db = d[2 * kPix];
-  const float bg_term = t_final * (bg * (dr + dg + db));
-
-  // The tile's deepest splat: a block max of n_splats.
-  int m = nspl;
+  // This thread's pixels: kPixPerThread neighbours in a row of the tile,
+  // (px + q, py) for q < kPixPerThread.
+  const float px = (float)((t % num_tiles_x) * kTile + (tid * kPixPerThread) % kTile);
+  const float py = (float)((t / num_tiles_x) * kTile + (tid * kPixPerThread) / kTile);
+  float T[kPixPerThread], rest[kPixPerThread], dr[kPixPerThread];
+  float dg[kPixPerThread], db[kPixPerThread];
+  int nspl[kPixPerThread];
+  int wmax = 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(kFull, m, off));
-  if (lane == 0) s_maxn[warp] = m;
+  for (int q = 0; q < kPixPerThread; ++q) {
+    const int pix = tid * kPixPerThread + q;
+    const float* o = out + (int64_t)t * kOutRows * kPix + pix;
+    const float* d = d_tiles + (int64_t)t * 3 * kPix + pix;
+    T[q] = o[3 * kPix];  // T_final: the replay starts behind the last splat
+    nspl[q] = (int)o[4 * kPix];
+    dr[q] = d[0];
+    dg[q] = d[kPix];
+    db[q] = d[2 * kPix];
+    // What lies behind the splat being replayed: the background's share
+    // T_final bg sum(dI), plus w_j (c_j . dI) of every splat behind it.
+    rest[q] = T[q] * (bg * (dr[q] + dg[q] + db[q]));
+    wmax = max(wmax, nspl[q]);
+  }
+
+  // The warp's and the tile's deepest splat: maxima of n_splats.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    wmax = max(wmax, __shfl_xor_sync(kFull, wmax, off));
+  }
+  if (lane == 0) s_maxn[warp] = wmax;
   __syncthreads();
   int maxn = 0;
 #pragma unroll
@@ -102,68 +146,101 @@ rasterize_backward_kernel(float* __restrict__ grads,
   maxn = min(maxn, count);
 
   float* g_tile = grads + (int64_t)start * kGrads;
-  for (int i = maxn * kGrads + tid; i < count * kGrads; i += kPix) g_tile[i] = 0.0f;
+  for (int i = maxn * kGrads + tid; i < count * kGrads; i += kThreads) {
+    g_tile[i] = 0.0f;
+  }
 
-  float T = t_final;      // transmittance entering the splat being replayed
-  float suffix = 0.0f;    // sum of w_j (c_j . dI) over the splats behind it
+  // Where this lane's reduced values go: value `lane` of the group
+  // (pair lane / 9 of the group, row lane % 9) and, on lanes 0, 8, 16, 24,
+  // value 32 + lane / 8 (pair 3, row 5 + lane / 8).
+  const int lo_pair = lane / kGrads, lo_row = lane % kGrads;
+  const int hi_row = 5 + (lane >> 3);
+
   const int nbatch = (maxn + kBatch - 1) / kBatch;
   for (int b = nbatch - 1; b >= 0; --b) {
     const int b0 = b * kBatch;
     const int nb = min(kBatch, maxn - b0);
     __syncthreads();  // the previous batch's shared rows are consumed
-    if (tid < nb) {
-      const float* a = attrs + (int64_t)splat_gid[start + b0 + tid] * kAttrs;
-#pragma unroll
-      for (int k = 0; k < kAttrs; ++k) s_attr[k][tid] = a[k];
+    for (int j = tid; j < nb; j += kThreads) {
+      const float* a = attrs + (int64_t)splat_gid[start + b0 + j] * kAttrs;
+      s_attr[0][j] = make_float4(a[0], a[1], a[2], a[3]);
+      s_attr[1][j] = make_float4(a[4], a[5], a[6], a[7]);
+      s_attr[2][j] = make_float4(a[8], 0.0f, 0.0f, 0.0f);
     }
     __syncthreads();
-    for (int j = nb - 1; j >= 0; --j) {
-      const float c00 = s_attr[2][j], c01 = s_attr[3][j], c11 = s_attr[4][j];
-      const float opa = s_attr[5][j];
-      const float dx = s_attr[0][j] - px;
-      const float dy = s_attr[1][j] - py;
-      const float gval = gs::splat_falloff(c00, c01, c11, dx, dy);
-      const float alpha = gs::splat_alpha(opa, gval);
-      const bool valid = (b0 + j < nspl) && (alpha > kAlphaCutoff);
-      float v[kGrads];
+    for (int jt = nb - 1; jt >= 0; jt -= kGroup) {
+      // Pair g of the group is jt - g (none where that is negative). A
+      // group past every n_splats of the warp has no live lane: its sums
+      // are zeros.
+      float lo = 0.0f, hi = 0.0f;
+      if (b0 + max(jt - (kGroup - 1), 0) < wmax) {
+        float v[kVals];  // the thread's pixels summed in registers
+        bool live = false;
 #pragma unroll
-      for (int k = 0; k < kGrads; ++k) v[k] = 0.0f;
-      if (valid) {
-        const float one_minus = 1.0f - alpha;
-        const float inv = 1.0f / one_minus;
-        T = T / one_minus;
-        const float cdi = s_attr[6][j] * dr + s_attr[7][j] * dg + s_attr[8][j] * db;
-        const float w = alpha * T;
-        const float grad_alpha = cdi * T - suffix * inv - bg_term * inv;
-        suffix += w * cdi;
-        const float gp = gval * grad_alpha * opa;  // d/d power
-        v[0] = -(c00 * dx + c01 * dy) * gp;
-        v[1] = -(c11 * dy + c01 * dx) * gp;
-        v[2] = -0.5f * dx * dx * gp;
-        v[3] = -dx * dy * gp;
-        v[4] = -0.5f * dy * dy * gp;
-        v[5] = gval * grad_alpha;
-        v[6] = w * dr;
-        v[7] = w * dg;
-        v[8] = w * db;
-      }
-      if (__any_sync(kFull, valid)) {
+        for (int g = 0; g < kGroup; ++g) {
+          const int j = jt - g;
+          float* vg = v + g * kGrads;
 #pragma unroll
-        for (int k = 0; k < kGrads; ++k) v[k] = warp_sum(v[k]);
-      }
-      if (lane == 0) {
+          for (int k = 0; k < kGrads; ++k) vg[k] = 0.0f;
+          if (j < 0) continue;
+          const float4 a0 = s_attr[0][j], a1 = s_attr[1][j];
+          const float cb = s_attr[2][j].x;
+          const float c00 = a0.z, c01 = a0.w, c11 = a1.x, opa = a1.y;
 #pragma unroll
-        for (int k = 0; k < kGrads; ++k) s_part[warp][k][j] = v[k];
+          for (int q = 0; q < kPixPerThread; ++q) {
+            const float dx = a0.x - (px + (float)q);
+            const float dy = a0.y - py;
+            const float gval = gs::splat_falloff(c00, c01, c11, dx, dy);
+            const float alpha = gs::splat_alpha(opa, gval);
+            if ((b0 + j < nspl[q]) && (alpha > kAlphaCutoff)) {
+              live = true;
+              const float inv = __fdividef(1.0f, 1.0f - alpha);  // approximate
+              T[q] = T[q] * inv;
+              const float cdi = a1.z * dr[q] + a1.w * dg[q] + cb * db[q];
+              const float w = alpha * T[q];
+              const float grad_alpha = cdi * T[q] - rest[q] * inv;
+              rest[q] += w * cdi;
+              const float gp = gval * grad_alpha * opa;  // d/d power
+              vg[0] += -(c00 * dx + c01 * dy) * gp;
+              vg[1] += -(c11 * dy + c01 * dx) * gp;
+              vg[2] += -0.5f * dx * dx * gp;
+              vg[3] += -dx * dy * gp;
+              vg[4] += -0.5f * dy * dy * gp;
+              vg[5] += gval * grad_alpha;
+              vg[6] += w * dr[q];
+              vg[7] += w * dg[q];
+              vg[8] += w * db[q];
+            }
+          }
+        }
+        if (__any_sync(kFull, live)) {
+          halve<16>(v, lane, 16);
+          halve<8>(v, lane, 8);
+          halve<4>(v, lane, 4);
+          halve<2>(v, lane, 2);
+          halve<1>(v, lane, 1);
+          float* x = v + 32;
+          halve<2>(x, lane, 16);
+          halve<1>(x, lane, 8);
+#pragma unroll
+          for (int off = 4; off > 0; off >>= 1) {
+            x[0] += __shfl_xor_sync(kFull, x[0], off);
+          }
+          lo = v[0];
+          hi = x[0];
+        }
       }
+      float* part = s_part[warp];
+      if (jt - lo_pair >= 0) part[(jt - lo_pair) * kGrads + lo_row] = lo;
+      if ((lane & 7) == 0 && jt - 3 >= 0) part[(jt - 3) * kGrads + hi_row] = hi;
     }
     __syncthreads();
     float* g_batch = g_tile + (int64_t)b0 * kGrads;
-    for (int i = tid; i < nb * kGrads; i += kPix) {
-      const int j = i / kGrads;
-      const int k = i - j * kGrads;
+    for (int i = tid; i < nb * kGrads; i += kThreads) {
       float s = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += s_part[w][k][j];
+      for (int w = 0; w < kWarps; ++w) s += s_part[w][i];
+      const int k = i % kGrads;
       if (k == 0) s *= scale_u;
       if (k == 1) s *= scale_v;
       g_batch[i] = s;
@@ -181,7 +258,7 @@ extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
                                      int num_tiles_x, float bg, float scale_u,
                                      float scale_v, void* stream) {
   if (num_tiles > 0) {
-    rasterize_backward_kernel<<<num_tiles, kPix, 0, (cudaStream_t)stream>>>(
+    rasterize_backward_kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (float*)grads, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
         (const float*)out, (const float*)d_tiles, num_tiles_x, bg, scale_u,

@@ -25,9 +25,10 @@
 //   (raster_common.cuh), so all agree on which splats pass the cutoff.
 //
 // What bounds it on an H100: FP32 issue and latency. At the bench point
-// (~5.5M pairs at 1M Gaussians, 1296x840) it is ~1.4G pair-pixel
-// evaluations of ~20 FP32 operations and one exp each, while the pair
-// attributes read are ~200 MB. Each thread's loop is a serial dependency
+// (~5.5M pairs at 1M Gaussians, 1296x840) the pixels' n_splats keep ~146M
+// of the 1.4G pair-pixels, each 26 FP32 operations up to the 1/255 cutoff
+// (expf is 10 of them) and 10 more past it, while the inputs are ~80 MB
+// (chip_smoke.py counts both). Each thread's loop is a serial dependency
 // chain on T, so throughput comes from many resident CTAs (256 threads and
 // 9 KB of shared memory each); the shared-memory reads are broadcasts (all
 // threads read the same pair), and the early exit drops the work behind

@@ -12,8 +12,9 @@ launches on that stream, and returns ``cudaGetLastError()``; ``check``
 raises on a non-zero code.
 
 ``launches`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel (never the plain-PyTorch CPU path): a run can show that the main
-path went through each kernel.
+kernel (never the plain-PyTorch CPU path), and the radix sort's also per
+call site of the main path: a run can show that the main path went
+through each kernel.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # out, records, offsets_ext, num_cols, num_records, total, stream
     "gs_segment_expand": [_P, _P, _P, _I, _I, _I, _P],
-    # keys_in, keys_a, vals_a, keys_b, vals_b, hist, n, key_bits, stream
-    "gs_radix_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # keys_in, keys_out, vals_out, pairs_tmp, scratch, n, passes, plan
+    # (host ints: shift, bits per pass), stream
+    "gs_radix_sort": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
     # num_tiles_x, bg, stream
     "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
@@ -56,8 +58,9 @@ SIGNATURES = {
 }
 
 launches = {
-    "segment_expand": 0, "radix_sort": 0, "rasterize_forward": 0,
-    "rasterize_backward": 0, "segment_sum": 0,
+    "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0,
+    "radix_sort/regroup": 0, "rasterize_forward": 0, "rasterize_backward": 0,
+    "segment_sum": 0,
 }
 
 _lock = threading.Lock()

@@ -293,7 +293,7 @@ def build_tile_tables(
     )
     pairs = segment_expand(rec2, off2, total_pairs)
     keys, gid = pair_keys(geom, pairs, qd_bits)
-    sorted_keys, perm = radix_sort(keys, sort_key_bits(num_tiles, qd_bits))
+    sorted_keys, perm = radix_sort(keys, sort_key_bits(num_tiles, qd_bits), site="tile")
     tile_start, tile_count = tile_ranges(sorted_keys, num_tiles, qd_bits)
     return TileTables(
         splat_gid=gid[perm.long()],

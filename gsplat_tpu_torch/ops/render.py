@@ -70,7 +70,7 @@ class _Rasterize(torch.autograd.Function):
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
         )
         n = attrs.shape[0]
-        sorted_gid, perm = radix_sort(splat_gid, regroup_key_bits(n))
+        sorted_gid, perm = radix_sort(splat_gid, regroup_key_bits(n), site="regroup")
         d_attrs = segment_sum(rows, perm, sorted_gid, n)
         return d_attrs, None, None, None, None, None, None, None
 

@@ -52,7 +52,7 @@ class GaussianParams(nn.Module):
     (log-scales), ``quat (N,4)`` (w,x,y,z), ``sh (N,15,3)``.
     """
 
-    def __init__(self, capacity: int, device: torch.device | str = "cpu"):
+    def __init__(self, capacity: int, device: torch.device | str = "cuda"):
         super().__init__()
         for name in PARAM_DIMS:
             shape = _param_shape(name, capacity)

@@ -22,7 +22,7 @@ from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_forward_plain,
 )
 from gsplat_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain  # noqa: E402
-from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain  # noqa: E402
+from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain, sort_plan  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
 from gsplat_tpu_torch.ops.render import regroup_key_bits  # noqa: E402
 
@@ -53,8 +53,8 @@ def test_segment_expand_kernel_equals_plain(dev, n, dtype):
     assert torch.equal(got.cpu(), segment_expand_plain(rec, off, total))
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4097, 100_000, 1_000_000])
-@pytest.mark.parametrize("key_bits", [5, 8, 13, 29])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 100_000, 1_000_000])
+@pytest.mark.parametrize("key_bits", [1, 5, 8, 13, 20, 29, 31])
 def test_radix_sort_kernel_equals_plain(dev, n, key_bits):
     rng = np.random.default_rng(key_bits * 7 + n)
     keys = torch.from_numpy(rng.integers(0, 1 << key_bits, n).astype(np.int32))
@@ -63,6 +63,25 @@ def test_radix_sort_kernel_equals_plain(dev, n, key_bits):
     p_k, p_perm = radix_sort_plain(keys, key_bits)
     assert torch.equal(s_k.cpu(), p_k)
     assert torch.equal(perm.cpu(), p_perm)  # stable: the same permutation
+
+
+@pytest.mark.parametrize("n", [4097, 100_000])
+@pytest.mark.parametrize("kind", ["equal", "top digit"])
+@pytest.mark.parametrize("key_bits", [1, 20, 29, 31])
+def test_radix_sort_kernel_skewed_keys(dev, n, kind, key_bits):
+    # One digit value for every key, or keys that differ only in the last
+    # pass's digit: single long runs through the look-back and the scatter.
+    rng = np.random.default_rng(n + key_bits)
+    if kind == "equal":
+        keys = np.full(n, (1 << key_bits) - 1, np.int64)
+    else:
+        top = sort_plan(n, key_bits).shifts[-1]  # the last pass's digit
+        keys = rng.integers(0, 1 << (key_bits - top), n) << top
+    keys = torch.from_numpy(keys.astype(np.int32))
+    s_k, perm = radix_sort(keys.to(dev), key_bits)
+    torch.cuda.synchronize()
+    p_k, p_perm = radix_sort_plain(keys, key_bits)
+    assert torch.equal(s_k.cpu(), p_k) and torch.equal(perm.cpu(), p_perm)
 
 
 def _scene(rng, n, width, height):
@@ -151,11 +170,11 @@ def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
     torch.cuda.synchronize()
     ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
     assert torch.equal(got, again)  # no atomics: bit-identical reruns
-    # The 256-pixel sums run in another order (warp shuffles vs a tensor
-    # sum) and T is replayed by division vs chunked products: compare each
-    # row relative to its largest |value|. Against a float64 replay both
-    # are off by up to 1.5e-4 of that (H100, these scenes); the two differ
-    # by up to 1.8e-4.
+    # The 256-pixel sums run in another order (registers and warp shuffles
+    # vs a tensor sum) and T is replayed by a reciprocal vs chunked
+    # products: compare each row relative to its largest |value|. Against
+    # a float64 replay both are off by up to 1.5e-4 of that (H100, these
+    # scenes, with T replayed by division); the two differ by up to 1.8e-4.
     got = got.cpu()
     scale = ref.abs().amax(dim=1, keepdim=True)
     assert ((got - ref).abs() <= 1e-3 * scale + 1e-6).all()
@@ -166,6 +185,77 @@ def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
         for t in torch.nonzero(maxn < count.long()).flatten().tolist():
             tail = got[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
             assert torch.equal(tail, torch.zeros_like(tail))  # written, as zeros
+
+
+def _dead_groups(attrs, gid, start, count, out, ntx):
+    """(tile, warp, group) triples of csrc/rasterize_bwd.cu's walk where no
+    pixel of the warp passes the alpha cutoff before its n_splats. A warp
+    there replays 128 pixels (8 rows of the tile); a group is 4 pairs, from
+    the top of each 64-pair batch down."""
+    dead = 0
+    nspl = out[:, 4]
+    for t in range(start.shape[0]):
+        maxn = min(int(nspl[t].max()), int(count[t]))
+        g = gid[int(start[t]): int(start[t]) + maxn].long()
+        if maxn == 0:
+            continue
+        a = attrs[g]  # (maxn, 9)
+        pix = torch.arange(256)
+        px = ((t % ntx) * 16 + pix % 16).float()[:, None]
+        py = ((t // ntx) * 16 + pix // 16).float()[:, None]
+        dx, dy = a[:, 0] - px, a[:, 1] - py
+        power = torch.clamp(-0.5 * (a[:, 2] * dx * dx + 2.0 * a[:, 3] * dx * dy
+                                    + a[:, 4] * dy * dy), max=0.0)
+        alpha = torch.clamp(a[:, 5] * torch.exp(power), max=0.99)
+        live = (alpha > 1 / 255) & (torch.arange(maxn)[None, :] < nspl[t][:, None])
+        live = live.view(2, 128, maxn).any(dim=1)  # (warp, pair)
+        for b0 in range(0, maxn, 64):
+            nb = min(64, maxn - b0)
+            for jt in range(nb - 1, -1, -4):
+                js = [b0 + jt - k for k in range(4) if jt - k >= 0]
+                dead += int((~live[:, js].any(dim=1)).sum())
+    return dead
+
+
+@pytest.mark.parametrize("case", ["empty tiles", "ragged maxn", "dead groups"])
+def test_rasterize_backward_kernel_edge_tiles(dev, case):
+    # Tiles with no pairs; tiles whose deepest n_splats is not a multiple of
+    # the kernel's group of 4 pairs; groups where a whole warp is dead.
+    rng = np.random.default_rng(7)
+    width, height = 160, 88
+    ntx, nty = (width + 15) // 16, (height + 15) // 16
+    n = {"empty tiles": 60, "ragged maxn": 25, "dead groups": 400}[case]
+    uv, radius, z, attrs = _scene(rng, n, width, height)
+    if case == "empty tiles":  # only the left half of the image is covered
+        uv[:, 0] = uv[:, 0] * 0.3
+        attrs[:, 0] = uv[:, 0]
+    if case == "dead groups":  # small splats: each covers a few pixels
+        attrs[:, 2:5] = torch.tensor([8.0, 0.0, 8.0])
+        radius[:, :2] = 2.0
+    tables = build_tile_tables(uv, z, radius, torch.ones(n, dtype=torch.bool),
+                               num_tiles_x=ntx, num_tiles_y=nty, tile_size=16)
+    args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
+    out = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx)
+    d_tiles = torch.from_numpy(rng.normal(size=(ntx * nty, 3, 256)).astype(np.float32))
+    count = tables.tile_count.long()
+    maxn = torch.minimum(out[:, 4].amax(dim=1).long(), count)
+    if case == "empty tiles":
+        assert (count == 0).any() and (count > 0).any()
+    if case == "ragged maxn":
+        assert ((maxn % 4 != 0) & (maxn > 4)).any()
+    if case == "dead groups":
+        assert _dead_groups(*args, out, ntx) > 0
+    kw = dict(num_tiles_x=ntx, num_tiles_y=nty)
+    dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
+    got = rasterize_backward(*dev_in, 0.3, **kw)
+    again = rasterize_backward(*dev_in, 0.3, **kw)
+    torch.cuda.synchronize()
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert ((got - ref).abs() <= 1e-3 * scale + 1e-6).all()
 
 
 @pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
