@@ -7,16 +7,18 @@ Builds the port's CUDA kernels (``gsplat_tpu_torch/csrc``) with nvcc for
 sm_90a, then:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA;
-2. builds the kernels and prints the build time, ptxas's register use and
-   the instructions of expf in the forward rasterizer (cuobjdump);
+2. builds the kernels and prints the build time, ptxas's register use,
+   the instructions of expf in the forward rasterizer and, from its SASS
+   (cuobjdump), the instructions and shared-memory loads of its pair loop;
 2b. holds the radix sort bit-equal to ``torch.sort(stable=True)``, keys and
    permutation, at n = 0, 1, tile - 1, tile, tile + 1 and larger, on
    random keys, equal keys and keys that differ only in the last pass's
    digit, for key_bits 1, 20, 29 and 31;
 3. compares each kernel with its plain PyTorch version on the card, at the
-   shapes of one view of the bench scene at 100K Gaussians (segment expand
-   and radix sort bit-equal; rasterizer image PSNR >= 60 dB, n_splats equal
-   on >= 99.9 % of pixels);
+   shapes of one view of the bench scene at 100K Gaussians (segment expand,
+   radix sort and the inverse permutation that makes binning's
+   ``pair_slot`` bit-equal; rasterizer image PSNR >= 60 dB, n_splats equal
+   on >= 99.9 % of pixels, a rerun bit-identical);
 4. checks a small scene rendered on the card against the port's CPU path
    (which the CPU tests hold against the JAX package);
 5. renders the bench scene (1296x840, tile 16, SH degree 3) at 1,000,000
@@ -28,31 +30,33 @@ sm_90a, then:
 7. compares the backward kernels with their plain versions at 100K
    Gaussians, bench view, random image cotangent (backward rasterizer rows
    within 1e-3 of each row's largest |value| and bit-identical on a rerun,
-   segment sum at rtol 1e-5, the regroup sort bit-equal to
-   ``torch.sort(stable=True)``);
+   segment sum at rtol 1e-5 and bit-identical on a rerun; whether it is
+   bit-equal to the plain version on the CPU is printed);
 8. runs one ``train_step`` of a small scene (20K Gaussians, 320x200) on the
    card and on the port's CPU path: loss, gradients, moments and
    accumulators must agree;
 9. trains a perturbed copy of the 1M scene for 8 steps over the 4 views
    rendered from the scene itself (``train_step``): loss, ms per step and
    pairs; finite losses, a lower mean loss on the second pass, every kernel
-   launched, the radix sort exactly once per step at each of its two call
-   sites, peak memory, and bit-identical gradients from two calls on the
-   same state; then a torch.profiler run of 4 more steps: device ms per
-   step, the device's busy share, and the device time of each kernel;
+   launched, the radix sort exactly once per step (the tile sort; the
+   backward sorts nothing), peak memory, and bit-identical gradients from
+   two calls on the same state; then a torch.profiler run of 4 more steps:
+   device ms per step, the device's busy share, and the device time of
+   each kernel;
 10. times the backward kernels against their plain versions at the 1M
     view's shapes.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
-``repeat_interleave``, ``torch.sort(stable=True)``, ``index_add_``; none
-for the rasterizers), and the least time an H100 could take for the work
-(``kernel_bound``; for the rasterizers from the pair-pixels these inputs
-need and those of them past the 1/255 cutoff, ``pair_pixel_counts``), then
-orders the kernels by launches per train step x (time - bound). Prints one
-JSON line of kernels (the radix sort once per call site), then the
-nvidia-smi line, then the result line ``{"ok": true, "device": {...}}``.
-Any failed check exits non-zero. Exits non-zero at once when no CUDA
+``repeat_interleave``, ``torch.sort(stable=True)``, ``argsort``,
+``index_add_``; none for the rasterizers; the segment sum also with the
+``pair_slot`` scatter that feeds it), and the least time an H100 could take
+for the work (``kernel_bound``; for the rasterizers from the pair-pixels
+these inputs need and those of them past the 1/255 cutoff,
+``pair_pixel_counts``), then orders the kernels by launches per train step
+x (time - bound). Prints one JSON line of kernels, then the nvidia-smi
+line, then the result line ``{"ok": true, "device": {...}}``. Any failed
+check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
 
     python3 -P chip_smoke.py --train-profile
@@ -86,6 +90,9 @@ REPLACES = {
     "rasterize_forward": "gsplat_tpu/kernels/rasterize.py:486",
     "rasterize_backward": "gsplat_tpu/kernels/rasterize.py:815",
     "segment_sum": "gsplat_tpu/kernels/segsum.py:139",
+    # The reference orders the pairs by Gaussian with its sample sort (the
+    # regroup call site); here the inverse of the tile sort's permutation.
+    "inverse_permutation": "gsplat_tpu/kernels/sort.py:514",
 }
 SOURCES = {
     "segment_expand": "gsplat_tpu_torch/csrc/expand.cu",
@@ -93,6 +100,7 @@ SOURCES = {
     "rasterize_forward": "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
     "rasterize_backward": "gsplat_tpu_torch/csrc/rasterize_bwd.cu",
     "segment_sum": "gsplat_tpu_torch/csrc/segsum.cu",
+    "inverse_permutation": "gsplat_tpu_torch/csrc/segsum.cu",
 }
 TRAIN_STEPS = 8
 PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
@@ -115,6 +123,9 @@ K1_PASS_OPS = 10
 # 5; w 1; grad_alpha 3; the sum behind the splat 2; d/d power 2; the nine
 # values added into the pixel sums 5 + 5 + 4 + 3 + 4 + 1 + 6.
 K2_PASS_OPS = 44
+# Pixels a warp of each rasterizer holds: 32 threads x 4 pixels of a row.
+K1_WARP_PIXELS = 128
+K2_WARP_PIXELS = 128
 
 
 def kernel_bound(name: str, **work) -> dict:
@@ -127,7 +138,8 @@ def kernel_bound(name: str, **work) -> dict:
     of them past the 1/255 cutoff, ``pair_pixel_counts``). ``work`` keys:
     ``expand`` [(cols, records, total)] (segment_expand), ``keys``
     (radix_sort), ``gaussians``, ``pairs``, ``tiles``, ``pair_pixels``,
-    ``passing`` (rasterizers; segment_sum takes gaussians and pairs).
+    ``passing`` (rasterizers; segment_sum takes gaussians and pairs,
+    inverse_permutation pairs).
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -136,6 +148,8 @@ def kernel_bound(name: str, **work) -> dict:
         ops = 0
     elif name == "radix_sort":  # keys in; sorted keys and permutation out
         nbytes, ops = 12 * work["keys"], 0
+    elif name == "inverse_permutation":  # permutation in, its inverse out
+        nbytes, ops = 8 * work["pairs"], 0
     elif name in ("rasterize_forward", "rasterize_backward"):
         g, p, t = work["gaussians"], work["pairs"], work["tiles"]
         # attribute rows, splat_gid, tile_start and tile_count; 5 output rows
@@ -146,8 +160,8 @@ def kernel_bound(name: str, **work) -> dict:
         else:  # + the image cotangent in, one 9-float row per pair out
             nbytes += 4 * 3 * pix * t + 36 * p
             ops += K2_PASS_OPS * work["passing"]
-    elif name == "segment_sum":  # rows, perm, sorted_gid in; sums out
-        nbytes = 44 * work["pairs"] + 36 * work["gaussians"]
+    elif name == "segment_sum":  # rows, pair_slot, pair_start in; sums out
+        nbytes = 40 * work["pairs"] + 40 * work["gaussians"]
         ops = 9 * work["pairs"]
     else:
         raise ValueError(f"no bound for {name}")
@@ -161,23 +175,75 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def exp_instructions(lib_path: str) -> str:
-    """The forward rasterizer's SASS opcodes from 10 before its first
-    MUFU.EX2 (the hardware exp2 inside expf) to 2 after, by cuobjdump."""
+def kernel_sass(lib_path: str, kernel: str) -> list | None:
+    """A kernel's SASS by cuobjdump, as (address, opcode, operands) rows,
+    branch targets given as addresses; None if it cannot be read."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                               timeout=120).stdout
-    except OSError as e:
-        return f"not read ({e})"
+    except OSError:
+        return None
     for body in sass.split("Function : ")[1:]:
-        if "rasterize_forward_kernel" in body.split("\n", 1)[0]:
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                             body)
-            if "MUFU.EX2" in ops:
-                i = ops.index("MUFU.EX2")
-                return " ".join(ops[max(0, i - 10):i + 3])
-    return "not found in cuobjdump's output"
+        if kernel not in body.split("\n", 1)[0]:
+            continue
+        rows, labels = [], {}
+        for line in body.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = len(rows)
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                          r"([^;]*);", line)
+            if m:
+                rows.append([int(m.group(1), 16), m.group(2), m.group(3)])
+        for row in rows:  # labels -> the address of the row they precede
+            ref = re.search(r"\(?(\.L_x_\d+)\)?", row[2])
+            if ref and ref.group(1) in labels and labels[ref.group(1)] < len(rows):
+                row[2] = hex(rows[labels[ref.group(1)]][0])
+        return rows
+    return None
+
+
+def exp_instructions(rows: list | None) -> str:
+    """The opcodes from 10 before a kernel's first MUFU.EX2 (the hardware
+    exp2 inside expf) to 2 after."""
+    ops = [op for _, op, _ in rows or []]
+    if "MUFU.EX2" not in ops:
+        return "not found in cuobjdump's output"
+    i = ops.index("MUFU.EX2")
+    return " ".join(ops[max(0, i - 10):i + 3])
+
+
+def exp_loop_counts(rows: list | None) -> dict | None:
+    """The innermost loop around a kernel's first MUFU.EX2 (the shortest
+    backward branch that jumps over it): its instructions, shared-memory
+    loads (LDS*), and MUFU.EX2s (one a pair-pixel in the rasterizers)."""
+    if not rows:
+        return None
+    exp_at = next((a for a, op, _ in rows if op == "MUFU.EX2"), None)
+    loops = []
+    for addr, op, arg in rows:
+        m = re.search(r"0x([0-9a-f]+)", arg)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= (exp_at or -1) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    if not loops:
+        return None
+    lo, hi = min(loops, key=lambda r: r[1] - r[0])
+    body = [op for a, op, _ in rows if lo <= a <= hi]
+    return dict(instructions=len(body), lds=sum(op.startswith("LDS") for op in body),
+                exp=body.count("MUFU.EX2"))
+
+
+def ptxas_usage(build_log: str, kernel: str) -> str:
+    """ptxas's resource line (registers, barriers, shared memory) for a
+    kernel, from the -Xptxas -v build log."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            for nxt in lines[i + 1:]:
+                if "Used" in nxt and "registers" in nxt:
+                    return nxt.split(":", 1)[-1].strip()
+    return "not in the build log"
 
 
 def scene_arrays(n: int, seed: int, perturb_seed: int | None = None):
@@ -300,6 +366,7 @@ def path_inputs(params, cm, st):
         expand=[(rec1, off1, total_rows), (rec2, off2, total_pairs)],
         sort=(keys, binning.sort_key_bits(num_tiles, qd_bits)),
         raster=(attrs, tables.splat_gid, tables.tile_start, tables.tile_count),
+        runs=(tables.pair_slot, tables.pair_start),
         num_pairs=total_pairs, num_rows=total_rows,
     )
 
@@ -310,9 +377,9 @@ def pair_pixel_counts(raster, out, num_tiles_x: int) -> dict:
     of them whose alpha passes the 1/255 cutoff (``passing``), alpha
     evaluated as the plain versions evaluate it, 64 pairs of every tile a
     step. Also the pair-pixels that the kernels' warps step through, a
-    warp going on to its pixels' largest n_splats: K1's warps hold 32
-    pixels of a tile (``fwd_warp_pair_pixels``), K2's 128, 4 a thread
-    (``bwd_warp_pair_pixels``)."""
+    warp going on to its pixels' largest n_splats: K1's warps hold
+    K1_WARP_PIXELS pixels of a tile (``fwd_warp_pair_pixels``), K2's
+    K2_WARP_PIXELS (``bwd_warp_pair_pixels``)."""
     from gsplat_tpu_torch.kernels.rasterize import (
         ALPHA_CUTOFF, ALPHA_MAX, _pixel_centres, _tile_lists)
 
@@ -333,14 +400,15 @@ def pair_pixel_counts(raster, out, num_tiles_x: int) -> dict:
             passing += int(live.sum().item())
     n = out[:, 4].double()  # (T, PIX)
     warp_steps = {w: int(n.view(n.shape[0], -1, w).amax(dim=2).sum().item()) * w
-                  for w in (32, 128)}
+                  for w in (K1_WARP_PIXELS, K2_WARP_PIXELS)}
     return dict(pair_pixels=int(n.sum().item()), passing=passing,
-                fwd_warp_pair_pixels=warp_steps[32], bwd_warp_pair_pixels=warp_steps[128])
+                fwd_warp_pair_pixels=warp_steps[K1_WARP_PIXELS],
+                bwd_warp_pair_pixels=warp_steps[K2_WARP_PIXELS])
 
 
 def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     """Each kernel vs its plain version on the card; raises on disagreement."""
-    from gsplat_tpu_torch.kernels import expand, rasterize, sort
+    from gsplat_tpu_torch.kernels import expand, rasterize, segsum, sort
     from gsplat_tpu_torch.ops.render import tiles_to_image
 
     inp = path_inputs(params, cm, st)
@@ -377,9 +445,21 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         library_ms=cuda_ms(lambda: torch.sort(keys, stable=True), timing_iters),
         **kernel_bound("radix_sort", keys=keys.shape[0]),
     )
+    # The pair_slot scatter: bit-equal; argsort inverts a permutation too.
+    perm = ref[1]
+    if not torch.equal(segsum.inverse_permutation(perm), segsum.inverse_permutation_plain(perm)):
+        raise AssertionError("inverse_permutation differs from its plain version")
+    res["inverse_permutation"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters),
+        plain_ms=cuda_ms(lambda: segsum.inverse_permutation_plain(perm), timing_iters),
+        library_ms=cuda_ms(lambda: torch.argsort(perm), timing_iters),
+        **kernel_bound("inverse_permutation", pairs=perm.shape[0]),
+    )
     # K1: image PSNR >= 60 dB, n_splats equal on >= 99.9 % of pixels.
     kw = dict(num_tiles_x=st.num_tiles_x)
     got = rasterize.rasterize_forward(*inp["raster"], BG, **kw)
+    again = rasterize.rasterize_forward(*inp["raster"], BG, **kw)
     ref = rasterize.rasterize_forward_plain(*inp["raster"], BG, **kw)
     to_img = lambda o: tiles_to_image(o[:, :3], st.num_tiles_x, st.num_tiles_y,  # noqa: E731
                                       st.tile, st.width, st.height)
@@ -388,8 +468,10 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     err = (got[:, :3] - ref[:, :3]).abs().max().item()
     log(f"  rasterize_forward: image PSNR vs plain {img_psnr:.2f} dB, "
         f"n_splats equal on {100 * same_n:.4f} % of pixels, "
-        f"max |T_final diff| {(got[:, 3] - ref[:, 3]).abs().max().item():.3g}")
-    if not (img_psnr >= 60.0 and same_n >= 0.999 and math.isfinite(err)):
+        f"max |T_final diff| {(got[:, 3] - ref[:, 3]).abs().max().item():.3g}, "
+        f"rerun bit-identical {torch.equal(got, again)}")
+    if not (img_psnr >= 60.0 and same_n >= 0.999 and math.isfinite(err)
+            and torch.equal(got, again)):
         raise AssertionError("rasterize_forward disagrees with its plain version")
     attrs, gid, start, _ = inp["raster"]
     work = pair_pixel_counts(inp["raster"], got, st.num_tiles_x)
@@ -414,9 +496,9 @@ def log_work(work: dict) -> None:
     pp = max(work["pair_pixels"], 1)
     log(f"  pair-pixels {work['pair_pixels']}, past the 1/255 cutoff "
         f"{work['passing']} ({100 * work['passing'] / pp:.2f} %); stepped through "
-        f"by warps of 32 pixels {work['fwd_warp_pair_pixels']} "
-        f"({work['fwd_warp_pair_pixels'] / pp:.3f}x), of 128 pixels "
-        f"{work['bwd_warp_pair_pixels']} ({work['bwd_warp_pair_pixels'] / pp:.3f}x)")
+        f"by K1's warps of {K1_WARP_PIXELS} pixels {work['fwd_warp_pair_pixels']} "
+        f"({work['fwd_warp_pair_pixels'] / pp:.3f}x), by K2's of {K2_WARP_PIXELS} "
+        f"pixels {work['bwd_warp_pair_pixels']} ({work['bwd_warp_pair_pixels'] / pp:.3f}x)")
 
 
 def log_times(res: dict) -> None:
@@ -447,12 +529,13 @@ def check_small_scene_against_cpu(dev) -> None:
         raise AssertionError("card render disagrees with the CPU path")
 
 
-def backward_inputs(params, cm, st, seed: int = 0):
-    """The backward kernels' inputs at the shapes train_step gives them,
-    with a random image cotangent; and the attribute table's row count."""
+def backward_inputs(inp: dict, st, seed: int = 0):
+    """The backward rasterizer's inputs at the shapes train_step gives it
+    (from ``path_inputs``), with a random image cotangent; and the
+    attribute table's row count."""
     from gsplat_tpu_torch.kernels.rasterize import rasterize_forward
 
-    attrs, gid, start, count = path_inputs(params, cm, st)["raster"]
+    attrs, gid, start, count = inp["raster"]
     out = rasterize_forward(attrs, gid, start, count, BG, num_tiles_x=st.num_tiles_x)
     gen = torch.Generator(device=attrs.device).manual_seed(seed)
     d_tiles = torch.randn((start.shape[0], 3, st.tile * st.tile), generator=gen,
@@ -466,12 +549,12 @@ def bits_of(t: torch.Tensor) -> torch.Tensor:
 
 
 def compare_backward(params, cm, st, timing_iters: int) -> dict:
-    """The backward kernels and the regroup sort vs their plain versions on
-    the card; raises on disagreement."""
+    """The backward kernels vs their plain versions on the card; raises on
+    disagreement."""
     from gsplat_tpu_torch.kernels import rasterize, segsum, sort
-    from gsplat_tpu_torch.ops.render import regroup_key_bits
 
-    args, n = backward_inputs(params, cm, st)
+    inp = path_inputs(params, cm, st)
+    args, n = backward_inputs(inp, st)
     kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y)
     res = {}
     # K2. The 256-pixel sums run in another order (registers and warp
@@ -502,41 +585,42 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
         **kernel_bound("rasterize_backward", gaussians=n, pairs=gid.shape[0],
                        tiles=start.shape[0], **work),
     )
-    # K3 at the regroup call site: bit-equal to the stable torch.sort.
-    bits = regroup_key_bits(n)
-    sorted_gid, perm = sort.radix_sort(gid, bits)
-    ref_k, ref_p = sort.radix_sort_plain(gid, bits)
-    if not (torch.equal(sorted_gid, ref_k) and torch.equal(perm, ref_p)):
-        raise AssertionError("regroup radix_sort differs from torch.sort(stable=True)")
-    res["regroup_sort"] = dict(
-        max_abs_err=0.0, key_bits=bits,
-        ms=cuda_ms(lambda: sort.radix_sort(gid, bits), timing_iters),
-        plain_ms=cuda_ms(lambda: sort.radix_sort_plain(gid, bits), timing_iters),
-        library_ms=cuda_ms(lambda: torch.sort(gid, stable=True), timing_iters),
-        **kernel_bound("radix_sort", keys=gid.shape[0]),
-    )
-    # K4 at rtol 1e-5; index_add_ on the card adds with atomics, in another
-    # order, so cancelling sums also get 1e-5 of the column's largest |value|.
-    sums = segsum.segment_sum(rows, perm, sorted_gid, n)
-    again = segsum.segment_sum(rows, perm, sorted_gid, n)
-    ref = segsum.segment_sum_plain(rows, perm, sorted_gid, n)
+    # K4 over binning's runs at rtol 1e-5; index_add_ on the card adds with
+    # atomics, in another order, so cancelling sums also get 1e-5 of the
+    # column's largest |value|. On the CPU index_add_ adds in index order,
+    # the kernel's order.
+    runs = inp["runs"]
+    pair_slot, pair_start = runs
+    sums = segsum.segment_sum(rows, *runs, n)
+    again = segsum.segment_sum(rows, *runs, n)
+    ref = segsum.segment_sum_plain(rows, *runs, n)
+    on_cpu = segsum.segment_sum_plain(rows.cpu(), *(t.cpu() for t in runs), n)
     err = (sums - ref).abs()
+    longest = int((pair_start[1:] - pair_start[:-1]).max())
     log(f"  segment_sum: max |err| {err.max().item():.3g}, rerun bit-identical "
-        f"{torch.equal(sums, again)}")
+        f"{torch.equal(sums, again)}, bit-equal to the plain version on the CPU "
+        f"{torch.equal(sums.cpu(), on_cpu)}; longest run {longest} pairs")
     if not (bool((err <= 1e-5 * ref.abs() + 1e-5 * ref.abs().amax(dim=0)).all())
             and torch.equal(sums, again)):
         raise AssertionError("segment_sum disagrees with its plain version")
+    # Binning's scatter that makes pair_slot from the tile sort's permutation.
+    perm = sort.radix_sort_plain(*inp["sort"])[1]
+    if not torch.equal(segsum.inverse_permutation(perm), pair_slot):
+        raise AssertionError("pair_slot is not the inverse of the tile sort's permutation")
     gid64 = gid.long()
     res["segment_sum"] = dict(
-        max_abs_err=err.max().item(),
-        ms=cuda_ms(lambda: segsum.segment_sum(rows, perm, sorted_gid, n), timing_iters),
-        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(rows, perm, sorted_gid, n),
-                         timing_iters),
+        max_abs_err=err.max().item(), longest_run=longest,
+        ms=cuda_ms(lambda: segsum.segment_sum(rows, *runs, n), timing_iters),
+        scatter_ms=cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters),
+        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(rows, *runs, n), timing_iters),
         library_ms=cuda_ms(lambda: torch.zeros((n, 9), device=rows.device).index_add_(
             0, gid64, rows), timing_iters),
         **kernel_bound("segment_sum", gaussians=n, pairs=gid.shape[0]),
     )
-    log(f"  pairs {gid.shape[0]}, Gaussians {n}, regroup key bits {bits}")
+    r = res["segment_sum"]
+    log(f"  pairs {gid.shape[0]}, Gaussians {n}; segment_sum + pair_slot scatter "
+        f"{r['ms'] + r['scatter_ms']:.4f} ms ({r['ms']:.4f} + {r['scatter_ms']:.4f}) vs "
+        f"index_add_ {r['library_ms']:.4f} ms")
     log_times(res)
     return res
 
@@ -740,12 +824,11 @@ def train_slice(cams, st, dev):
         raise AssertionError("the second pass over the views did not lower the loss")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
-    # One train step sorts twice: the tile sort in the forward, the regroup
-    # in the backward.
-    if not (launches["radix_sort/tile"] == launches["radix_sort/regroup"] == TRAIN_STEPS
-            and launches["radix_sort"] == 2 * TRAIN_STEPS):
-        raise AssertionError(f"radix_sort did not launch once per step at each call "
-                             f"site: {launches}")
+    # One train step sorts once: the tile sort in the forward. The backward
+    # sums over binning's runs and sorts nothing.
+    if not launches["radix_sort/tile"] == launches["radix_sort"] == TRAIN_STEPS:
+        raise AssertionError(f"radix_sort did not launch once per step, at the tile "
+                             f"sort: {launches}")
     runs = [compute_loss_and_grads(state.params, cams[0].view, cams[0].proj,
                                    cams[0].campos, gts[0], BG, st) for _ in range(2)]
     (_, _, _, _, g_a, uv_a), (_, _, _, _, g_b, uv_b) = runs
@@ -804,7 +887,18 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("    " + line.strip())
-    log(f"    expf in rasterize_forward_kernel: {exp_instructions(lib._name)}")
+    k1 = "rasterize_forward_kernel"
+    sass = kernel_sass(lib._name, k1)
+    log(f"    {k1}: {ptxas_usage(_build.build_log, k1)}")
+    log(f"    expf in {k1}: {exp_instructions(sass)}")
+    loop = exp_loop_counts(sass)
+    if loop is None:
+        log(f"    {k1}: no loop around MUFU.EX2 found in the SASS")
+    else:
+        per = max(loop["exp"], 1)
+        log(f"    {k1} pair loop: {loop['instructions']} SASS instructions, "
+            f"{loop['lds']} LDS, {loop['exp']} MUFU.EX2 (pair-pixels); per pair-pixel "
+            f"{loop['instructions'] / per:.1f} instructions, {loop['lds'] / per:.2f} LDS")
 
     # 2b. The radix sort's edge cases.
     log("[2b] radix sort edge cases vs torch.sort(stable=True)")
@@ -841,7 +935,8 @@ def main() -> int:
     if not torch.equal(again, images[0]):
         raise AssertionError("re-render of view 0 is not bit-identical")
     log(f"  re-render bit-identical; launches {fwd_launches}")
-    for name in ("segment_expand", "radix_sort", "rasterize_forward"):
+    for name in ("segment_expand", "radix_sort", "inverse_permutation",
+                 "rasterize_forward"):
         if fwd_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the forward path")
 
@@ -868,7 +963,7 @@ def main() -> int:
 
     table = [("segment_expand", None, res["segment_expand"]),
              ("radix_sort", "tile", res["radix_sort"]),
-             ("radix_sort", "regroup", bwd["regroup_sort"]),
+             ("inverse_permutation", None, res["inverse_permutation"]),
              ("rasterize_forward", None, res["rasterize_forward"]),
              ("rasterize_backward", None, bwd["rasterize_backward"]),
              ("segment_sum", None, bwd["segment_sum"])]

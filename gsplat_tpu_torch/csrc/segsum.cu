@@ -1,21 +1,48 @@
-// Segment sum by Gaussian id: per-Gaussian sums of the per-pair gradient rows.
+// Segment sum by Gaussian: per-Gaussian sums of the per-pair gradient rows.
 //
 // Replaces the TPU kernel gsplat_tpu/kernels/segsum.py::segment_sum_by_gid
-// (_segsum_kernel). The TPU kernel streams the gid-sorted (9, P) rows in
-// chunks and reduces each block of 512 Gaussians with a one-hot matrix
-// product on the MXU. Here one thread owns one Gaussian g:
+// (_segsum_kernel). The TPU kernel streams gid-sorted (9, P) rows in chunks
+// (the reference sorts the pairs by Gaussian a second time to make that
+// stream) and reduces each block of 512 Gaussians with a one-hot matrix
+// product on the MXU. Here no second sort is made. Binning emits its
+// candidates Gaussian-major, so Gaussian g's candidates are one run
+// [pair_start[g], pair_start[g+1]), in ascending tile order; and pair_slot
+// (the inverse of the stable tile sort's permutation) gives each
+// candidate's row in the sorted pair list. A Gaussian has at most one pair
+// per tile, so ascending tile is ascending row: the run lists g's rows in
+// the order a stable sort of splat_gid would, and the sums below add the
+// same rows in the same order as a segment sum after that sort.
 //
-//   it binary-searches its run [lo, hi) of sorted_gid == g, sums
-//   rows[perm[j]] for j = lo .. hi-1 in that order (the gather rides in the
-//   kernel, so no permuted copy of the rows is made) and writes its row,
-//   zeros for a Gaussian without pairs. The summation order is fixed, so the
-//   result is deterministic.
+//   9 lanes per Gaussian, 3 Gaussians a warp (lanes 27-31 idle): lane k of
+//   Gaussian g's group sums column k of rows[pair_slot[c]] for c =
+//   pair_start[g] .. pair_start[g+1]-1 in that order, so one warp load
+//   reads 3 whole rows. A group takes 8 candidates at a time, predicated
+//   past the run's end, so that 8 pair_slot loads and then 8 row loads are
+//   in flight together and a run of up to 8 pairs costs two dependent
+//   loads. No searches, no atomics: each output row is written once, zeros
+//   for a Gaussian without pairs. A rerun gives bit-identical sums.
 //
-// What bounds it on an H100: memory latency of the gathered 36-byte rows
-// (~5.5M pairs at the bench point, ~200 MB read once) and the two binary
-// searches per Gaussian (~23 dependent loads each over ~5.5M sorted ids).
-// Threads of a warp own neighbouring Gaussians, so the searches share
-// cache lines.
+// What bounds it on an H100: bytes. Rows 36 P, pair_slot 4 P, pair_start
+// 4 (N+1), output 36 N: ~256 MB at the bench point (~5.4M pairs, 2^20
+// Gaussians), 0.076 ms at 3.35 TB/s. But the rows are gathered at random:
+// Gaussian ids carry no locality, and a 36-byte row spans two 32-byte
+// sectors, so device memory moves about twice the row bytes, in scattered
+// sectors. On an H100 a thread per Gaussian (9 scalar loads a row, short
+// runs walked one dependent load at a time) took ~0.28 ms of device time,
+// in Gaussian order or in the order of the Gaussians' first rows; this
+// layout ~0.23 ms (PERF.md). Several Gaussians per group did no better.
+//
+// A run is one group's serial walk (the longest at the bench point is
+// printed by chip_smoke.py [10]); runs are not split, since that would
+// change the summation order.
+//
+// inverse_permutation_kernel makes pair_slot for binning: out[perm[j]] = j
+// over the tile sort's int32 permutation, one thread per slot, reading
+// coalesced and writing 4-byte words at random into a 21 MB array that
+// stays in L2. Bound: 8 bytes a pair. PyTorch's index_copy_ (its quickest
+// scatter here) took ~0.14 ms of device time on the bench permutation,
+// plus an arange for the values, which made this sum and its scatter
+// slower than one index_add_ (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,47 +51,64 @@ namespace {
 
 constexpr int kRows = 9;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ a, int lo,
-                                           int hi, int key) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+constexpr int kGroups = 3;  // Gaussians a warp, kRows lanes each
+constexpr int kUnroll = 8;  // candidates whose loads are in flight together
 
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(float* __restrict__ out, const float* __restrict__ rows,
-                   const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ sorted_gid, int p, int n) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n) return;
-  const int lo = lower_bound(sorted_gid, 0, p, g);
-  const int hi = lower_bound(sorted_gid, lo, p, g + 1);
-  float acc[kRows];
+                   const int32_t* __restrict__ pair_slot,
+                   const int32_t* __restrict__ pair_start, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int g = warp * kGroups + lane / kRows;
+  const int k = lane % kRows;
+  if (lane >= kGroups * kRows || g >= n) return;
+  const int hi = pair_start[g + 1];
+  float acc = 0.0f;
+  for (int c = pair_start[g]; c < hi; c += kUnroll) {
+    int slot[kUnroll];
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) acc[k] = 0.0f;
-  for (int j = lo; j < hi; ++j) {
-    const float* r = rows + (int64_t)perm[j] * kRows;
+    for (int u = 0; u < kUnroll; ++u) slot[u] = c + u < hi ? pair_slot[c + u] : 0;
+    float r[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) acc[k] += r[k];
+    for (int u = 0; u < kUnroll; ++u) {
+      r[u] = c + u < hi ? rows[(int64_t)slot[u] * kRows + k] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c + u < hi) acc += r[u];
+    }
   }
-  float* o = out + (int64_t)g * kRows;
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) o[k] = acc[k];
+  out[(int64_t)g * kRows + k] = acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+inverse_permutation_kernel(int32_t* __restrict__ out,
+                           const int32_t* __restrict__ perm, int p) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j < p) out[perm[j]] = j;
 }
 
 }  // namespace
 
-extern "C" int gs_segment_sum(void* out, const void* rows, const void* perm,
-                              const void* sorted_gid, int p, int n,
-                              void* stream) {
+extern "C" int gs_inverse_permutation(void* out, const void* perm, int p,
+                                      void* stream) {
+  if (p > 0) {
+    inverse_permutation_kernel<<<(p + kThreads - 1) / kThreads, kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)perm, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gs_segment_sum(void* out, const void* rows, const void* pair_slot,
+                              const void* pair_start, int n, void* stream) {
   if (n > 0) {
-    segment_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (float*)out, (const float*)rows, (const int32_t*)perm,
-        (const int32_t*)sorted_gid, p, n);
+    const int warps = (n + kGroups - 1) / kGroups;
+    const int blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+    segment_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (float*)out, (const float*)rows, (const int32_t*)pair_slot,
+        (const int32_t*)pair_start, n);
   }
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,10 @@
 // design (Adinets and Merrill, "Onesweep", 2022).
 //
 // Replaces the TPU kernel gsplat_tpu/kernels/sort.py::sample_sort (:514;
-// _partition_kernel, _range_sort_kernel) and sort_blocks (:211), at both
-// of its call sites: the tile sort (binning) and the gradient regroup. On
+// _partition_kernel, _range_sort_kernel) and sort_blocks (:211) at the
+// tile sort (binning). The reference's other call site, the gradient
+// regroup, has no counterpart: segsum.cu reads binning's per-Gaussian runs
+// instead of sorting the pairs by Gaussian a second time. On
 // the TPU that is a bitonic sample sort carrying every payload column
 // through VMEM, because gathers are expensive there; here a gather is
 // cheap, so the sort moves only (key, index) and the caller gathers rows

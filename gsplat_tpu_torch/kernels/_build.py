@@ -53,14 +53,16 @@ SIGNATURES = {
     # num_tiles, num_tiles_x, bg, scale_u, scale_v, stream
     "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
                               ctypes.c_float, ctypes.c_float, _P],
-    # out, rows, perm, sorted_gid, p, n, stream
-    "gs_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
+    # out, rows, pair_slot, pair_start, n, stream
+    "gs_segment_sum": [_P, _P, _P, _P, _I, _P],
+    # out, perm, p, stream
+    "gs_inverse_permutation": [_P, _P, _I, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0,
-    "radix_sort/regroup": 0, "rasterize_forward": 0, "rasterize_backward": 0,
-    "segment_sum": 0,
+    "rasterize_forward": 0, "rasterize_backward": 0, "segment_sum": 0,
+    "inverse_permutation": 0,
 }
 
 _lock = threading.Lock()

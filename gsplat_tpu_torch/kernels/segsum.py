@@ -1,11 +1,17 @@
-"""Segment sum by Gaussian id (port of
+"""Segment sum by Gaussian (port of
 ``gsplat_tpu/kernels/segsum.py::segment_sum_by_gid``, f32 rows only).
 
-``out[g] = sum(rows[perm[j]] for j with sorted_gid[j] == g)``: the
-per-Gaussian sums of the backward rasterizer's per-pair rows, regrouped by
-the stable sort ``sorted_gid = splat_gid[perm]``. Row g is zero when
-Gaussian g has no pairs. CUDA kernel: ``csrc/segsum.cu`` (one thread per
-Gaussian, fixed summation order, deterministic).
+``out[g] = sum(rows[pair_slot[c]] for c in [pair_start[g], pair_start[g+1]))``
+in ascending c: the per-Gaussian sums of the backward rasterizer's per-pair
+rows, read through binning's per-Gaussian runs (``TileTables.pair_slot``,
+``pair_start``). Row g is zero when Gaussian g has no pairs. The reference
+sums a gid-sorted stream; binning's runs already list each Gaussian's
+pairs in the order a stable sort of ``splat_gid`` would, so no second sort
+is made. CUDA kernel: ``csrc/segsum.cu`` (9 lanes per Gaussian, one per
+column, fixed summation order, deterministic).
+
+``inverse_permutation`` makes binning's ``pair_slot`` from the tile sort's
+permutation (CUDA kernel in the same source: one 4-byte scatter a pair).
 """
 
 from __future__ import annotations
@@ -16,39 +22,70 @@ from . import _build
 
 
 def segment_sum_plain(
-    rows: torch.Tensor, perm: torch.Tensor, sorted_gid: torch.Tensor, n: int
+    rows: torch.Tensor, pair_slot: torch.Tensor, pair_start: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """Plain PyTorch version: ``index_add_`` of the permuted rows."""
+    """Plain PyTorch version: ``index_add_`` of the rows in candidate order
+    over each candidate's Gaussian (on the CPU it adds in index order)."""
+    counts = (pair_start[1:] - pair_start[:-1]).long()
+    gid = torch.repeat_interleave(
+        torch.arange(n, device=rows.device), counts, output_size=pair_slot.shape[0])
     out = torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    return out.index_add_(0, sorted_gid.to(torch.int64), rows[perm.to(torch.int64)])
+    return out.index_add_(0, gid, rows[pair_slot.long()])
 
 
 def segment_sum(
-    rows: torch.Tensor, perm: torch.Tensor, sorted_gid: torch.Tensor, n: int
+    rows: torch.Tensor, pair_slot: torch.Tensor, pair_start: torch.Tensor, n: int
 ) -> torch.Tensor:
     """(n, C) f32 per-Gaussian sums of (P, C) f32 ``rows``.
 
-    ``perm`` (P,) int32 and ``sorted_gid`` (P,) int32 come from the stable
-    sort of the pairs' Gaussian ids: ``sorted_gid`` ascending, in [0, n).
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (which takes C = 9).
+    Binning's tables: ``pair_slot`` (P,) int32 maps each candidate to its
+    row; ``pair_start`` (n+1,) int32 is non-decreasing from 0 to P, Gaussian
+    g's candidates being ``[pair_start[g], pair_start[g+1])``. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (which takes
+    C = 9).
     """
     if rows.device.type == "cpu":
-        return segment_sum_plain(rows, perm, sorted_gid, n)
+        return segment_sum_plain(rows, pair_slot, pair_start, n)
     name = "segment_sum"
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 9:
         raise ValueError(f"{name}: rows must be (P, 9) float32")
     p = rows.shape[0]
-    for t in (perm, sorted_gid):
-        if t.dtype != torch.int32 or t.shape != (p,):
-            raise ValueError(f"{name}: perm and sorted_gid must be ({p},) int32")
-    _build.require_cuda(name, rows, perm, sorted_gid)
+    for t, shape in ((pair_slot, (p,)), (pair_start, (n + 1,))):
+        if t.dtype != torch.int32 or t.shape != shape:
+            raise ValueError(f"{name}: pair_slot must be ({p},) and pair_start "
+                             f"({n + 1},) int32")
+    _build.require_cuda(name, rows, pair_slot, pair_start)
     lib = _build.build()
     out = torch.empty((n, 9), dtype=torch.float32, device=rows.device)
     err = lib.gs_segment_sum(
-        out.data_ptr(), rows.data_ptr(), perm.data_ptr(), sorted_gid.data_ptr(),
-        p, int(n), _build.stream_ptr(rows.device),
+        out.data_ptr(), rows.data_ptr(), pair_slot.data_ptr(), pair_start.data_ptr(),
+        int(n), _build.stream_ptr(rows.device),
     )
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return out
+
+
+def inverse_permutation_plain(perm: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``index_copy_`` of a ramp."""
+    ramp = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    return torch.empty_like(ramp).index_copy_(0, perm.long(), ramp)
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """(P,) int32 ``out`` with ``out[perm[j]] = j`` for a (P,) int32
+    permutation of [0, P). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel."""
+    if perm.device.type == "cpu":
+        return inverse_permutation_plain(perm)
+    name = "inverse_permutation"
+    if perm.dtype != torch.int32 or perm.dim() != 1:
+        raise ValueError(f"{name}: perm must be (P,) int32")
+    _build.require_cuda(name, perm)
+    lib = _build.build()
+    out = torch.empty_like(perm)
+    err = lib.gs_inverse_permutation(out.data_ptr(), perm.data_ptr(), perm.shape[0],
+                                     _build.stream_ptr(perm.device))
     _build.check(err, name)
     _build.launches[name] += 1
     return out

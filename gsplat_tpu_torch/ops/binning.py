@@ -17,6 +17,11 @@ resized for a GPU:
    Candidates are Gaussian-major and a Gaussian has at most one pair per
    tile, so stability reproduces the reference's ``(key, gid)`` order.
 4. Tile ranges come from ``searchsorted`` at the qd-aligned boundaries.
+5. The same two facts give the backward its per-Gaussian runs without a
+   second sort: Gaussian g's candidates are the run ``[pair_start[g],
+   pair_start[g+1])``, in ascending tile order, and ``pair_slot`` (the
+   inverse of the sort's permutation) gives each candidate's slot in the
+   sorted pair list, so ``pair_slot`` over a run ascends too.
 
 Sizing is exact per frame: one host sync of the row total after level 1
 and one of the pair total after level 2, as the original CUDA renderer did.
@@ -30,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.expand import segment_expand
+from ..kernels.segsum import inverse_permutation
 from ..kernels.sort import radix_sort
 
 _QD_Z0 = 1e-4
@@ -41,15 +47,19 @@ _I32_SAFE = float(1 << 30)
 
 
 class TileTables(NamedTuple):
-    """Per-tile ranges of the sorted pair list.
+    """Per-tile ranges of the sorted pair list, and per-Gaussian runs of it.
 
     ``splat_gid[tile_start[t] : tile_start[t] + tile_count[t]]`` are tile
     t's Gaussian ids, depth-ascending. Exactly ``num_pairs`` long.
+    ``pair_slot[pair_start[g] : pair_start[g + 1]]`` are Gaussian g's slots
+    in that list, ascending.
     """
 
     splat_gid: torch.Tensor  # (P,) int32
     tile_start: torch.Tensor  # (T,) int32
     tile_count: torch.Tensor  # (T,) int32
+    pair_slot: torch.Tensor  # (P,) int32, candidate -> sorted slot
+    pair_start: torch.Tensor  # (N+1,) int32, Gaussian -> first candidate; [N] = P
     num_pairs: int
 
 
@@ -299,5 +309,7 @@ def build_tile_tables(
         splat_gid=gid[perm.long()],
         tile_start=tile_start,
         tile_count=tile_count,
+        pair_slot=inverse_permutation(perm),
+        pair_start=off2[off1.long()],
         num_pairs=total_pairs,
     )

@@ -7,9 +7,13 @@ forward rasterizer kernel, reading ``attrs`` through binning's
 ``splat_gid``. The backward is
 
   backward rasterizer (one gradient row per pair, in tile order)
-  -> stable radix sort of ``splat_gid`` (the regroup: pairs in Gaussian
-     order; the reference's ``sample_sort`` call site)
-  -> segment sum by Gaussian id -> ``d_attrs`` (N, 9).
+  -> segment sum over binning's per-Gaussian runs (``pair_slot``,
+     ``pair_start``) -> ``d_attrs`` (N, 9).
+
+The reference sorts the pairs by Gaussian id a second time (its regroup
+``sample_sort`` call site) to feed its segment sum a gid-sorted stream.
+The port's runs list each Gaussian's rows in that same order, so the sort
+is not made and the sums are the same.
 
 The reference's chunk-coverage mask, side buffers and packed bf16/e5s9
 gradient words are not ported: they exist only because of how its TPU
@@ -30,7 +34,6 @@ import torch
 
 from ..kernels.rasterize import rasterize_backward, rasterize_forward
 from ..kernels.segsum import segment_sum
-from ..kernels.sort import radix_sort
 from .binning import TileTables
 
 
@@ -40,39 +43,34 @@ class RenderOutput(NamedTuple):
     n_splats: torch.Tensor  # (T, PIX) float32 counts
 
 
-def regroup_key_bits(n: int) -> int:
-    """Bits of the largest Gaussian id of an (n,)-row attribute table."""
-    return max(1, (int(n) - 1).bit_length())
-
-
 class _Rasterize(torch.autograd.Function):
     """attrs (N, 9) -> (T, 5, PIX) tile pixels; differentiable in attrs."""
 
     @staticmethod
-    def forward(ctx, attrs, splat_gid, tile_start, tile_count, bg,
-                num_tiles_x, num_tiles_y, tile):
+    def forward(ctx, attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start,
+                bg, num_tiles_x, num_tiles_y, tile):
         out = rasterize_forward(
             attrs, splat_gid, tile_start, tile_count, bg,
             num_tiles_x=num_tiles_x, tile=tile,
         )
-        ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, out)
+        ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, pair_slot,
+                              pair_start, out)
         ctx.bg = bg
         ctx.grid = (num_tiles_x, num_tiles_y, tile)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        attrs, splat_gid, tile_start, tile_count, out = ctx.saved_tensors
+        attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start, out = (
+            ctx.saved_tensors)
         num_tiles_x, num_tiles_y, tile = ctx.grid
         rows = rasterize_backward(
             attrs, splat_gid, tile_start, tile_count, out,
             d_out[:, 0:3, :].contiguous(), ctx.bg,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
         )
-        n = attrs.shape[0]
-        sorted_gid, perm = radix_sort(splat_gid, regroup_key_bits(n), site="regroup")
-        d_attrs = segment_sum(rows, perm, sorted_gid, n)
-        return d_attrs, None, None, None, None, None, None, None
+        d_attrs = segment_sum(rows, pair_slot, pair_start, attrs.shape[0])
+        return d_attrs, *(None,) * 9
 
 
 def pack_attrs(
@@ -128,7 +126,7 @@ def rasterize(
     attrs = pack_attrs(uv, conic, rgb, opacity_logit)
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
-        float(bg), num_tiles_x, num_tiles_y, tile,
+        tables.pair_slot, tables.pair_start, float(bg), num_tiles_x, num_tiles_y, tile,
     )
     # Cropping outside the Function: autograd gives the padded pixels zero
     # cotangents, as the reference's tiles_to_image does.

@@ -5,7 +5,7 @@
 optimizer step on one camera: per-Gaussian projection, covariance and SH
 colour, exact tile binning, the forward rasterizer, the fused SSIM+L1
 loss, then autograd back through the rasterizer's custom backward (backward
-kernel, regroup sort, segment sum) and the per-Gaussian maths, and a
+kernel, segment sum) and the per-Gaussian maths, and a
 visibility-masked Adam update.
 
 Everything runs eagerly (no jit); binning syncs the host twice per frame

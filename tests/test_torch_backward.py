@@ -1,13 +1,16 @@
-"""Port parity: the backward rasterizer, the regroup and the segment sum.
+"""Port parity: the backward rasterizer and the segment sum.
 
-- ``rasterize_backward_plain`` summed per Gaussian through the regroup
-  sort and ``segment_sum_plain`` against the numpy oracle
+- ``rasterize_backward_plain`` summed per Gaussian over binning's runs by
+  ``segment_sum_plain`` against the numpy oracle
   ``oracle_render_backward``, at the geometry and tolerances of
   tests/test_render.py::test_backward_matches_oracle;
 - rows past every pixel's n_splats are written, as exact zeros (the
   saturated tile of tests/test_render.py's early-termination test);
 - ``segment_sum_plain`` against the JAX ``segment_sum_by_gid`` (f32 rows,
-  interpret mode) on the same gid-sorted values;
+  interpret mode) fed the same rows sorted by Gaussian id, on
+  Gaussian-major candidates in a stable tile order, and bit-equal to a
+  stable sort of ``splat_gid`` followed by ``index_add_`` (the regroup the
+  reference makes, which the port leaves out);
 - the port's differentiable ``rasterize`` against ``jax.vjp`` of the JAX
   ``rasterize(bf16_grads=False)`` on the same tile tables, at a height that
   is not a multiple of 16 (so the padded-grid uv scale shows).
@@ -33,9 +36,8 @@ from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     grad_scales, rasterize_backward, rasterize_backward_plain, rasterize_forward,
 )
 from gsplat_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain  # noqa: E402
-from gsplat_tpu_torch.kernels.sort import radix_sort  # noqa: E402
 from gsplat_tpu_torch.ops.binning import TileTables, build_tile_tables  # noqa: E402
-from gsplat_tpu_torch.ops.render import pack_attrs, rasterize, regroup_key_bits  # noqa: E402
+from gsplat_tpu_torch.ops.render import pack_attrs, rasterize  # noqa: E402
 
 TILE = 16
 
@@ -61,8 +63,8 @@ def _port_backward(uv, conic, opa, rgb, tables, d_img, bg, ntx, nty):
     rows = rasterize_backward_plain(*args, out, _image_to_tiles(d_img, ntx, nty), bg,
                                     num_tiles_x=ntx, num_tiles_y=nty)
     n = uv.shape[0]
-    sorted_gid, perm = radix_sort(tables.splat_gid, regroup_key_bits(n))
-    return rows, segment_sum_plain(rows, perm, sorted_gid, n).numpy(), out
+    sums = segment_sum_plain(rows, tables.pair_slot, tables.pair_start, n)
+    return rows, sums.numpy(), out
 
 
 def test_backward_plain_matches_oracle(rng):
@@ -118,26 +120,78 @@ def test_backward_rows_past_every_pixel_are_zero(rng):
     np.testing.assert_array_equal(d_attrs[tables.splat_gid[maxn:].long()], 0.0)
 
 
-def test_segment_sum_plain_matches_jax_kernel(rng):
-    # tests/test_kernels.py::test_segment_sum_by_gid_f32_and_packed sizes;
-    # empty ids, long runs, and rows in pair (not gid) order.
-    n, p = 700, 3500
-    gids = rng.integers(0, n, p).astype(np.int32)
-    gids[gids % 7 == 0] = 3  # one Gaussian with hundreds of pairs
+def _runs(counts, rng, num_tiles=64, qd_bits=4):
+    """Gaussian-major candidates, each Gaussian's in ascending tile order
+    (as binning emits them), put in a random stable (tile, depth) order:
+    (pair_slot, pair_start, splat_gid) as binning's tables hold them."""
+    n = len(counts)
+    tiles = [np.sort(rng.choice(num_tiles, c, replace=False)) for c in counts]
+    qd = rng.integers(0, 1 << qd_bits, n)  # few depth buckets: many key ties
+    keys = np.concatenate([(t << qd_bits) | qd[g] for g, t in enumerate(tiles)] + [[]])
+    cand_gid = np.repeat(np.arange(n), counts).astype(np.int32)
+    perm = np.argsort(keys.astype(np.int64), kind="stable")
+    pair_slot = np.empty(len(perm), np.int32)
+    pair_slot[perm] = np.arange(len(perm))
+    pair_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return _t(pair_slot), _t(pair_start), _t(cand_gid[perm])
+
+
+def _regroup_sums(rows, splat_gid, n):
+    """The reference's regroup: a stable sort of the pairs by Gaussian id,
+    then the rows added in that order (index_add_ adds in index order on
+    the CPU)."""
+    order = torch.sort(splat_gid, stable=True)
+    out = torch.zeros((n, rows.shape[1]), dtype=torch.float32)
+    return out.index_add_(0, order.values.long(), rows[order.indices])
+
+
+@pytest.mark.parametrize("case", ["runs", "empty frame"])
+def test_segment_sum_plain_matches_jax_kernel(rng, case):
+    # tests/test_kernels.py::test_segment_sum_by_gid_f32_and_packed sizes:
+    # Gaussians without pairs, one with hundreds, rows in pair (tile) order.
+    n = 700
+    counts = rng.integers(0, 10, n)
+    counts[counts < 3] = 0
+    counts[3] = 0 if case == "empty frame" else 300
+    if case == "empty frame":
+        counts[:] = 0
+    pair_slot, pair_start, splat_gid = _runs(counts, rng, num_tiles=400)
+    p = int(counts.sum())
     rows = rng.standard_normal((p, 9)).astype(np.float32)
-    sorted_gid, perm = radix_sort(_t(gids), regroup_key_bits(n))
-    got = segment_sum(_t(rows), perm, sorted_gid, n)
-    assert torch.equal(got, segment_sum_plain(_t(rows), perm, sorted_gid, n))
-    p_np = perm.numpy()
+    got = segment_sum(_t(rows), pair_slot, pair_start, n)
+    assert torch.equal(got, segment_sum_plain(_t(rows), pair_slot, pair_start, n))
+    # JAX takes the rows sorted by Gaussian id; an empty stream is one
+    # sentinel slot (id n), which it never sums.
+    slots = pair_slot.numpy()
+    cand_gid = np.repeat(np.arange(n), counts).astype(np.int32)
+    values, ids = rows[slots].T, cand_gid
+    if p == 0:
+        values, ids = np.ones((9, 1), np.float32), np.full((1,), n, np.int32)
     ref = np.asarray(segment_sum_by_gid(
-        jnp.asarray(rows[p_np].T), jnp.asarray(sorted_gid.numpy()), n, interpret=True,
-    ))[:, :n].T
+        jnp.asarray(values), jnp.asarray(ids), n, interpret=True))[:, :n].T
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
-    assert got.shape == (n, 9) and (got.numpy()[np.bincount(gids, minlength=n) == 0] == 0).all()
+    assert got.shape == (n, 9) and (got.numpy()[counts == 0] == 0).all()
+    assert torch.equal(splat_gid[pair_slot.long()], _t(cand_gid))
 
 
-def test_regroup_key_bits():
-    assert [regroup_key_bits(n) for n in (1, 2, 300, 4096, 1 << 20)] == [1, 1, 9, 12, 20]
+def test_segment_sum_equals_the_regroup_bit_for_bit(rng):
+    # Random runs, and the binned scene of test_backward_plain_matches_oracle:
+    # the runs add each Gaussian's rows in the order a stable sort of
+    # splat_gid gives them, so the sums are the same floats.
+    counts = rng.integers(0, 40, 500)
+    pair_slot, pair_start, splat_gid = _runs(counts, rng, num_tiles=256, qd_bits=2)
+    rows = _t(rng.standard_normal((int(counts.sum()), 9)).astype(np.float32))
+    got = segment_sum(rows, pair_slot, pair_start, 500)
+    assert torch.equal(got, _regroup_sums(rows, splat_gid, 500))
+
+    width, height, n = 96, 64, 180
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
+    tables = build_tile_tables(_t(uv), _t(z), _t(radius), torch.ones(n, dtype=torch.bool),
+                               num_tiles_x=width // TILE, num_tiles_y=height // TILE,
+                               tile_size=TILE)
+    rows = _t(rng.standard_normal((tables.num_pairs, 9)).astype(np.float32) * 1e3)
+    got = segment_sum(rows, tables.pair_slot, tables.pair_start, n)
+    assert torch.equal(got, _regroup_sums(rows, tables.splat_gid, n))
 
 
 def test_rasterize_vjp_matches_jax(rng):
@@ -160,10 +214,19 @@ def test_rasterize_vjp_matches_jax(rng):
     j_grads = vjp(jnp.asarray(d_img))
 
     num_pairs = int(j_tables.num_pairs)
+    splat_gid = _t(np.asarray(j_tables.splat_gid)[:num_pairs])
+    # Per-Gaussian runs of the reference's pair list: its slots by Gaussian,
+    # ascending (what the port's binning derives without a sort).
+    order = torch.sort(splat_gid, stable=True)
+    counts = torch.bincount(splat_gid.long(), minlength=n)
     tables = TileTables(
-        splat_gid=_t(np.asarray(j_tables.splat_gid)[:num_pairs]),
+        splat_gid=splat_gid,
         tile_start=_t(np.asarray(j_tables.tile_start)),
-        tile_count=_t(np.asarray(j_tables.tile_count)), num_pairs=num_pairs,
+        tile_count=_t(np.asarray(j_tables.tile_count)),
+        pair_slot=order.indices.to(torch.int32),
+        pair_start=torch.cat([torch.zeros(1, dtype=torch.int64),
+                              torch.cumsum(counts, 0)]).to(torch.int32),
+        num_pairs=num_pairs,
     )
     leaves = [_t(x).requires_grad_(True) for x in (uv, conic, rgb, opa)]
     out = rasterize(*leaves, tables, bg, width=width, height=height, tile=TILE)

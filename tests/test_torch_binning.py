@@ -98,6 +98,36 @@ def test_binning_matches_jax_exact_mode(rng, width, height, n, masked):
         assert set(port.splat_gid.tolist()) <= set(range(0, n, 2))
 
 
+@pytest.mark.parametrize(
+    "width,height,n,masked",
+    [(64, 64, 30, False), (32, 32, 10, True), (96, 64, 180, False)],
+)
+def test_pair_runs_match_brute_force(rng, width, height, n, masked):
+    """``pair_slot`` and ``pair_start`` on the scenes above: Gaussian g's
+    run lists exactly the slots of the sorted pair list that hold g, in
+    ascending slot (so ascending tile) order; ``pair_slot`` is a
+    permutation and ``pair_start`` ends at the pair count."""
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
+    mask = np.ones(n, bool)
+    if masked:
+        mask[1::2] = False
+    ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    port = _port_tables(uv, z, radius, mask, ntx, nty)
+    gid, slot, start = (t.numpy() for t in (port.splat_gid, port.pair_slot,
+                                            port.pair_start))
+    assert slot.dtype == start.dtype == np.int32
+    assert start.shape == (n + 1,) and start[0] == 0 and start[-1] == port.num_pairs
+    np.testing.assert_array_equal(np.sort(slot), np.arange(port.num_pairs))
+    tile_of_slot = np.repeat(np.arange(ntx * nty), port.tile_count.numpy())
+    for g in range(n):
+        run = slot[start[g]: start[g + 1]]
+        np.testing.assert_array_equal(run, np.flatnonzero(gid == g))
+        assert np.all(np.diff(tile_of_slot[run]) > 0), g
+    cand_gid = np.repeat(np.arange(n), np.diff(start))
+    np.testing.assert_array_equal(gid[slot], cand_gid)  # candidate c's Gaussian
+    assert (np.diff(start)[~mask] == 0).all() and np.diff(start).max() > 1
+
+
 def test_binning_ellipse_records_match_jax(rng):
     """5-column radius records (the opacity-aware ellipse cut), from the
     covariance op as in test_ellipse_cut_is_pixel_exact_and_subset."""

@@ -146,10 +146,13 @@ def test_kernel_bound_hand_counted():
     r = chip_smoke.kernel_bound("rasterize_backward", **kw)
     assert r["bound_by"] == "operations"
     assert r["bound_ms"] == pytest.approx(1e3 * 3.04e8 / fp32)
-    # Segment sum: rows 36 + perm 4 + sorted gid 4 bytes a pair, 36 a
-    # Gaussian out; 9 adds a pair.
+    # Segment sum: rows 36 + pair_slot 4 bytes a pair; pair_start 4 in and
+    # 36 out a Gaussian; 9 adds a pair.
     r = chip_smoke.kernel_bound("segment_sum", gaussians=2, pairs=3)
-    assert (r["bytes"], r["ops"]) == (3 * 44 + 2 * 36, 27)
+    assert (r["bytes"], r["ops"]) == (3 * 40 + 2 * 40, 27)
+    # Inverse permutation: 4 bytes a pair in, 4 out.
+    r = chip_smoke.kernel_bound("inverse_permutation", pairs=5)
+    assert (r["bytes"], r["ops"], r["bound_by"]) == (40, 0, "bytes")
 
 
 def test_gaussian_params_default_device_is_cuda():

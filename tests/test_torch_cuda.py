@@ -21,10 +21,11 @@ from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_backward_plain, rasterize_forward,
     rasterize_forward_plain,
 )
-from gsplat_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain  # noqa: E402
+from gsplat_tpu_torch.kernels.segsum import (  # noqa: E402
+    inverse_permutation, inverse_permutation_plain, segment_sum, segment_sum_plain,
+)
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain, sort_plan  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
-from gsplat_tpu_torch.ops.render import regroup_key_bits  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -127,6 +128,55 @@ def test_rasterize_kernel_close_to_plain(dev, n):
     torch.testing.assert_close(got[:, 3], ref[:, 3], rtol=1e-3, atol=1e-5)
     same_n = (got[:, 4] == ref[:, 4]).float().mean().item()
     assert same_n >= 0.999, same_n
+
+
+def _one_tile_lists(rng, count, opa, wide):
+    """Hand-made tables of two tiles (32x16 px): tile 0 lists ``count``
+    pairs, tile 1 none. ``wide`` splats cover the tile evenly, so every
+    pixel saturates after about the same number of pairs."""
+    n = max(count, 1)
+    u = rng.uniform(-4, 20, n)
+    v = rng.uniform(-4, 20, n)
+    conic = np.tile([1e-4, 0.0, 1e-4], (n, 1)) if wide else np.stack(
+        [rng.uniform(0.01, 0.5, n), rng.uniform(-0.005, 0.005, n),
+         rng.uniform(0.01, 0.5, n)], 1)
+    rgb = rng.uniform(0, 1, (n, 3))
+    attrs = np.concatenate([u[:, None], v[:, None], conic, np.full((n, 1), opa), rgb], 1)
+    gid = rng.integers(0, n, count)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    return (torch.from_numpy(attrs.astype(np.float32)), i32(gid), i32([0, count]),
+            i32([count, 0]))
+
+
+@pytest.mark.parametrize("count,opa,wide,saturates", [
+    (0, 0.5, False, None), (1, 0.5, False, None), (255, 0.3, False, None),
+    (256, 0.3, False, None), (257, 0.3, False, None), (64, 0.3, False, None),
+    (65, 0.3, False, None),
+    # every pixel crosses T < 1e-4 within the first batch of 64 pairs
+    (257, 0.6, True, (0, 64)),
+    # ... or in the last batch, [192, 250)
+    (250, 0.0412, True, (192, 250)),
+])
+def test_rasterize_forward_kernel_tile_counts(dev, count, opa, wide, saturates):
+    # Tile lists around the kernel's batch of 64 pairs and the old one of
+    # 256, and pixels that saturate in the first or the last batch.
+    args = _one_tile_lists(np.random.default_rng(count), count, opa, wide)
+    got = rasterize_forward(*[t.to(dev) for t in args], 0.3, num_tiles_x=2)
+    again = rasterize_forward(*[t.to(dev) for t in args], 0.3, num_tiles_x=2)
+    torch.cuda.synchronize()
+    ref = rasterize_forward_plain(*args, 0.3, num_tiles_x=2)
+    assert torch.equal(got, again)
+    got = got.cpu()
+    torch.testing.assert_close(got[:, :3], ref[:, :3], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[:, 3], ref[:, 3], rtol=1e-3, atol=1e-5)
+    assert torch.equal(got[:, 4], ref[:, 4])
+    assert torch.equal(got[1], ref[1]) and (got[1, 4] == 0).all()  # the empty tile
+    n_spl = ref[0, 4]
+    if saturates is None:
+        assert (n_spl == count).any()  # some pixel reached the end of the list
+    else:
+        lo, hi = saturates
+        assert (n_spl > lo).all() and (n_spl <= hi).all() and (n_spl < count).all()
 
 
 def test_binning_on_card_equals_cpu(dev):
@@ -258,34 +308,41 @@ def test_rasterize_backward_kernel_edge_tiles(dev, case):
     assert ((got - ref).abs() <= 1e-3 * scale + 1e-6).all()
 
 
-@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
-def test_segment_sum_kernel_close_to_plain(dev, n, p):
-    rng = np.random.default_rng(p)
+def _gaussian_runs(rng, n, p):
+    """Per-Gaussian runs of p pairs in a random stable tile order, as
+    binning gives them: (pair_slot, pair_start) and the pair counts."""
     gids = rng.integers(0, n, p).astype(np.int32)
     gids[: p // 5] = n // 2  # one Gaussian with hundreds of pairs
     gids[gids % 3 == 1] = n // 3  # and empty runs around it
+    counts = np.bincount(gids, minlength=n)
+    keys = torch.from_numpy(rng.permutation(p).astype(np.int32))  # slot order
+    perm = radix_sort_plain(keys, 31)[1]
+    pair_start = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    return inverse_permutation(perm), pair_start, counts
+
+
+@pytest.mark.parametrize("p", [0, 1, 255, 256, 257, 1_000_003])
+def test_inverse_permutation_kernel_equals_plain(dev, p):
+    perm = torch.from_numpy(np.random.default_rng(p).permutation(p).astype(np.int32))
+    got = inverse_permutation(perm.to(dev))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), inverse_permutation_plain(perm))
+
+
+@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
+def test_segment_sum_kernel_close_to_plain(dev, n, p):
+    rng = np.random.default_rng(p)
+    pair_slot, pair_start, counts = _gaussian_runs(rng, n, p)
     rows = torch.from_numpy(rng.standard_normal((p, 9)).astype(np.float32))
-    sorted_gid, perm = radix_sort_plain(torch.from_numpy(gids), 31)
-    got = segment_sum(rows.to(dev), perm.to(dev), sorted_gid.to(dev), n)
-    again = segment_sum(rows.to(dev), perm.to(dev), sorted_gid.to(dev), n)
+    args = [t.to(dev) for t in (rows, pair_slot, pair_start)]
+    got = segment_sum(*args, n)
+    again = segment_sum(*args, n)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    ref = segment_sum_plain(rows, perm, sorted_gid, n)
-    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
-    empty = torch.from_numpy(np.bincount(gids, minlength=n) == 0)
-    assert (got.cpu()[empty] == 0).all()
-
-
-@pytest.mark.parametrize("n_cap", [4096, 1 << 20])
-def test_regroup_sort_on_gid_keys(dev, n_cap):
-    # Tile-ordered Gaussian ids, as the backward regroups them.
-    rng = np.random.default_rng(n_cap)
-    gid = torch.from_numpy(rng.integers(0, n_cap, 5 * n_cap).astype(np.int32))
-    bits = regroup_key_bits(n_cap)
-    s_k, perm = radix_sort(gid.to(dev), bits)
-    torch.cuda.synchronize()
-    p_k, p_perm = radix_sort_plain(gid, bits)
-    assert torch.equal(s_k.cpu(), p_k) and torch.equal(perm.cpu(), p_perm)
+    ref = segment_sum_plain(rows, pair_slot, pair_start, n)
+    # The kernel adds each run in the plain version's (index) order.
+    assert torch.equal(got.cpu(), ref)
+    assert (got.cpu()[torch.from_numpy(counts == 0)] == 0).all()
 
 
 def test_train_step_on_card_close_to_cpu(dev):
@@ -334,15 +391,14 @@ def test_train_step_on_card_close_to_cpu(dev):
 
 
 def test_backward_kernels_with_no_pairs(dev):
-    # An empty frame: nothing to replay, regroup or sum; every sum is zero.
+    # An empty frame: nothing to replay or sum; every sum is zero.
     i32 = lambda n: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
     attrs = torch.zeros((5, 9), device=dev)
     out = torch.zeros((2, 5, 256), device=dev)
     rows = rasterize_backward(attrs, i32(0), i32(2), i32(2), out,
                               torch.ones((2, 3, 256), device=dev), 0.5,
                               num_tiles_x=2, num_tiles_y=1)
-    sorted_gid, perm = radix_sort(i32(0), regroup_key_bits(5))
-    sums = segment_sum(rows, perm, sorted_gid, 5)
+    sums = segment_sum(rows, i32(0), i32(6), 5)
     torch.cuda.synchronize()
-    assert rows.shape == (0, 9) and sorted_gid.shape == (0,)
+    assert rows.shape == (0, 9)
     assert torch.equal(sums, torch.zeros((5, 9), device=dev))

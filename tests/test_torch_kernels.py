@@ -3,6 +3,7 @@
 - segment expand vs ``np.repeat`` and the JAX ``segment_expand`` (interpret
   mode) at the geometry of tests/test_kernels.py: bit-equal;
 - radix sort (stable) vs a numpy lexsort on (key, gid): equal;
+- inverse permutation (binning's ``pair_slot``) vs ``np.argsort``: equal;
 - forward rasterizer vs the numpy oracle at the tolerances of
   tests/test_render.py (image rtol 2e-4 / atol 2e-5, T_final rtol 1e-3,
   n_splats exact), including the early-termination/saturation case.
@@ -26,7 +27,7 @@ from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_forward,
 )
-from gsplat_tpu_torch.kernels.segsum import segment_sum  # noqa: E402
+from gsplat_tpu_torch.kernels.segsum import inverse_permutation, segment_sum  # noqa: E402
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
 from gsplat_tpu_torch.ops.render import rasterize  # noqa: E402
@@ -94,8 +95,19 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         rasterize_backward(f32(4, 9), i32(3), i32(2), i32(2), f32(2, 5, 256),
                            f32(2, 3, 256), 0.0, num_tiles_x=2, num_tiles_y=1)
     with pytest.raises(ValueError, match="CUDA"):
-        segment_sum(f32(3, 9), i32(3), i32(3), 4)
+        segment_sum(f32(3, 9), i32(3), i32(5), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        inverse_permutation(i32(3))
     assert _build.launches == dict.fromkeys(_build.launches, 0)
+
+
+@pytest.mark.parametrize("p", [0, 1, 1000])
+def test_inverse_permutation_plain_is_argsort(rng, p):
+    # binning's pair_slot: out[perm[j]] = j, i.e. the permutation's argsort.
+    perm = rng.permutation(p).astype(np.int32)
+    got = inverse_permutation(torch.from_numpy(perm))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.argsort(perm))
 
 
 @pytest.mark.parametrize("key_bits", [8, 20, 29])
