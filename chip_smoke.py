@@ -14,9 +14,14 @@ sm_90a, then:
    permutation, at n = 0, 1, tile - 1, tile, tile + 1 and larger, on
    random keys, equal keys and keys that differ only in the last pass's
    digit, for key_bits 1, 20, 29 and 31;
+2c. holds the segment expand bit-equal to its plain version on adversarial
+   counts (``expand_edge_counts``: a run longer than many blocks' shares,
+   long stretches of zero counts, every slot in the last record, a single
+   record, merged sizes around a multiple of a block's share);
 3. compares each kernel with its plain PyTorch version on the card, at the
-   shapes of one view of the bench scene at 100K Gaussians (segment expand,
-   radix sort and the inverse permutation that makes binning's
+   shapes of one view of the bench scene at 100K Gaussians (segment expand
+   at both binning levels, each level's records, slots, time and bound
+   printed; radix sort and the inverse permutation that makes binning's
    ``pair_slot`` bit-equal; rasterizer image PSNR >= 60 dB, n_splats equal
    on >= 99.9 % of pixels, a rerun bit-identical);
 4. checks a small scene rendered on the card against the port's CPU path
@@ -61,7 +66,8 @@ device is present.
 
     python3 -P chip_smoke.py --train-profile
 
-runs [1] and [9]'s train steps and profile alone, without checks, with the
+runs [1] and [9]'s train steps and a profile of TRAIN_PROFILE_STEPS more
+alone, without checks, with the
 ``gsplat_tpu_torch`` that the import path finds first: with ``-P`` and
 ``PYTHONPATH`` set to another checkout (an earlier commit unpacked by
 ``git archive``), one copy of this script profiles that checkout's train
@@ -104,6 +110,10 @@ SOURCES = {
 }
 TRAIN_STEPS = 8
 PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
+# --train-profile: profiled steps. 16 resolve ~0.01 ms/step of device time
+# between two checkouts (three runs of one within 0.010 on an H100); [9]'s
+# 4 spread up to 0.34.
+TRAIN_PROFILE_STEPS = 16
 PROFILE_TOP = 10  # [9]: other kernels listed by device time
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes/s and FP32 operations/s outside the tensor cores.
@@ -414,21 +424,26 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     inp = path_inputs(params, cm, st)
     res = {}
     # K5: both binning levels, bit-equal; time = both calls of one frame.
-    for args in inp["expand"]:
-        got = expand.segment_expand(*args)
-        ref = expand.segment_expand_plain(*args)
-        if not torch.equal(got, ref):
-            raise AssertionError("segment_expand differs from its plain version")
-    counts = [(rec, (off[1:] - off[:-1]).long(), total)
-              for rec, off, total in inp["expand"]]
+    levels = []
+    for level, (rec, off, total) in enumerate(inp["expand"], 1):
+        args = (rec, off, total)
+        if not torch.equal(expand.segment_expand(*args), expand.segment_expand_plain(*args)):
+            raise AssertionError(f"segment_expand differs from its plain version at "
+                                 f"level {level}")
+        counts = (off[1:] - off[:-1]).long()
+        lv = dict(
+            ms=cuda_ms(lambda a=args: expand.segment_expand(*a), timing_iters),
+            plain_ms=cuda_ms(lambda a=args: expand.segment_expand_plain(*a), timing_iters),
+            library_ms=cuda_ms(lambda r=rec, c=counts, t=total: torch.repeat_interleave(
+                r, c, dim=1, output_size=t), timing_iters),
+            **kernel_bound("segment_expand", expand=[(rec.shape[0], rec.shape[1], total)]))
+        log(f"  segment_expand level {level}: {rec.shape[1]} records -> {total} slots; "
+            f"kernel {lv['ms']:.4f} ms, "
+            f"repeat_interleave {lv['library_ms']:.4f} ms, bound {lv['bound_ms']:.4f} ms")
+        levels.append(lv)
     res["segment_expand"] = dict(
-        max_abs_err=0.0, calls=len(inp["expand"]),
-        ms=sum(cuda_ms(lambda a=a: expand.segment_expand(*a), timing_iters)
-               for a in inp["expand"]),
-        plain_ms=sum(cuda_ms(lambda a=a: expand.segment_expand_plain(*a), timing_iters)
-                     for a in inp["expand"]),
-        library_ms=sum(cuda_ms(lambda r=r, c=c, t=t: torch.repeat_interleave(
-            r, c, dim=1, output_size=t), timing_iters) for r, c, t in counts),
+        max_abs_err=0.0, calls=len(levels),
+        **{k: sum(lv[k] for lv in levels) for k in ("ms", "plain_ms", "library_ms")},
         **kernel_bound("segment_expand", expand=[
             (rec.shape[0], rec.shape[1], total) for rec, _, total in inp["expand"]]),
     )
@@ -654,6 +669,55 @@ def check_sort_edge_cases(dev) -> None:
         f"(tile {tile} keys)")
 
 
+def expand_edge_counts() -> list:
+    """Adversarial run lengths for the segment expand, as (name, counts)
+    pairs of int32 arrays: a run far longer than a block's share of merged
+    items, long stretches of zero counts, every slot in the last record, a
+    single record, no slots at all, and merged sizes (records + slots)
+    around a multiple of the share, with slots around one too."""
+    from gsplat_tpu_torch.kernels.expand import ITEMS_PER_BLOCK as share
+
+    rng = np.random.default_rng(5)
+
+    def spread(r, total):  # r random counts that sum to total
+        return rng.multinomial(total, np.full(r, 1.0 / r)).astype(np.int32)
+
+    long_run = rng.integers(0, 4, 5000).astype(np.int32)
+    long_run[:700] = 0
+    long_run[1234] = 150_000
+    zeros = rng.integers(0, 5, 30_000).astype(np.int32)
+    zeros[5000:15_000] = 0
+    zeros[-3000:] = 0
+    last = np.zeros(20_000, np.int32)
+    last[-1] = 50_000
+    cases = [("long run", long_run), ("zero stretch", zeros), ("all in last", last),
+             ("single record", np.array([70_001], np.int32)),
+             ("no slots", np.zeros(5000, np.int32))]
+    for d in (-1, 0, 1):
+        cases.append((f"records + slots = 40 shares {d:+d}",
+                      spread(30_000, 40 * share + d - 30_000)))
+    for d in (-1, 1):
+        cases.append((f"slots = 32 shares {d:+d}", spread(10_000, 32 * share + d)))
+    return cases
+
+
+def check_expand_edge_cases(dev) -> None:
+    """K5 bit-equal to its plain version on ``expand_edge_counts``, with
+    random 32-bit words in three columns."""
+    from gsplat_tpu_torch.kernels import expand
+
+    rng = np.random.default_rng(6)
+    for name, counts in expand_edge_counts():
+        off = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+        rec = torch.from_numpy(rng.integers(-2**31, 2**31, (3, counts.shape[0]),
+                                            dtype=np.int64).astype(np.int32))
+        total = int(counts.sum())
+        got = expand.segment_expand(rec.to(dev), off.to(dev), total)
+        if not torch.equal(got.cpu(), expand.segment_expand_plain(rec, off, total)):
+            raise AssertionError(f"segment_expand differs from its plain version: {name}")
+        log(f"  {name}: {counts.shape[0]} records -> {total} slots, bit-equal")
+
+
 def one_step(state, cm, gt, it, st):
     """train_step's two halves, keeping the gradients: (loss, grads, g_uv,
     tables)."""
@@ -765,19 +829,20 @@ def port_kernel_names() -> set:
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", text))
 
 
-def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float):
-    """torch.profiler over PROFILED_STEPS more train steps: device ms and
+def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float,
+                  steps: int = PROFILED_STEPS):
+    """torch.profiler over ``steps`` more train steps: device ms and
     launches per step, the busy share (device ms over ``wall_ms``, the
-    median ms/step of the timed steps), the port's kernels and the other
-    kernels that take the most device time. Returns the state."""
+    median ms/step of the timed steps), the port's kernels, the other
+    kernels together and those that take the most device time. Returns the
+    state."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _, _ = run_steps(state, cams, gts, st,
-                                range(first_it, first_it + PROFILED_STEPS), quiet=True)
+                                range(first_it, first_it + steps), quiet=True)
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3 / PROFILED_STEPS,
-                    e.count / PROFILED_STEPS)
+    rows = sorted(((e.key, e.device_time_total / 1e3 / steps, e.count / steps)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   key=lambda r: -r[1])
     device = sum(ms for _, ms, _ in rows)
@@ -785,10 +850,11 @@ def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float):
         raise AssertionError("torch.profiler saw no device time")
     names = port_kernel_names()
     ours = [r for r in rows if any(k in r[0] for k in names)]
-    log(f"  device profile of {PROFILED_STEPS} steps: {device:.3f} ms/step, busy "
+    ours_ms = sum(ms for _, ms, _ in ours)
+    log(f"  device profile of {steps} steps: {device:.3f} ms/step, busy "
         f"{100 * device / wall_ms:.1f} % of {wall_ms:.3f} ms, "
         f"{sum(n for *_, n in rows):.1f} launches/step; port kernels "
-        f"{sum(ms for _, ms, _ in ours):.3f} ms/step")
+        f"{ours_ms:.3f} ms/step, other kernels {device - ours_ms:.3f} ms/step")
     others = [r for r in rows if r not in ours][:PROFILE_TOP]
     for i, (key, ms, n) in enumerate(ours + others):
         if i == len(ours):
@@ -842,10 +908,10 @@ def train_slice(cams, st, dev):
 
 
 def train_profile(dev) -> None:
-    """``--train-profile``: [9]'s train steps and device profile alone,
-    without its checks, with whatever ``gsplat_tpu_torch`` is imported, so
-    that one copy of this script can profile several checkouts (see the
-    module docstring)."""
+    """``--train-profile``: [9]'s train steps and a device profile of
+    TRAIN_PROFILE_STEPS more alone, without its checks, with whatever
+    ``gsplat_tpu_torch`` is imported, so that one copy of this script can
+    profile several checkouts (see the module docstring)."""
     from gsplat_tpu_torch.kernels import _build
 
     _build.build()
@@ -856,7 +922,7 @@ def train_profile(dev) -> None:
     median = statistics.median(times[1:])
     log(f"[9] train_step, 1M Gaussians: median {median:.3f} ms/step over steps 1-"
         f"{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)})")
-    profile_steps(state, cams, gts, st, TRAIN_STEPS, median)
+    profile_steps(state, cams, gts, st, TRAIN_STEPS, median, TRAIN_PROFILE_STEPS)
 
 
 def main() -> int:
@@ -903,6 +969,8 @@ def main() -> int:
     # 2b. The radix sort's edge cases.
     log("[2b] radix sort edge cases vs torch.sort(stable=True)")
     check_sort_edge_cases(dev)
+    log("[2c] segment expand edge cases vs its plain version")
+    check_expand_edge_cases(dev)
 
     # 3. Kernels vs plain versions, 100K Gaussians, bench view.
     cams = views()

@@ -38,11 +38,15 @@
 //
 // inverse_permutation_kernel makes pair_slot for binning: out[perm[j]] = j
 // over the tile sort's int32 permutation, one thread per slot, reading
-// coalesced and writing 4-byte words at random into a 21 MB array that
-// stays in L2. Bound: 8 bytes a pair. PyTorch's index_copy_ (its quickest
-// scatter here) took ~0.14 ms of device time on the bench permutation,
-// plus an arange for the values, which made this sum and its scatter
-// slower than one index_add_ (PERF.md).
+// coalesced and writing 4-byte words at random. Bound: 8 bytes a pair,
+// 0.013 ms at the bench point; it takes ~0.12 ms of device time, set by
+// its 5.4M random 4-byte stores (~44G a second on an H100), not by the
+// read. PyTorch's index_copy_ (its quickest scatter here) took ~0.14 ms
+// plus an arange for the values. Storing the inverse from the tile sort's
+// last pass, which holds both halves of each write, saves this launch and
+// the read but not the stores, and it slowed the kernels after the sort:
+// the train step took 0.017 ms of device time more than with this kernel,
+// 0.045 ms more with an L2 evict-last hint on the stores (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -3,7 +3,11 @@
 ``out[:, s] = records[:, g]`` for the ``g`` with
 ``offsets_ext[g] <= s < offsets_ext[g+1]``. Sizing is exact: the output has
 ``total = offsets_ext[-1]`` slots, and records may have zero counts
-anywhere (no sentinel rows). CUDA kernel: ``csrc/expand.cu``.
+anywhere (no sentinel rows). CUDA kernel: ``csrc/expand.cu``, a merge-path
+load-balanced search: the R run ends and the ``total`` slots are merged,
+and each block of the one launch owns ITEMS_PER_BLOCK items of that merged
+sequence, so long runs and long stretches of zero counts cost what any
+other items do, and no slot searches global memory.
 """
 
 from __future__ import annotations
@@ -11,6 +15,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+# Merged items (run ends + slots) a block owns: mirrors csrc/expand.cu's
+# kItems, which sets the launch; chip_smoke.py sizes its edge cases by it.
+ITEMS_PER_BLOCK = 2048
 
 
 def segment_expand_plain(
@@ -43,12 +51,17 @@ def segment_expand(
     if total >= 2**31:
         raise ValueError(f"{name}: total {total} exceeds int32")
     _build.require_cuda(name, records, offsets_ext)
+    return _launch(records, offsets_ext, int(total))
+
+
+def _launch(records: torch.Tensor, offsets_ext: torch.Tensor, total: int) -> torch.Tensor:
+    c, r = records.shape
     lib = _build.build()
     out = torch.empty((c, total), dtype=records.dtype, device=records.device)
     err = lib.gs_segment_expand(
-        out.data_ptr(), records.data_ptr(), offsets_ext.data_ptr(),
-        c, r, int(total), _build.stream_ptr(records.device),
+        out.data_ptr(), records.data_ptr(), offsets_ext.data_ptr(), c, r, total,
+        _build.stream_ptr(records.device),
     )
-    _build.check(err, name)
-    _build.launches[name] += 1
+    _build.check(err, "segment_expand")
+    _build.launches["segment_expand"] += 1
     return out

@@ -12,6 +12,8 @@ column, fixed summation order, deterministic).
 
 ``inverse_permutation`` makes binning's ``pair_slot`` from the tile sort's
 permutation (CUDA kernel in the same source: one 4-byte scatter a pair).
+Its random stores set its time; stored from the sort's last pass instead,
+they made the train step slower (PERF.md).
 """
 
 from __future__ import annotations

@@ -29,6 +29,7 @@ from gsplat_tpu.ops import projection as j_proj  # noqa: E402
 from gsplat_tpu.ops.render import pack_attrs as j_pack_attrs  # noqa: E402
 from gsplat_tpu_torch.ops import binning  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand  # noqa: E402
+from gsplat_tpu_torch.kernels.segsum import inverse_permutation_plain  # noqa: E402
 
 TILE = 16
 
@@ -128,6 +129,42 @@ def test_pair_runs_match_brute_force(rng, width, height, n, masked):
     assert (np.diff(start)[~mask] == 0).all() and np.diff(start).max() > 1
 
 
+def _sort_keys(uv, z, radius, mask, ntx, nty):
+    """The tile sort's keys and the candidates' Gaussian ids, stage by stage."""
+    geom, rec1, off1, total_rows = binning.row_expand_inputs(
+        torch.from_numpy(uv), torch.from_numpy(z), torch.from_numpy(radius),
+        torch.from_numpy(mask), num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
+    )
+    rows = segment_expand(rec1, off1, total_rows)
+    rec2, off2, total_pairs = binning.pair_expand_inputs(
+        geom, rows, num_tiles_x=ntx, tile_size=TILE
+    )
+    keys, gid = binning.pair_keys(geom, segment_expand(rec2, off2, total_pairs),
+                                  binning.depth_key_bits(ntx * nty))
+    return keys.numpy(), gid.numpy()
+
+
+@pytest.mark.parametrize(
+    "width,height,n,masked",
+    [(64, 64, 30, False), (32, 32, 10, True), (96, 64, 180, False)],
+)
+def test_pair_slot_is_the_inverse_of_the_tile_sort(rng, width, height, n, masked):
+    """``pair_slot`` is ``inverse_permutation_plain`` of the stable argsort
+    of the tile sort's keys, and ``splat_gid`` the candidates' Gaussians in
+    that order."""
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
+    mask = np.ones(n, bool)
+    if masked:
+        mask[1::2] = False
+    ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    keys, gid = _sort_keys(uv, z, radius, mask, ntx, nty)
+    perm = np.argsort(keys, kind="stable").astype(np.int32)
+    port = _port_tables(uv, z, radius, mask, ntx, nty)
+    np.testing.assert_array_equal(
+        port.pair_slot.numpy(), inverse_permutation_plain(torch.from_numpy(perm)).numpy())
+    np.testing.assert_array_equal(port.splat_gid.numpy(), gid[perm])
+
+
 def test_binning_ellipse_records_match_jax(rng):
     """5-column radius records (the opacity-aware ellipse cut), from the
     covariance op as in test_ellipse_cut_is_pixel_exact_and_subset."""
@@ -165,16 +202,7 @@ def test_stable_key_sort_reproduces_key_gid_order(rng):
     ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
     qd_bits = binning.depth_key_bits(ntx * nty)
     mask = np.ones(n, bool)
-    geom, rec1, off1, total_rows = binning.row_expand_inputs(
-        torch.from_numpy(uv), torch.from_numpy(z), torch.from_numpy(radius),
-        torch.from_numpy(mask), num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
-    )
-    rows = segment_expand(rec1, off1, total_rows)
-    rec2, off2, total_pairs = binning.pair_expand_inputs(
-        geom, rows, num_tiles_x=ntx, tile_size=TILE
-    )
-    keys, gid = binning.pair_keys(geom, segment_expand(rec2, off2, total_pairs), qd_bits)
-    keys, gid = keys.numpy(), gid.numpy()
+    keys, gid = _sort_keys(uv, z, radius, mask, ntx, nty)
     assert np.all(np.diff(gid) >= 0), "candidates are not Gaussian-major"
     tile = keys >> qd_bits
     assert len(set(zip(gid.tolist(), tile.tolist()))) == len(gid)

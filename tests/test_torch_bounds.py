@@ -5,6 +5,8 @@ bounds that chip_smoke.py reports, and of the port's default device.
   the size csrc/sort.cu lays out, and the wrapper returns the buffers the
   last pass writes (a stand-in library that follows csrc/sort.cu's buffer
   contract sorts by the plan it is passed) and counts its call site;
+- the segment expand's wrapper returns the buffer the kernel wrote (a
+  stand-in library), and its ITEMS_PER_BLOCK is csrc/expand.cu's share;
 - ``chip_smoke.kernel_bound`` and ``chip_smoke.pair_pixel_counts`` give
   hand-counted bytes, operations and pair-pixels;
 - ``GaussianParams`` puts its tensors on the card unless asked otherwise.
@@ -12,6 +14,7 @@ bounds that chip_smoke.py reports, and of the port's default device.
 
 import ctypes
 import inspect
+import re
 
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
-from gsplat_tpu_torch.kernels import _build, sort  # noqa: E402
+from gsplat_tpu_torch.kernels import _build, expand, sort  # noqa: E402
 from gsplat_tpu_torch.train.state import GaussianParams  # noqa: E402
 
 
@@ -50,7 +53,17 @@ class _SortLib:
     low digit first), vals_out follows keys_out (the passes use those 8n
     bytes as n pairs), the result lands in keys_out and vals_out, and
     pairs_tmp (n pairs) and the scratch hold whatever the passes left there
-    (-1 here)."""
+    (-1 here).
+    Likewise csrc/expand.cu's: the expanded columns land in out."""
+
+    def gs_segment_expand(self, out, records, offsets_ext, num_cols, num_records,
+                          total, stream):
+        rec = np.frombuffer(ctypes.string_at(records, 4 * num_cols * num_records),
+                            np.int32).reshape(num_cols, num_records)
+        off = np.frombuffer(ctypes.string_at(offsets_ext, 4 * (num_records + 1)), np.int32)
+        got = np.ascontiguousarray(np.repeat(rec, np.diff(off), axis=1))
+        ctypes.memmove(out, got.ctypes.data, got.nbytes)
+        return 0
 
     def gs_radix_sort(self, keys_in, keys_out, vals_out, pairs_tmp, scratch, n,
                       passes, plan, stream):
@@ -99,6 +112,29 @@ def test_sort_counts_its_call_site(stand_in_lib, site):
     assert stand_in_lib["radix_sort"] == 1
     assert {s: stand_in_lib[f"radix_sort/{s}"] for s in sort.SITES} == {
         s: int(s == site) for s in sort.SITES}
+
+
+@pytest.mark.parametrize("r,total", [
+    (1, 1), (1, 2047), (1, 2048), (2047, 2), (3000, 5192), (3000, 5193), (5, 0)])
+def test_expand_returns_the_buffer_the_kernel_wrote(stand_in_lib, r, total):
+    # Merged sizes (records + slots) on both sides of a block's share.
+    counts = np.zeros(r, np.int64)
+    np.add.at(counts, np.random.default_rng(r).integers(0, r, total), 1)
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    rec = torch.arange(2 * r, dtype=torch.int32).view(2, r)
+    got = expand._launch(rec, off, total)
+    assert got.shape == (2, total)
+    assert torch.equal(got, expand.segment_expand_plain(rec, off, total))
+    assert stand_in_lib["segment_expand"] == 1
+
+
+def test_expand_share_mirrors_the_kernel():
+    # chip_smoke.py sizes K5's edge cases by ITEMS_PER_BLOCK: the share that
+    # csrc/expand.cu's launch gives a block (kThreads x kItemsPerThread).
+    src = (_build.CSRC / "expand.cu").read_text()
+    threads, per_thread = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                           for k in ("kThreads", "kItemsPerThread"))
+    assert threads * per_thread == expand.ITEMS_PER_BLOCK
 
 
 def test_sort_rejects_an_unknown_site():

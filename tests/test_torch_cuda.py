@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chip_smoke import expand_edge_counts  # noqa: E402
 from gsplat_tpu_torch.kernels import _build  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
@@ -51,6 +52,21 @@ def test_segment_expand_kernel_equals_plain(dev, n, dtype):
     got = segment_expand(rec.to(dev), off.to(dev), total)
     torch.cuda.synchronize()
     assert _build.launches["segment_expand"] == before + 1
+    assert torch.equal(got.cpu(), segment_expand_plain(rec, off, total))
+
+
+@pytest.mark.parametrize("case", [name for name, _ in expand_edge_counts()])
+def test_segment_expand_kernel_edge_counts(dev, case):
+    # A run longer than many blocks' shares, 10K zero counts in a row, all
+    # slots in the last record, one record, no slots, and merged sizes
+    # around a multiple of a block's share: bit-equal, random 32-bit words.
+    counts = dict(expand_edge_counts())[case]
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    rec = torch.from_numpy(np.random.default_rng(2).integers(
+        -2**31, 2**31, (2, counts.shape[0]), dtype=np.int64).astype(np.int32))
+    total = int(counts.sum())
+    got = segment_expand(rec.to(dev), off.to(dev), total)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), segment_expand_plain(rec, off, total))
 
 

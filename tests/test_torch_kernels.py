@@ -1,9 +1,12 @@
 """Port parity: the plain versions of the port's three kernels.
 
 - segment expand vs ``np.repeat`` and the JAX ``segment_expand`` (interpret
-  mode) at the geometry of tests/test_kernels.py: bit-equal;
+  mode) at the geometry of tests/test_kernels.py: bit-equal; and vs
+  ``np.repeat`` on the adversarial counts chip_smoke.py holds the kernel
+  to on the card (``expand_edge_counts``);
 - radix sort (stable) vs a numpy lexsort on (key, gid): equal;
-- inverse permutation (binning's ``pair_slot``) vs ``np.argsort``: equal;
+- inverse permutation (binning's ``pair_slot``), alone and after the radix
+  sort, vs ``np.argsort``: equal;
 - forward rasterizer vs the numpy oracle at the tolerances of
   tests/test_render.py (image rtol 2e-4 / atol 2e-5, T_final rtol 1e-3,
   n_splats exact), including the early-termination/saturation case.
@@ -18,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from chip_smoke import expand_edge_counts  # noqa: E402
 from test_render import _make_scene  # noqa: E402
 
 from gsplat_tpu.kernels.expand import segment_expand as j_segment_expand  # noqa: E402
@@ -108,6 +112,34 @@ def test_inverse_permutation_plain_is_argsort(rng, p):
     got = inverse_permutation(torch.from_numpy(perm))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.argsort(perm))
+
+
+@pytest.mark.parametrize("n,key_bits", [(0, 8), (1, 1), (4097, 5), (30_000, 20)])
+def test_radix_sort_inverse_is_argsort_of_the_permutation(rng, n, key_bits):
+    # Binning's pair_slot, the inverse of the sort's permutation, is each
+    # key's sorted position: argsort of the permutation, and sorted[inv]
+    # gives the keys back.
+    keys = rng.integers(0, 1 << key_bits, n).astype(np.int32)
+    s_keys, perm = radix_sort(torch.from_numpy(keys), key_bits)
+    inv = inverse_permutation(perm)
+    assert inv.dtype == torch.int32 and inv.shape == (n,)
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(inv.numpy(), np.argsort(perm.numpy()))
+    np.testing.assert_array_equal(s_keys.numpy()[inv.numpy()], keys)
+
+
+@pytest.mark.parametrize("case", [name for name, _ in expand_edge_counts()])
+def test_segment_expand_plain_on_edge_counts(case):
+    # The counts the kernel is held to on the card: runs past many blocks'
+    # shares, stretches of zeros, everything in the last record, ...
+    counts = dict(expand_edge_counts())[case]
+    rec = torch.from_numpy(
+        np.random.default_rng(3).integers(-2**31, 2**31, (2, counts.shape[0]),
+                                          dtype=np.int64).astype(np.int32))
+    total = int(counts.sum())
+    got = segment_expand(rec, _offsets_ext(counts), total)
+    assert got.shape == (2, total)
+    np.testing.assert_array_equal(got.numpy(), np.repeat(rec.numpy(), counts, axis=1))
 
 
 @pytest.mark.parametrize("key_bits", [8, 20, 29])
