@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training step on one NVIDIA GPU.
+"""Drive the PyTorch port's render, training step and trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -49,13 +49,45 @@ sm_90a, then:
    device ms per step, the device's busy share, and the device time of
    each kernel;
 10. times the backward kernels against their plain versions at the 1M
-    view's shapes.
+    view's shapes;
+11. trains through ``Trainer.train`` at full width: the true scene is
+    ``scene_arrays(1_000_000, seed=0)``, 8 COLMAP cameras at distinct
+    centres on a circle of radius 1.5 in the z = 0 plane look at (0, 0, 6)
+    (1296x840, focal 0.85 W) and their ground truths are rendered in
+    memory; the start is the true centres plus N(0, 0.05^2) jitter through
+    ``initialize_gaussians`` (its KNN's seconds printed); the config is
+    configs/base.yaml read by the port's reader with a 24-iteration
+    schedule in which every event fires (density steps with the Morton
+    re-sort at 4, 8, 12 and 16, an opacity reset at 10, SH bands at 5, 10
+    and 15, eval at 0 and 12, image dumps at 0 and 12), ``train`` called
+    twice (to 11, then 24). Image reads and writes go to in-memory
+    stand-ins (the card's host may lack PIL). Checks: finite losses; a
+    view's loss falls between consecutive draws of it with no density step
+    or reset between; every density step's counts and capacity printed, at
+    least one applied; after each Morton sort the alive rows are a prefix
+    and K3's permutation of the codes is bit-equal to
+    ``torch.sort(stable=True)``'s; the morton site launched once per
+    density step; alive opacities equal logit(0.05) right after the reset;
+    l_max reaches 3; finite eval PSNRs; the PLY's vertex count equals the
+    alive count. Prints ms per iteration (with and without a density
+    step), the density step's and the Morton sort's ms, eval ms per view,
+    peak memory and launches by site, then times K3 at the morton site's
+    shapes (the final capacity's codes);
+12. runs ``adaptive_density_step`` on a small scene (20K Gaussians) that
+    needs twice its capacity, ``grow_state`` and the step again, and one
+    ``morton_sort``, on the card and on the CPU with the same injected
+    noise (alive, layout and moments equal; split children's xyz
+    and scale within 4 units in the last place of their column's largest
+    value; the sort of one state bit-equal), then trains a 320x200 scene
+    to iteration 7, saves a checkpoint, goes on 2 iterations, and resumes
+    a fresh ``Trainer`` from the checkpoint for the same 2: bit-identical.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
 ``repeat_interleave``, ``torch.sort(stable=True)``, ``argsort``,
 ``index_add_``; none for the rasterizers; the segment sum also with the
-``pair_slot`` scatter that feeds it), and the least time an H100 could take
+``pair_slot`` scatter that feeds it; the radix sort at both call sites,
+the tile sort and the density step's Morton re-sort), and the least time an H100 could take
 for the work (``kernel_bound``; for the rasterizers from the pair-pixels
 these inputs need and those of them past the 1/255 cutoff,
 ``pair_pixel_counts``), then orders the kernels by launches per train step
@@ -63,6 +95,10 @@ x (time - bound). Prints one JSON line of kernels, then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
+
+    python3 chip_smoke.py --trainer
+
+runs [1] and [11] alone, with its checks (no result line).
 
     python3 -P chip_smoke.py --train-profile
 
@@ -84,6 +120,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,6 +146,8 @@ SOURCES = {
     "inverse_permutation": "gsplat_tpu_torch/csrc/segsum.cu",
 }
 TRAIN_STEPS = 8
+TRAINER_VIEWS = 8  # [11]: cameras at distinct centres
+TRAINER_ITERS = 24  # [11]: iterations of Trainer.train
 PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
 # --train-profile: profiled steps. 16 resolve ~0.01 ms/step of device time
 # between two checkouts (three runs of one within 0.010 on an H100); [9]'s
@@ -888,7 +927,8 @@ def train_slice(cams, st, dev):
         raise AssertionError(f"a loss is not finite: {losses}")
     if not second < first:
         raise AssertionError("the second pass over the views did not lower the loss")
-    if min(launches.values()) <= 0:
+    # [9] takes no density step, so the morton site stays at 0.
+    if min(v for k, v in launches.items() if k != "radix_sort/morton") <= 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     # One train step sorts once: the tile sort in the forward. The backward
     # sums over binning's runs and sorts nothing.
@@ -905,6 +945,415 @@ def train_slice(cams, st, dev):
     del runs, g_a, g_b, uv_a, uv_b
     state = profile_steps(state, cams, gts, st, TRAIN_STEPS, median)
     return launches, state.params
+
+
+def trainer_cameras(width=WIDTH, height=HEIGHT, n=TRAINER_VIEWS):
+    """COLMAP cameras at n distinct centres on a circle of radius 1.5 in the
+    z = 0 plane, each looking at (0, 0, 6), focal 0.85 W: (cameras,
+    images), so that the scene extent is 1.1 x 1.5."""
+    from gsplat_tpu_torch.io.colmap import Camera, Image, rotmat_to_qvec
+
+    f = 0.85 * width
+    cams = {1: Camera(id=1, model="PINHOLE", width=width, height=height,
+                      params=np.array([f, f, width / 2, height / 2]))}
+    images = {}
+    for i in range(n):
+        a = 2 * math.pi * i / n
+        centre = np.array([1.5 * math.cos(a), 1.5 * math.sin(a), 0.0])
+        fwd = np.array([0.0, 0.0, 6.0]) - centre
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        rot = np.stack([right, np.cross(fwd, right), fwd])  # world -> camera rows
+        images[i + 1] = Image(id=i + 1, qvec=rotmat_to_qvec(rot), tvec=-rot @ centre,
+                              camera_id=1, name=f"view_{i:03d}.png", xys=np.zeros((0, 2)),
+                              point3d_ids=np.zeros(0, np.int64))
+    return cams, images
+
+
+def trainer_scene(n: int, seed: int, dev, width=WIDTH, height=HEIGHT):
+    """The trainer's dataset: ``trainer_cameras``, the ground truths of
+    ``scene_arrays(n, seed)`` rendered from them on ``dev`` (host float32
+    arrays by image name, black background), and an SfM-like cloud, the
+    true centres plus N(0, 0.05^2) jitter with uint8 colours."""
+    from gsplat_tpu_torch.ops.camera import build_camera_matrices
+    from gsplat_tpu_torch.train.init import Y00
+    from gsplat_tpu_torch.train.state import params_from_jax
+    from gsplat_tpu_torch.train.step import render_image
+
+    cams, images = trainer_cameras(width, height)
+    arrays, alive = scene_arrays(n, seed)
+    truth = params_from_jax(arrays, alive, dev)
+    cam = cams[1]
+    gts = {}
+    for im in images.values():
+        cm = build_camera_matrices(im.qvec, im.tvec, width, height, cam.focal_x, cam.focal_y)
+        img, _ = render_image(truth, cm.view, cm.proj, cm.campos, 0.0, statics(cm, width, height))
+        gts[im.name] = img.cpu().numpy()
+    del truth
+    rng = np.random.default_rng(seed + 100)
+    xyz = arrays["xyz"][:n].astype(np.float64) + rng.normal(0.0, 0.05, (n, 3))
+    rgb = np.clip((arrays["rgb"][:n] * Y00 + 0.5) * 255, 0, 255).astype(np.uint8)
+    return cams, images, gts, xyz, rgb
+
+
+class ImageStandIns:
+    """Replace ``io.images.load_image`` by a lookup into in-memory ground
+    truths and ``io.images.save_image`` by a check of the dumped image's
+    shape and finiteness (the card's host may lack PIL), for a ``with``
+    block. ``dumps`` lists the dumped paths."""
+
+    def __init__(self, gts: dict, shape: tuple):
+        self.gts, self.shape, self.dumps = gts, shape, []
+
+    def load(self, path):
+        return self.gts[path]
+
+    def save(self, path, arr):
+        arr = np.asarray(arr)
+        if not (arr.shape == self.shape and arr.dtype == np.uint8
+                and np.isfinite(arr.astype(np.float32)).all()):
+            raise AssertionError(f"dumped image {path}: {arr.shape} {arr.dtype}")
+        self.dumps.append(str(path))
+
+    def __enter__(self):
+        from gsplat_tpu_torch.io import images
+
+        self.saved = images.load_image, images.save_image
+        images.load_image, images.save_image = self.load, self.save
+        return self
+
+    def __exit__(self, *exc):
+        from gsplat_tpu_torch.io import images
+
+        images.load_image, images.save_image = self.saved
+
+
+def trainer_config(out_dir: str):
+    """configs/base.yaml read by the port's reader (no PyYAML on the card's
+    host), with [11]'s short schedule in which every event fires: density
+    at 4, 8, 12 and 16, an opacity reset at 10, SH bands at 5, 10 and 15,
+    eval at 0 and 12 over every 4th view, image dumps at 0 and 12."""
+    import dataclasses
+
+    from gsplat_tpu_torch.config import parse_config
+
+    base = parse_config(Path(__file__).resolve().parent / "configs" / "base.yaml")
+    return dataclasses.replace(
+        base, dataset_path="", downsample_factor=1, output_dir=out_dir,
+        num_iters=TRAINER_ITERS, adaptive_control_start=3, adaptive_control_interval=4,
+        adaptive_control_end=20, reset_opacity_start=9, reset_opacity_interval=10,
+        reset_opacity_end=20, add_sh_band_interval=5, max_sh_band=3, test_eval_interval=12,
+        test_split_ratio=4, strict_reference=False, print_interval=12, use_background=True)
+
+
+def loss_falls(losses: list, views: list, events: set) -> list:
+    """Each view's loss between consecutive draws of it with no density
+    step or opacity reset in between (``events``: the iterations after
+    whose train step one ran): (view, i, j, loss i, loss j), for the
+    check that a train step on a view lowers its loss."""
+    out = []
+    for j, v in enumerate(views):
+        i = max((k for k in range(j) if views[k] == v), default=None)
+        if i is not None and not any(i <= e < j for e in events):
+            out.append((v, i, j, losses[i], losses[j]))
+    return out
+
+
+def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
+    """[11]: ``Trainer.train`` at full width, every event of the schedule
+    firing, with its checks; returns the morton site's launches and the
+    radix sort's times at the trainer's final capacity."""
+    import tempfile
+
+    from gsplat_tpu_torch.io.ply import load_ply
+    from gsplat_tpu_torch.kernels import _build, sort
+    from gsplat_tpu_torch.ops.morton import KEY_BITS, morton_codes
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+    from gsplat_tpu_torch.train.init import initialize_gaussians
+    from gsplat_tpu_torch.train.state import num_active
+
+    cams, images, gts, xyz, rgb = trainer_scene(n, 0, dev, width, height)
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")  # removed at exit
+    tmp = tmpdir.name
+    cfg = trainer_config(tmp)
+    t0 = time.perf_counter()
+    g = initialize_gaussians(xyz, rgb, cfg)
+    log(f"  {n} points: initialize_gaussians (scipy cKDTree KNN, {cfg.initial_scale_num_neighbors}"
+        f" neighbours) {time.perf_counter() - t0:.2f} s")
+    tr = trainer_mod.Trainer(cfg, g, images, cams, device=dev)
+    log(f"  {len(images)} views, scene extent {tr.scene_extent:.4f}, capacity "
+        f"{tr.state.capacity}, test views {[im.name for im in tr.test_images]}")
+    rec = dict(losses=[], views=[], starts=[], density=[], morton_ms=[], evals=[])
+    real_step, real_sort = trainer_mod.train_step, trainer_mod.morton_sort
+    real_density, real_eval = tr._density_step, tr.evaluate
+
+    def step(state, view, proj, campos, gt, bg, it, st):
+        torch.cuda.synchronize()
+        rec["starts"].append(time.perf_counter())
+        state, m = real_step(state, view, proj, campos, gt, bg, it, st)
+        rec["losses"].append(float(m.loss))
+        rec["views"].append(next(i for i, im in enumerate(tr.train_images)
+                                 if tr._matrices(im).view is view))
+        return state, m
+
+    def morton(state):
+        codes = morton_codes(state.params.xyz, state.alive)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = real_sort(state)
+        end.record()
+        end.synchronize()
+        rec["morton_ms"].append(start.elapsed_time(end))
+        alive = state.alive
+        k = int(alive.sum())
+        if not (bool(alive[:k].all()) and not bool(alive[k:].any())):
+            raise AssertionError("after the Morton sort the alive rows are not a prefix")
+        counts = dict(_build.launches)  # a comparison launch does not count
+        got = sort.radix_sort(codes, KEY_BITS)
+        ref = torch.sort(codes, stable=True)
+        _build.launches.update(counts)
+        if not (torch.equal(got[0], ref.values)
+                and torch.equal(got[1], ref.indices.to(torch.int32))):
+            raise AssertionError("the Morton permutation differs from torch.sort(stable=True)")
+        return state
+
+    def density():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        info = real_density()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        rec["density"].append((tr.iter, info, ms))
+        log(f"  density step at {tr.iter}: pruned {info.num_pruned}, cloned "
+            f"{info.num_cloned}, split {info.num_split}, new total {info.new_total}, "
+            f"applied {info.applied}, capacity {tr.state.capacity}; {ms:.2f} ms with the "
+            f"Morton sort ({rec['morton_ms'][-1]:.3f} ms)")
+        return info
+
+    def evaluate(verbose=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        psnr = real_eval(verbose=verbose)
+        torch.cuda.synchronize()
+        rec["evals"].append((tr.iter, psnr, 1e3 * (time.perf_counter() - t)
+                             / len(tr.test_images)))
+        return psnr
+
+    tr._density_step, tr.evaluate = density, evaluate
+    trainer_mod.train_step, trainer_mod.morton_sort = step, morton
+    try:
+        with ImageStandIns(gts, (height, width, 3)) as io_:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            tr.train(max_iters=11)  # stops right after the reset at 10
+            torch.cuda.synchronize()
+            alive = tr.state.alive
+            op = tr.state.params.opacity.detach()[alive]
+            want = torch.tensor(math.log(0.05) - math.log(0.95), dtype=torch.float32,
+                                device=op.device)
+            if not bool((op == want).all()):
+                raise AssertionError("after the reset the alive opacities are not logit(0.05)")
+            log(f"  after iteration 10's reset: {op.numel()} alive opacities equal "
+                f"logit(0.05) = {want.item():.7f}")
+            tr.train(max_iters=TRAINER_ITERS)
+            torch.cuda.synchronize()
+            rec["starts"].append(time.perf_counter())
+            launches = dict(_build.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            dumps = list(io_.dumps)
+    finally:
+        trainer_mod.train_step, trainer_mod.morton_sort = real_step, real_sort
+        del tr._density_step, tr.evaluate
+    losses, views = rec["losses"], rec["views"]
+    log("  losses: " + ", ".join(f"{i}:{v}:{x:.5f}" for i, (v, x) in enumerate(zip(views, losses))))
+    dens_its = {it for it, _, _ in rec["density"]}
+    resets = {i for i in range(TRAINER_ITERS) if i > cfg.reset_opacity_start
+              and i % cfg.reset_opacity_interval == 0 and i < cfg.reset_opacity_end}
+    falls = loss_falls(losses, views, dens_its | resets)
+    log("  a view's loss between draws with no density step or reset between: " + ", ".join(
+        f"view {v} at {i} {a:.5f} -> at {j} {b:.5f}" for v, i, j, a, b in falls))
+    dens_ms = [ms for _, _, ms in rec["density"]]
+    eval_its = {it for it, _, _ in rec["evals"]}
+    iter_ms = [1e3 * (b - a) for a, b in zip(rec["starts"], rec["starts"][1:])]
+    plain = [ms for i, ms in enumerate(iter_ms)
+             if i not in dens_its and i not in eval_its and i % cfg.print_interval][1:]
+    with_density = [ms for i, ms in enumerate(iter_ms) if i in dens_its and i not in eval_its]
+    log(f"  ms per trainer iteration (median): {statistics.median(plain):.3f} without a "
+        f"density step, {statistics.median(with_density):.3f} with one; density step "
+        f"{statistics.median(dens_ms):.3f} ms (median of {len(dens_ms)}), Morton sort "
+        f"{statistics.median(rec['morton_ms']):.3f} ms; eval "
+        + ", ".join(f"at {it}: PSNR {p:.4f} dB, {ms:.3f} ms a view" for it, p, ms in rec["evals"])
+        + f"; peak allocated {peak:.0f} MiB; l_max {tr.l_max}; dumps {len(dumps)}")
+    log(f"  launches by site: {launches}")
+    infos = [info for _, info, _ in rec["density"]]
+    failed = []
+    if not all(math.isfinite(x) for x in losses) or len(losses) != TRAINER_ITERS:
+        failed.append("a loss is not finite")
+    if not falls or not all(b < a for *_, a, b in falls):
+        failed.append("the loss did not fall")
+    if sorted(dens_its) != [4, 8, 12, 16] or not any(i.applied for i in infos):
+        failed.append("density steps")
+    if launches["radix_sort/morton"] != len(infos):
+        failed.append("radix_sort/morton launches")
+    if min(launches.values()) <= 0:
+        failed.append(f"a kernel never launched: {launches}")
+    if tr.l_max != 3:
+        failed.append("l_max")
+    if sorted(eval_its) != [0, 12] or not all(math.isfinite(p) for _, p, _ in rec["evals"]):
+        failed.append("eval")
+    if len(dumps) != 2:
+        failed.append("image dumps")
+    ply = Path(tmp) / "trained.ply"
+    tr.save_to_ply(ply)
+    verts = load_ply(ply)["xyz"].shape[0]
+    tmpdir.cleanup()
+    log(f"  trained.ply: {verts} vertices, {num_active(tr.state)} alive")
+    if verts != num_active(tr.state):
+        failed.append("PLY vertex count")
+    if failed:
+        raise AssertionError(f"[11] failed: {failed}")
+    # K3 at the morton site's shapes: the final state's codes.
+    codes = morton_codes(tr.state.params.xyz, tr.state.alive)
+    res = dict(
+        max_abs_err=0.0, keys=codes.shape[0],
+        ms=cuda_ms(lambda: sort.radix_sort(codes, KEY_BITS), 10),
+        plain_ms=cuda_ms(lambda: sort.radix_sort_plain(codes, KEY_BITS), 10),
+        library_ms=cuda_ms(lambda: torch.sort(codes, stable=True), 10),
+        **kernel_bound("radix_sort", keys=codes.shape[0]))
+    plan = sort.sort_plan(codes.shape[0], KEY_BITS)
+    log(f"  radix_sort at the morton site: {codes.shape[0]} codes, {len(plan.shifts)} passes "
+        f"of {'/'.join(map(str, plan.bits))} bits")
+    log_times({"radix_sort/morton": res})
+    # Where a density step's time goes: one more of each, profiled (their
+    # launches are not the run's).
+    counts = dict(_build.launches)
+    device_profile(lambda: trainer_mod.morton_sort(tr.state), "morton_sort")
+    device_profile(tr._density_step, "a density step with its Morton sort")
+    _build.launches.update(counts)
+    return dict(launches=launches["radix_sort/morton"], density_steps=len(infos), res=res)
+
+
+def device_profile(fn, label: str, top: int = 8) -> None:
+    """One call of ``fn`` under torch.profiler: its wall ms (host clock,
+    synchronized), device ms and launches, and the kernels that take the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    log(f"  {label}: wall {wall:.3f} ms, device {sum(ms for _, ms, _ in rows):.3f} ms in "
+        f"{sum(n for *_, n in rows)} launches; by device time:")
+    for key, ms, n in rows[:top]:
+        log(f"    {ms:8.3f} ms {n:4d}x  {key[:96]}")
+
+
+def check_density_against_cpu(dev) -> None:
+    """[12] A density step of a small scene that needs twice its capacity
+    (``needs_grow``, ``grow_state``, the step again) and a Morton sort, on
+    the card and on the CPU with the same injected noise, then a
+    checkpoint round trip of the Trainer on the card."""
+    from gsplat_tpu_torch.train import density
+    from gsplat_tpu_torch.train.state import (
+        grow_state, init_state, params_from_jax, state_from_jax, state_to_numpy)
+
+    arrays, alive = scene_arrays(20_000, seed=3, perturb_seed=4)
+    cap = alive.shape[0]
+    rng = np.random.default_rng(12)
+    # ~80 % of the Gaussians densify: the step needs twice the capacity.
+    accum = rng.uniform(0.0, 1e-3, cap).astype(np.float32)
+    noise = [torch.from_numpy(rng.standard_normal((2 * cap, 3)).astype(np.float32))
+             for _ in range(2)]
+    ds = density.DensityStatics(scene_extent=1.65, uv_grad_threshold=2e-4,
+                                delete_opacity_threshold=0.02, split_scale_factor=1.6,
+                                max_gaussians=4_250_000)
+    out = []
+    for d in ("cpu", dev):
+        state = init_state(params_from_jax(arrays, alive, d))
+        state.uv_grad_accum.copy_(torch.from_numpy(accum))
+        state.accum_dur.fill_(1)
+        _, first = density.adaptive_density_step(state, ds, *(x[:cap].to(d) for x in noise))
+        state = grow_state(state, 2 * cap)
+        state, info = density.adaptive_density_step(state, ds, *(x.to(d) for x in noise))
+        out.append((first, info, state_to_numpy(state)))
+    (f_c, i_c, s_c), (f_g, i_g, s_g) = out
+    log(f"  20000 Gaussians in {cap} rows: card {f_g}, cpu {f_c}; grown to {2 * cap}: "
+        f"card {i_g}, cpu {i_c}")
+    failed = [] if (f_g == f_c and f_c.needs_grow and i_g == i_c and i_c.applied) else [
+        "DensityInfo"]
+    for f in ("alive", "uv_grad_accum", "accum_dur"):
+        if not np.array_equal(s_g[f], s_c[f]):
+            failed.append(f)
+    worst = {}
+    for f in ("params", "adam_m", "adam_v"):
+        for k in s_c[f]:
+            a, b = s_g[f][k], s_c[f][k]
+            if f == "params" and k in ("xyz", "scale"):
+                ulps = np.abs(a - b) / np.spacing(np.abs(b).max(axis=0))
+                worst[k] = float(ulps.max())
+                if worst[k] > 4:
+                    failed.append(f"{f}.{k}")
+            elif not np.array_equal(a, b):
+                failed.append(f"{f}.{k}")
+    log(f"  split children, worst |card - cpu| in units in the last place of the column's "
+        f"largest value: {worst}; everything else bit-equal: {not failed}")
+    # The Morton sort of one state (the CPU's) on both devices.
+    sorted_ = [state_to_numpy(density.morton_sort(state_from_jax(**s_c, device=d)))
+               for d in ("cpu", dev)]
+    same = all(np.array_equal(sorted_[1][f], sorted_[0][f])
+               for f in ("alive", "uv_grad_accum", "accum_dur")) and all(
+        np.array_equal(sorted_[1][f][k], sorted_[0][f][k])
+        for f in ("params", "adam_m", "adam_v") for k in s_c[f])
+    log(f"  morton_sort of one state, card vs cpu: bit-equal {same}")
+    if not same:
+        failed.append("morton_sort")
+    if failed:
+        raise AssertionError(f"density step or sort, card vs cpu: {failed}")
+    check_checkpoint_round_trip(dev)
+
+
+def check_checkpoint_round_trip(dev, k: int = 7) -> None:
+    """Train a small scene to iteration k, save a checkpoint, go on 2
+    iterations (a density step at 8 among them); load the checkpoint into
+    a fresh Trainer and run the same 2: bit-identical parameters."""
+    import tempfile
+
+    from gsplat_tpu_torch.train.init import initialize_gaussians
+    from gsplat_tpu_torch.train.state import state_to_numpy
+    from gsplat_tpu_torch.train.trainer import Trainer
+
+    w, h = 320, 200
+    cams, images, gts, xyz, rgb = trainer_scene(20_000, 3, dev, w, h)
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")  # removed at exit
+    tmp = tmpdir.name
+    cfg = trainer_config(tmp)
+    g = initialize_gaussians(xyz, rgb, cfg)
+    ck = Path(tmp) / "checkpoint.npz"
+    with ImageStandIns(gts, (h, w, 3)):
+        tr = Trainer(cfg, g, images, cams, device=dev)
+        tr.train(max_iters=k, verbose=False)
+        tr.save_checkpoint(ck)
+        tr.train(max_iters=k + 2, verbose=False)
+        again = Trainer(cfg, g, images, cams, device=dev)
+        again.load_checkpoint(ck)
+        again.train(max_iters=k + 2, verbose=False)
+    a, b = state_to_numpy(tr.state), state_to_numpy(again.state)
+    tmpdir.cleanup()
+    same = all(np.array_equal(a[f], b[f]) for f in ("alive", "uv_grad_accum", "accum_dur"))
+    same &= all(np.array_equal(a[f][n], b[f][n]) for f in ("params", "adam_m", "adam_v")
+                for n in a[f])
+    log(f"  checkpoint at {k}, then 2 more iterations: continued and resumed states "
+        f"bit-identical {same} ({int(a['alive'].sum())} alive, capacity {a['alive'].shape[0]})")
+    if not (same and tr.iter == again.iter == k + 2):
+        raise AssertionError("a resumed Trainer differs from the continued one")
 
 
 def train_profile(dev) -> None:
@@ -944,6 +1393,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     if sys.argv[1:] == ["--train-profile"]:
         train_profile(dev)
+        return 0
+    if sys.argv[1:] == ["--trainer"]:
+        log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
+        trainer_slice(dev)
         return 0
 
     # 2. Build.
@@ -1028,6 +1481,16 @@ def main() -> int:
     # 10. Backward kernel times at the 1M view's shapes.
     log("[10] backward kernels vs plain versions at 1M Gaussians")
     bwd = compare_backward(trained, cams[0], st, 10)
+    del trained
+
+    # 11. The trainer at full width: Trainer.train on a 1M-point cloud.
+    log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views at 1296x840, "
+        f"{TRAINER_ITERS} iterations: density, Morton re-sort, opacity reset, SH bands, eval")
+    morton = trainer_slice(dev)
+
+    # 12. Small scene: density step and Morton sort, card vs CPU; checkpoint.
+    log("[12] small scene density step and Morton sort, card vs CPU path; checkpoint")
+    check_density_against_cpu(dev)
 
     table = [("segment_expand", None, res["segment_expand"]),
              ("radix_sort", "tile", res["radix_sort"]),
@@ -1051,6 +1514,14 @@ def main() -> int:
                      * (r["ms"] - r["bound_ms"]), f"{name} {site or ''}".strip()))
     log("  launches per step x (time - bound), ms: " + ", ".join(
         f"{label} {gap:.4f}" for gap, label in sorted(gaps, reverse=True)))
+    # The density step's re-sort: [11]'s launches, one a density step.
+    r = morton["res"]
+    kernels.append(dict(
+        name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
+        replaces=REPLACES["radix_sort"], launches=morton["launches"],
+        launches_per_density_step=morton["launches"] / morton["density_steps"], site="morton",
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,99 @@
+"""CLI entry point (port of ``gsplat_tpu/cli.py``):
+``python -m gsplat_tpu_torch.cli <config.yaml> <dataset_root>``.
+
+Parses the config, reads the three COLMAP ``.bin`` files from
+``<dataset_root>/<dataset_path>/sparse/0/``, initializes Gaussians from the
+SfM points, trains, and writes ``<output_dir>/checkpoint.npz`` and
+``<output_dir>/trained.ply``. Same flags as the reference: ``--resume
+ckpt.npz`` and ``--max-iters N``; ``--dp``/``--tp`` above 1 are not
+ported and return 1. Runs on the card; ``main(argv, device="cpu")`` runs
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+USAGE = ("Usage: python -m gsplat_tpu_torch.cli <config.yaml> <dataset_root> "
+         "[--resume ckpt.npz] [--max-iters N]")
+
+
+def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+
+    def usage() -> int:
+        print(USAGE, file=sys.stderr)
+        return 1
+
+    def take_flag(name: str, cast):
+        """Pop '--name value' from argv: (value or None, error or None)."""
+        if name not in argv:
+            return None, None
+        i = argv.index(name)
+        if i + 1 >= len(argv):
+            return None, f"{name} needs a value"
+        try:
+            val = cast(argv[i + 1])
+        except ValueError:
+            return None, f"{name} got non-{cast.__name__} {argv[i + 1]!r}"
+        del argv[i : i + 2]
+        return val, None
+
+    vals = {}
+    for name, cast in (("--resume", str), ("--dp", int), ("--tp", int),
+                       ("--max-iters", int)):
+        vals[name], err = take_flag(name, cast)
+        if err is not None:
+            print(f"error: {err}", file=sys.stderr)
+            return usage()
+    for name in ("--dp", "--tp"):
+        if (vals[name] or 0) > 1:
+            print(f"error: {name} (multi-device training) is not ported", file=sys.stderr)
+            return usage()
+    if len(argv) != 2:
+        return usage()
+
+    from .config import parse_config
+    from .io.colmap import read_cameras_binary, read_images_binary, read_points3d_binary
+    from .train.init import initialize_gaussians
+    from .train.trainer import Trainer
+
+    config = parse_config(argv[0])
+    root = Path(argv[1]) / config.dataset_path
+    sparse = root / "sparse" / "0"
+
+    print(f"Loading COLMAP reconstruction from {sparse} ...")
+    cameras = read_cameras_binary(sparse / "cameras.bin", config.downsample_factor)
+    images = read_images_binary(sparse / "images.bin", str(root) + "/",
+                                config.downsample_factor)
+    points = read_points3d_binary(sparse / "points3D.bin")
+    xyz = np.stack([p.xyz for p in points.values()])
+    rgb = np.stack([p.rgb for p in points.values()])
+    print(f"  {len(cameras)} cameras, {len(images)} images, {len(points)} points")
+    t0 = time.time()
+    gaussians = initialize_gaussians(xyz, rgb, config)
+    print(f"Initialized {gaussians.num} gaussians in {time.time() - t0:.2f}s")
+
+    trainer = Trainer(config, gaussians, images, cameras, device=device)
+    if vals["--resume"] is not None:
+        trainer.load_checkpoint(vals["--resume"])
+        print(f"Resumed from {vals['--resume']} at iteration {trainer.iter}")
+    trainer.train(max_iters=vals["--max-iters"])
+
+    out = Path(config.output_dir)
+    ck = out / "checkpoint.npz"
+    trainer.save_checkpoint(ck)
+    print(f"Saved checkpoint to {ck}")
+    out.mkdir(parents=True, exist_ok=True)
+    trainer.save_to_ply(out / "trained.ply")
+    print(f"Saved PLY to {out / 'trained.ply'}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -60,7 +60,7 @@ SIGNATURES = {
 }
 
 launches = {
-    "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0,
+    "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
     "rasterize_forward": 0, "rasterize_backward": 0, "segment_sum": 0,
     "inverse_permutation": 0,
 }

@@ -23,7 +23,7 @@ _RADIX = 1 << DIGIT_BITS
 _MAX_PASSES = 4
 _HEAD_WORDS = _MAX_PASSES * _RADIX + 32  # digit counts, tile counters
 MAX_KEYS = (1 << 30) - 1  # a status word keeps a count in 30 bits
-SITES = ("tile",)  # the main path's call sites, counted apart
+SITES = ("tile", "morton")  # binning's tile sort; the density step's re-sort
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,6 @@
 """Camera matrix construction (host-side, numpy).
 
-Port of ``gsplat_tpu/ops/camera.py`` and ``gsplat_tpu/io/colmap.py::
-qvec_to_rotmat``, carried over verbatim in numpy: the reference module
-imports its IO package, and this package must not import ``gsplat_tpu``.
+Port of ``gsplat_tpu/ops/camera.py``, carried over verbatim in numpy.
 
 Conventions match the reference trainer: view = [R | t; 0 0 0 1] from the
 COLMAP (w, x, y, z) quaternion and tvec; a D3D-style perspective projection
@@ -16,24 +14,10 @@ import math
 
 import numpy as np
 
+from ..io.colmap import qvec_to_rotmat
+
 ZNEAR = 0.01
 ZFAR = 100.0
-
-
-def qvec_to_rotmat(qvec: np.ndarray) -> np.ndarray:
-    """Rotation matrix from a (w, x, y, z) quaternion (normalized first)."""
-    w, x, y, z = np.asarray(qvec, dtype=np.float64)
-    n = np.sqrt(w * w + x * x + y * y + z * z)
-    if n > 0:
-        w, x, y, z = w / n, x / n, y / n, z / n
-    return np.array(
-        [
-            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-        ],
-        dtype=np.float64,
-    )
 
 
 @dataclasses.dataclass(frozen=True)

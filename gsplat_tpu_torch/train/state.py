@@ -3,7 +3,9 @@
 
 Parameters live in dense (N_cap, d) tensors with an ``alive`` mask, as in
 the reference. SH is always (N_cap, 15, 3), the full l=3 budget; the active
-band is ``StepStatics.l_max``.
+band is ``StepStatics.l_max``. ``state_from_gaussians`` sizes a new state
+by the reference's capacity rule, and ``grow_state`` re-buckets one into a
+larger capacity when densification needs it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+
+from .init import GaussianData
 
 PARAM_DIMS = {
     "xyz": 3,
@@ -171,6 +175,84 @@ def state_from_jax(
         state.uv_grad_accum.copy_(torch.from_numpy(np.array(uv_grad_accum, np.float32)))
         state.accum_dur.copy_(torch.from_numpy(np.array(accum_dur, np.int32)))
     return state
+
+
+def state_from_gaussians(
+    g: GaussianData,
+    device: torch.device | str,
+    n_cap: int | None = None,
+    max_gaussians: int | None = None,
+) -> TrainState:
+    """A fresh state holding ``g``'s Gaussians in its first rows.
+
+    The reference ``init_state``'s capacity rule: ``n_cap`` if given, else
+    ``round_capacity(g.num)`` capped at ``round_capacity(max_gaussians)``.
+    Rows past ``g.num`` are zero and not alive; SH is zero unless ``g``
+    has it.
+    """
+    n = g.num
+    if n_cap is None:
+        n_cap = round_capacity(n)
+        if max_gaussians is not None:
+            n_cap = min(n_cap, round_capacity(max_gaussians))
+    if n > n_cap:
+        raise ValueError(f"{n} gaussians exceed capacity {n_cap}")
+    columns = dict(xyz=g.xyz, rgb=g.rgb, opacity=g.opacity, scale=g.scale,
+                   quat=g.quaternion, sh=g.sh)
+    params = {}
+    for name in PARAM_DIMS:
+        out = np.zeros(_param_shape(name, n_cap), np.float32)
+        if columns[name] is not None:
+            out[:n] = columns[name]
+        params[name] = out
+    return init_state(params_from_jax(params, np.arange(n_cap) < n, device))
+
+
+def grow_state(state: TrainState, new_cap: int) -> TrainState:
+    """The state re-bucketed to a larger capacity: new parameters (a new
+    ``GaussianParams``), moments and accumulators, padded with zero rows
+    that are not alive. Returns ``state`` itself if ``new_cap`` is not
+    larger."""
+    old = state.capacity
+    if new_cap <= old:
+        return state
+    dev = state.alive.device
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((new_cap, *t.shape[1:]), dtype=t.dtype, device=dev)
+        out[:old] = t
+        return out
+
+    params = GaussianParams(new_cap, device=dev)
+    with torch.no_grad():
+        for name in PARAM_DIMS:
+            getattr(params, name)[:old] = getattr(state.params, name)
+        params.alive[:old] = state.alive
+    return TrainState(
+        params=params,
+        adam_m={k: pad(v) for k, v in state.adam_m.items()},
+        adam_v={k: pad(v) for k, v in state.adam_v.items()},
+        uv_grad_accum=pad(state.uv_grad_accum),
+        accum_dur=pad(state.accum_dur),
+    )
+
+
+def num_active(state: TrainState) -> int:
+    return int(state.alive.sum().item())
+
+
+def to_gaussian_data(state: TrainState, l_max: int) -> GaussianData:
+    """The alive Gaussians on the host (for PLY export), SH up to band
+    ``l_max``."""
+    alive = state.alive.cpu().numpy()
+    host = {name: getattr(state.params, name).detach().cpu().numpy()[alive]
+            for name in PARAM_DIMS}
+    num_sh = (l_max + 1) ** 2 - 1
+    return GaussianData(
+        xyz=host["xyz"], rgb=host["rgb"], opacity=host["opacity"],
+        scale=host["scale"], quaternion=host["quat"],
+        sh=host["sh"][:, :num_sh, :] if num_sh > 0 else None,
+    )
 
 
 def state_to_numpy(state: TrainState) -> dict:

@@ -9,7 +9,11 @@ bounds that chip_smoke.py reports, and of the port's default device.
   stand-in library), and its ITEMS_PER_BLOCK is csrc/expand.cu's share;
 - ``chip_smoke.kernel_bound`` and ``chip_smoke.pair_pixel_counts`` give
   hand-counted bytes, operations and pair-pixels;
-- ``GaussianParams`` puts its tensors on the card unless asked otherwise.
+- the density step's Morton re-sort sorts its 31-bit codes (4 passes of
+  8/8/8/7 bits) through the radix sort's ``"morton"`` call site, counted
+  apart from the tile sort;
+- ``GaussianParams``, ``Trainer``, ``cli.main`` and the synthetic dataset
+  writer put their tensors on the card unless asked otherwise.
 """
 
 import ctypes
@@ -23,7 +27,12 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from gsplat_tpu_torch.kernels import _build, expand, sort  # noqa: E402
-from gsplat_tpu_torch.train.state import GaussianParams  # noqa: E402
+from gsplat_tpu_torch import cli  # noqa: E402
+from gsplat_tpu_torch.ops.morton import KEY_BITS  # noqa: E402
+from gsplat_tpu_torch.tools import synthetic  # noqa: E402
+from gsplat_tpu_torch.train import density  # noqa: E402
+from gsplat_tpu_torch.train.state import GaussianParams, init_state, params_from_jax  # noqa: E402
+from gsplat_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 
 @pytest.mark.parametrize("key_bits", [1, 7, 8, 9, 16, 20, 29, 31])
@@ -137,6 +146,37 @@ def test_expand_share_mirrors_the_kernel():
     assert threads * per_thread == expand.ITEMS_PER_BLOCK
 
 
+def test_morton_key_plan_is_four_passes():
+    plan = sort.sort_plan(1 << 20, KEY_BITS)
+    assert KEY_BITS == 31 and (plan.shifts, plan.bits) == ((0, 8, 16, 24), (8, 8, 8, 7))
+
+
+def test_morton_sort_counts_its_own_site(stand_in_lib, monkeypatch):
+    # The CPU tensors go to the stand-in library through the wrapper's
+    # launch, as CUDA tensors go to the kernel: one launch at the morton
+    # site, none at the tile site, and the plain path's permutation.
+    calls = []
+
+    def launch(keys, key_bits, site=None):
+        calls.append((key_bits, site))
+        return sort._launch(keys, key_bits, site)
+
+    rng = np.random.default_rng(3)
+    n = 5000
+    params = {name: rng.normal(size=(n, *np.atleast_1d(dim))).astype(np.float32)
+              if dim else rng.normal(size=n).astype(np.float32)
+              for name, dim in (("xyz", 3), ("rgb", 3), ("opacity", 0), ("scale", 3),
+                                ("quat", 4), ("sh", (15, 3)))}
+    alive = rng.uniform(size=n) < 0.7
+    plain = density.morton_sort(init_state(params_from_jax(params, alive, "cpu")))
+    monkeypatch.setattr(density, "radix_sort", launch)
+    got = density.morton_sort(init_state(params_from_jax(params, alive, "cpu")))
+    assert calls == [(31, "morton")]
+    assert (stand_in_lib["radix_sort/morton"], stand_in_lib["radix_sort/tile"]) == (1, 0)
+    assert torch.equal(got.params.xyz, plain.params.xyz)
+    assert torch.equal(got.alive, plain.alive) and bool(got.alive[:int(alive.sum())].all())
+
+
 def test_sort_rejects_an_unknown_site():
     with pytest.raises(ValueError, match="site"):
         sort.radix_sort(torch.zeros((8,), dtype=torch.int32, device="meta"), 8,
@@ -193,4 +233,11 @@ def test_kernel_bound_hand_counted():
 
 def test_gaussian_params_default_device_is_cuda():
     default = inspect.signature(GaussianParams.__init__).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+
+
+@pytest.mark.parametrize("fn", [Trainer.__init__, cli.main, synthetic.write_synthetic_dataset,
+                                synthetic.main])
+def test_entry_points_default_to_cuda(fn):
+    default = inspect.signature(fn).parameters["device"].default
     assert torch.device(default).type == "cuda"

@@ -418,3 +418,71 @@ def test_backward_kernels_with_no_pairs(dev):
     torch.cuda.synchronize()
     assert rows.shape == (0, 9)
     assert torch.equal(sums, torch.zeros((5, 9), device=dev))
+
+
+def test_morton_permutation_equals_stable_sort(dev):
+    # 2^20 codes, a fifth of them dead rows keyed to 0x7FFFFFFF: the
+    # permutation of the morton call site equals torch.sort(stable=True)'s,
+    # and the codes equal the CPU's.
+    from gsplat_tpu_torch.ops.morton import KEY_BITS, morton_codes
+
+    rng = np.random.default_rng(20)
+    n = 1 << 20
+    xyz = torch.from_numpy((rng.normal(size=(n, 3)) * [2.0, 1.4, 1.2] + [0, 0, 6.0])
+                           .astype(np.float32))
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.8)
+    codes = morton_codes(xyz.to(dev), alive.to(dev))
+    before = _build.launches["radix_sort/morton"]
+    keys, perm = radix_sort(codes, KEY_BITS, site="morton")
+    torch.cuda.synchronize()
+    assert _build.launches["radix_sort/morton"] == before + 1
+    ref = torch.sort(codes, stable=True)
+    assert torch.equal(keys, ref.values) and torch.equal(perm, ref.indices.to(torch.int32))
+    assert torch.equal(codes.cpu(), morton_codes(xyz, alive))
+
+
+def test_density_step_and_morton_sort_on_card_equal_cpu(dev):
+    from gsplat_tpu_torch.train import density, state as t_state
+
+    rng = np.random.default_rng(21)
+    n = 3000
+    params = dict(
+        xyz=rng.normal(size=(n, 3)) * [1.0, 0.7, 0.6] + [0, 0, 4.0],
+        rgb=rng.normal(size=(n, 3)), opacity=rng.uniform(-5.0, 2.0, n),
+        scale=np.log(rng.choice([0.005, 0.03, 0.3], (n, 3))),
+        quat=np.concatenate([np.ones((n, 1)), 0.3 * rng.normal(size=(n, 3))], axis=1),
+        sh=0.1 * rng.normal(size=(n, 15, 3)),
+    )
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    alive = np.arange(n) < 2000
+    accum = rng.uniform(0, 0.3, n).astype(np.float32)
+    noise = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)) for _ in range(2)]
+    ds = density.DensityStatics(scene_extent=2.0, uv_grad_threshold=0.1,
+                                delete_opacity_threshold=0.02, split_scale_factor=1.6,
+                                max_gaussians=10_000)
+    out = []
+    for d in ("cpu", dev):
+        state = t_state.init_state(t_state.params_from_jax(params, alive, d))
+        state.uv_grad_accum.copy_(torch.from_numpy(accum))
+        state.accum_dur.fill_(1)
+        state, info = density.adaptive_density_step(state, ds, *(x.to(d) for x in noise))
+        out.append((info, t_state.state_to_numpy(state)))
+    (i_c, s_c), (i_g, s_g) = out
+    assert i_g == i_c and i_c.applied and i_c.num_split > 0
+    for f in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(s_g[f], s_c[f])
+    for f in ("adam_m", "adam_v"):
+        for k in s_c[f]:
+            np.testing.assert_array_equal(s_g[f][k], s_c[f][k])
+    for k in s_c["params"]:  # split children: rsqrt, exp and log, a few ulp
+        a, b = s_g["params"][k], s_c["params"][k]
+        tol = 4 * np.spacing(np.abs(b).max()) if k in ("xyz", "scale") else 0.0
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=k)
+    # The re-sort of one state (the CPU's) on both devices: equal.
+    sorted_ = [t_state.state_to_numpy(density.morton_sort(t_state.state_from_jax(**s_c, device=d)))
+               for d in ("cpu", dev)]
+    for f in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(sorted_[1][f], sorted_[0][f])
+    for f in ("params", "adam_m", "adam_v"):
+        for k in s_c[f]:
+            np.testing.assert_array_equal(sorted_[1][f][k], sorted_[0][f][k])
