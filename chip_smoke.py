@@ -80,7 +80,24 @@ sm_90a, then:
     and scale within 4 units in the last place of their column's largest
     value; the sort of one state bit-equal), then trains a 320x200 scene
     to iteration 7, saves a checkpoint, goes on 2 iterations, and resumes
-    a fresh ``Trainer`` from the checkpoint for the same 2: bit-identical.
+    a fresh ``Trainer`` from the checkpoint for the same 2: bit-identical;
+13. spawns two ranks on the card, joined over gloo (``parallel_rank``),
+    each with the 1M scene of [9] and its 4 views. Data parallel: the same
+    camera on both ranks is bit-identical to one ``train_step``, the
+    accumulators exactly twice its; views 0 and 1 give reduced gradients
+    within rtol 1e-5 of the mean of the two single-camera gradients; 4
+    steps keep finite losses and bit-identical replicas (checksums of
+    every tensor's bytes, gathered). Tile parallel at 1296x832 (26 tile
+    rows a strip): image, loss and pairs equal the single step's, the
+    parameters after one step within 2e-5; at 1296x840 (R10) the loss
+    equals and the uv gradient's v column is the single step's x 840/848
+    within rtol 1e-5. ``Trainer(dp=2)`` and ``Trainer(tp=2)`` on [11]'s
+    cameras with a 100K-point cloud, 12 iterations (a density step at 5,
+    an opacity reset at 10): replicas bit-identical. Every kernel must
+    launch on every rank on this path. Prints ms a step of the single
+    step (rank 0 alone), the dp step and the tp step, with the
+    collectives' host ms: two ranks sharing one card, not a scaling
+    figure.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -99,6 +116,10 @@ device is present.
     python3 chip_smoke.py --trainer
 
 runs [1] and [11] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --parallel
+
+runs [1] and [13] alone, with its checks (no result line).
 
     python3 -P chip_smoke.py --train-profile
 
@@ -154,6 +175,8 @@ PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
 # 4 spread up to 0.34.
 TRAIN_PROFILE_STEPS = 16
 PROFILE_TOP = 10  # [9]: other kernels listed by device time
+PARALLEL_TITLE = ("[13] dp and tp steps and Trainer(dp=2)/(tp=2), two ranks on one card "
+                  "over gloo, 1M Gaussians at 1296x840 and 1296x832")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes/s and FP32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1356,6 +1379,319 @@ def check_checkpoint_round_trip(dev, k: int = 7) -> None:
         raise AssertionError("a resumed Trainer differs from the continued one")
 
 
+def state_tensors(state) -> dict:
+    """Every tensor of a TrainState by name."""
+    from gsplat_tpu_torch.train.state import PARAM_DIMS
+
+    out = {f"params.{k}": getattr(state.params, k).detach() for k in PARAM_DIMS}
+    out.update({f"adam_m.{k}": v for k, v in state.adam_m.items()})
+    out.update({f"adam_v.{k}": v for k, v in state.adam_v.items()})
+    out.update(alive=state.alive, uv_grad_accum=state.uv_grad_accum,
+               accum_dur=state.accum_dur)
+    return out
+
+
+def differing(a, b) -> list:
+    """Names of the tensors of two TrainStates that differ in any bit."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    return [k for k in ta if ta[k].shape != tb[k].shape or not torch.equal(
+        ta[k].contiguous().view(torch.uint8), tb[k].contiguous().view(torch.uint8))]
+
+
+def state_checksums(state) -> torch.Tensor:
+    """Two int64 checksums a tensor of a TrainState over its bytes (their
+    sum, and their sum weighted by position), on the host."""
+    sums = []
+    for t in state_tensors(state).values():
+        b = t.contiguous().view(torch.uint8).reshape(-1).long()
+        w = torch.arange(b.numel(), device=b.device) % 65_521 + 1
+        sums += [b.sum(), (b * w).sum()]
+    return torch.stack(sums).cpu()
+
+
+def replicas_identical(state, group=None) -> bool:
+    """Whether every rank of the group holds the same state, by checksums."""
+    from gsplat_tpu_torch.parallel import comm
+
+    sums = comm.all_gather_rows(state_checksums(state)[None], group)
+    return bool((sums == sums[0]).all())
+
+
+def rel_close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol_frac: float = 0.0):
+    """(|a - b| <= rtol |b| + atol_frac max |b| wherever b is finite, and NaN
+    in the same places; the worst |a - b| / |b| and |a - b| / max |b|)."""
+    fin = torch.isfinite(b)
+    err, ref = (a - b).abs()[fin], b.abs()[fin]
+    top = ref.max().item() if ref.numel() else 0.0
+    ok = bool((err <= rtol * ref + atol_frac * top).all()) and torch.equal(
+        torch.isfinite(a), fin)
+    if not err.numel():
+        return ok, 0.0, 0.0
+    return ok, (err / ref.clamp(min=1e-30)).max().item(), err.max().item() / max(top, 1e-30)
+
+
+class CollectiveClock:
+    """For a ``with`` block: time every collective of ``parallel.comm`` on
+    the host clock, from the moment the device has finished the work that
+    made its tensor (the gloo branch's copy to the host waits for it anyway)
+    to its return: the copies through host memory and the wait for the
+    other ranks; and count the bytes of the reduced or gathered tensors."""
+
+    def __init__(self):
+        self.seconds, self.bytes = 0.0, 0
+
+    def _timed(self, fn):
+        def run(t, group=None):
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            out = fn(t, group)
+            self.seconds += time.perf_counter() - t0
+            self.bytes += out.numel() * out.element_size()
+            return out
+        return run
+
+    def __enter__(self):
+        from gsplat_tpu_torch.parallel import comm
+
+        self.saved = comm.all_reduce_sum_, comm.all_gather_rows
+        comm.all_reduce_sum_, comm.all_gather_rows = map(self._timed, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from gsplat_tpu_torch.parallel import comm
+
+        comm.all_reduce_sum_, comm.all_gather_rows = self.saved
+
+
+class Stopwatch:
+    """Host milliseconds of each call (the device synchronized before and
+    after)."""
+
+    def __init__(self, dev):
+        self.dev, self.ms = torch.device(dev), []
+
+    def __call__(self, fn):
+        sync = torch.cuda.synchronize if self.dev.type == "cuda" else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        self.ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+
+def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
+                  even_height: int, trainer_n: int, trainer_iters: int) -> dict:
+    """[13] on one rank of a two-rank gloo group, every rank on ``device``.
+
+    ``height`` pads to the tile grid (R10), ``even_height`` is a whole
+    number of tile rows a strip. Returns this rank's log lines, failed
+    checks, times and the launches of its main-path runs (the dp and tp
+    steps and the trainers; the single-device steps they are held against
+    do not count)."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.parallel.data_parallel import dp_loss_and_grads, dp_train_step
+    from gsplat_tpu_torch.parallel.tile_parallel import tp_loss_and_grads, tp_train_step
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+    from gsplat_tpu_torch.train.init import initialize_gaussians
+    from gsplat_tpu_torch.train.state import init_state, params_from_jax
+    from gsplat_tpu_torch.train.step import (
+        compute_loss_and_grads, render_image, train_step)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.build()  # built by the parent: loads it
+    logs, failed, times = [], [], {}
+    say = logs.append
+    main = dict.fromkeys(_build.launches, 0)
+
+    def on_path(fn):
+        _build.reset_launches()
+        out = fn()
+        for k, v in _build.launches.items():
+            main[k] += v
+        return out
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    cams = views(width, height)
+    st = statics(cams[0], width, height)
+    st_even = statics(cams[0], width, even_height)
+    start = scene_arrays(n, seed=0, perturb_seed=1)
+    fresh = lambda: init_state(params_from_jax(*start, dev))  # noqa: E731
+    truth = scene_params(n, seed=0, device=dev)
+    gts = [render_image(truth, cm.view, cm.proj, cm.campos, BG, st)[0] for cm in cams]
+    cm_even = views(width, even_height)[0]
+    gt_even = render_image(truth, cm_even.view, cm_even.proj, cm_even.campos, BG,
+                           st_even)[0]
+    del truth
+    cm = cams[0]
+
+    # dp, the same camera on both ranks: bit-equal to one train_step.
+    single, dp = fresh(), fresh()
+    train_step(single, cm.view, cm.proj, cm.campos, gts[0], BG, 0, st)
+    on_path(lambda: dp_train_step(dp, cm.view, cm.proj, cm.campos, gts[0], BG, 0, st))
+    diff = differing(single, dp)
+    twice = (torch.equal(dp.accum_dur, 2 * single.accum_dur)
+             and torch.equal(dp.uv_grad_accum, 2 * single.uv_grad_accum))
+    say(f"dp, one camera on both ranks: differs from one train_step in "
+        f"{[k for k in diff if k not in ('accum_dur', 'uv_grad_accum')]}; accumulators "
+        f"exactly 2x the step's {twice}")
+    check(set(diff) <= {"accum_dur", "uv_grad_accum"} and twice, "dp identical cameras")
+    del single, dp
+
+    # dp, views 0 and 1: the reduced gradients are the mean of the two
+    # single-camera gradients.
+    state = fresh()
+    one = [compute_loss_and_grads(state.params, c.view, c.proj, c.campos, g, BG, st)
+           for c, g in zip(cams[:2], gts[:2])]
+    mean = {k: (one[0][4][k] + one[1][4][k]) / 2 for k in one[0][4]}
+    mean["g_uv"] = (one[0][5] + one[1][5]) / 2
+    del one
+    c = cams[rank]
+    r = on_path(lambda: dp_loss_and_grads(state.params, c.view, c.proj, c.campos, gts[rank],
+                                          BG, st))
+    worst = {}
+    for k, ref in mean.items():
+        ok, worst[k], _ = rel_close(r.g_uv if k == "g_uv" else r.grads[k], ref, 1e-5)
+        check(ok, f"dp reduced gradient {k}")
+    say("dp, views 0 and 1: reduced gradients vs the mean of two single-camera "
+        "gradients, worst relative error " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    del mean, r
+    losses, watch = [], Stopwatch(dev)
+    with CollectiveClock() as clock:
+        for k in range(4):
+            v = (2 * k + rank) % len(cams)
+            _, m = on_path(lambda v=v, k=k: watch(lambda: dp_train_step(
+                state, cams[v].view, cams[v].proj, cams[v].campos, gts[v], BG, k, st)))
+            losses.append(float(m.loss))
+    same = replicas_identical(state)
+    times["dp"] = watch.ms
+    times["dp_comm_ms"] = 1e3 * clock.seconds / 4
+    say(f"dp, 4 steps over views (2k + rank) % 4: losses {losses}, replicas identical "
+        f"{same}; {clock.bytes / 4 / 2**20:.1f} MiB reduced a step")
+    check(all(math.isfinite(x) for x in losses) and same, "dp steps")
+    del state
+
+    # tp at a whole number of tile rows a strip: the single step's image,
+    # loss and pairs.
+    single, tp = fresh(), fresh()
+    loss_s, img_s, _, tab_s, _, _ = compute_loss_and_grads(
+        single.params, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, st_even)
+    r = on_path(lambda: tp_loss_and_grads(tp.params, cm_even.view, cm_even.proj,
+                                          cm_even.campos, gt_even, BG, st_even))
+    img_err = (r.image - img_s).abs().max().item()
+    say(f"tp at {width}x{even_height}: loss {float(r.loss)!r} vs single {float(loss_s)!r}, "
+        f"image max |diff| {img_err!r}, pairs {r.num_pairs} vs {tab_s.num_pairs}")
+    check(float(r.loss) == float(loss_s) and img_err == 0.0
+          and r.num_pairs == tab_s.num_pairs, "tp image, loss and pairs")
+    del r, img_s
+    train_step(single, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, 0, st_even)
+    on_path(lambda: tp_train_step(tp, cm_even.view, cm_even.proj, cm_even.campos, gt_even,
+                                  BG, 0, st_even))
+    a, b = state_tensors(single), state_tensors(tp)
+    err = max((a[k] - b[k]).abs().nan_to_num(0.0).max().item() for k in a
+              if k.startswith("params."))
+    say(f"tp at {width}x{even_height}, one step: params max |tp - single| {err:.3g}")
+    check(err <= 2e-5, "tp params after one step")
+    del single, tp, a, b
+
+    # tp at the padded height (R10): the same loss; the uv gradient's v
+    # column scaled by H / H_pad.
+    state = fresh()
+    loss_s, _, _, _, _, uv_s = compute_loss_and_grads(state.params, cm.view, cm.proj,
+                                                      cm.campos, gts[0], BG, st)
+    r = on_path(lambda: tp_loss_and_grads(state.params, cm.view, cm.proj, cm.campos, gts[0],
+                                          BG, st))
+    # The strips' sums run in another order: a Gaussian whose rows cancel
+    # gets 1e-6 of the column's largest |value| besides rtol 1e-5.
+    ratio = height / (st.num_tiles_y * TILE)
+    ok_v, rel_v, top_v = rel_close(r.g_uv[:, 1], uv_s[:, 1] * ratio, 1e-5, 1e-6)
+    ok_u, rel_u, top_u = rel_close(r.g_uv[:, 0], uv_s[:, 0], 1e-5, 1e-6)
+    say(f"tp at {width}x{height} (R10): loss {float(r.loss)!r} vs {float(loss_s)!r}; g_uv "
+        f"v column vs single x {height}/{st.num_tiles_y * TILE}: worst |diff| / |value| "
+        f"{rel_v:.3g}, / the column's max {top_v:.3g}; u column {rel_u:.3g}, {top_u:.3g}")
+    check(float(r.loss) == float(loss_s) and ok_v and ok_u, "tp R10")
+    del r, uv_s
+    watch_tp, watch_1 = Stopwatch(dev), Stopwatch(dev)
+    with CollectiveClock() as clock:
+        for k in range(3):
+            on_path(lambda k=k: watch_tp(lambda: tp_train_step(
+                state, cm.view, cm.proj, cm.campos, gts[0], BG, k, st)))
+    times["tp"] = watch_tp.ms
+    times["tp_comm_ms"] = 1e3 * clock.seconds / 3
+    say(f"tp, 3 steps: {clock.bytes / 3 / 2**20:.1f} MiB reduced or gathered a step")
+    check(replicas_identical(state), "tp replicas")
+    # The single-device step alone on the card: rank 1 waits.
+    dist.barrier()
+    if rank == 0:
+        for k in range(3):
+            watch_1(lambda k=k: train_step(state, cm.view, cm.proj, cm.campos, gts[0], BG,
+                                           3 + k, st))
+    dist.barrier()
+    times["single"] = watch_1.ms
+    del state
+
+    # Trainer(dp=2) and Trainer(tp=2) on [11]'s scene and cameras.
+    tcams, images, tgts, xyz, rgb = trainer_scene(trainer_n, 0, dev, width, height)
+    for mode in ("dp", "tp"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+            cfg = dataclasses.replace(
+                trainer_config(tmp), num_iters=trainer_iters, adaptive_control_start=3,
+                adaptive_control_interval=5, adaptive_control_end=9)
+            g = initialize_gaussians(xyz, rgb, cfg)
+            with ImageStandIns(tgts, (height, width, 3)):
+                tr = trainer_mod.Trainer(cfg, g, images, tcams, device=dev, **{mode: 2})
+                watch = Stopwatch(dev)
+                on_path(lambda: watch(lambda: tr.train(verbose=False)))
+        same = replicas_identical(tr.state)
+        say(f"Trainer({mode}=2), {trainer_n} points, {trainer_iters} iterations: "
+            f"{watch.ms[0]:.1f} ms, {int(tr.state.alive.sum())} alive, capacity "
+            f"{tr.state.capacity}, l_max {tr.l_max}, replicas identical {same}")
+        check(same and tr.iter == trainer_iters, f"Trainer({mode}=2)")
+        del tr
+    return dict(rank=rank, logs=logs, failed=failed, times=times, launches=main)
+
+
+def parallel_slice(dev, n: int = 1_000_000, width: int = WIDTH, height: int = HEIGHT,
+                   even_height: int = 832, trainer_n: int = 100_000,
+                   trainer_iters: int = 12) -> None:
+    """[13] Two ranks on ``dev`` over gloo (``parallel_rank``); raises if a
+    rank fails a check or a kernel of the path did not launch on a rank."""
+    from gsplat_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    outs = spawn(parallel_rank, 2, (str(dev), n, width, height, even_height, trainer_n,
+                                    trainer_iters),
+                 backend="gloo", timeout=300, join_timeout=600)
+    log(f"  two ranks on {dev} over gloo, {time.perf_counter() - t0:.1f} s in all")
+    for line in outs[0]["logs"]:
+        log("  " + line)
+    failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
+    for o in outs:
+        log(f"  rank {o['rank']} launches on the dp/tp path: {o['launches']}")
+        if torch.device(dev).type == "cuda" and min(o["launches"].values()) <= 0:
+            failed.append(f"rank {o['rank']}: a kernel never launched")
+    t = outs[0]["times"]
+    med = lambda xs: statistics.median(xs[1:] if len(xs) > 1 else xs)  # noqa: E731
+    log(f"  ms a step, two ranks sharing one card (not a scaling figure): single-device "
+        f"train_step {med(t['single']):.3f} ({', '.join(f'{x:.1f}' for x in t['single'])}); "
+        f"dp {med(t['dp']):.3f} ({', '.join(f'{x:.1f}' for x in t['dp'])}), collectives "
+        f"{t['dp_comm_ms']:.3f} a step; tp {med(t['tp']):.3f} "
+        f"({', '.join(f'{x:.1f}' for x in t['tp'])}), collectives {t['tp_comm_ms']:.3f} a step")
+    if failed:
+        raise AssertionError(f"[13] failed: {failed}")
+
+
 def train_profile(dev) -> None:
     """``--train-profile``: [9]'s train steps and a device profile of
     TRAIN_PROFILE_STEPS more alone, without its checks, with whatever
@@ -1397,6 +1733,11 @@ def main() -> int:
     if sys.argv[1:] == ["--trainer"]:
         log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
         trainer_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        _build.build()
+        log(PARALLEL_TITLE)
+        parallel_slice(dev)
         return 0
 
     # 2. Build.
@@ -1491,6 +1832,10 @@ def main() -> int:
     # 12. Small scene: density step and Morton sort, card vs CPU; checkpoint.
     log("[12] small scene density step and Morton sort, card vs CPU path; checkpoint")
     check_density_against_cpu(dev)
+
+    # 13. Multi-device training: two ranks sharing the card over gloo.
+    log(PARALLEL_TITLE)
+    parallel_slice(dev)
 
     table = [("segment_expand", None, res["segment_expand"]),
              ("radix_sort", "tile", res["radix_sort"]),

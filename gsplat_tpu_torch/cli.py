@@ -5,9 +5,13 @@ Parses the config, reads the three COLMAP ``.bin`` files from
 ``<dataset_root>/<dataset_path>/sparse/0/``, initializes Gaussians from the
 SfM points, trains, and writes ``<output_dir>/checkpoint.npz`` and
 ``<output_dir>/trained.ply``. Same flags as the reference: ``--resume
-ckpt.npz`` and ``--max-iters N``; ``--dp``/``--tp`` above 1 are not
-ported and return 1. Runs on the card; ``main(argv, device="cpu")`` runs
-on the CPU.
+ckpt.npz``, ``--max-iters N``, and ``--dp N`` (a batch of N cameras a
+step) or ``--tp N`` (each step's camera split into N strips of tile rows),
+which start N local ranks, one process each, as the reference's one
+command uses N local devices: on the card rank r runs on ``cuda:r`` over
+NCCL (fewer cards than ranks raises); with ``device="cpu"`` the ranks run
+on the CPU over gloo. Rank 0 prints and writes. Runs on the card;
+``main(argv, device="cpu")`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 USAGE = ("Usage: python -m gsplat_tpu_torch.cli <config.yaml> <dataset_root> "
-         "[--resume ckpt.npz] [--max-iters N]")
+         "[--resume ckpt.npz] [--dp N] [--tp N] [--max-iters N]")
 
 
 def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> int:
@@ -51,13 +55,39 @@ def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> 
         if err is not None:
             print(f"error: {err}", file=sys.stderr)
             return usage()
-    for name in ("--dp", "--tp"):
-        if (vals[name] or 0) > 1:
-            print(f"error: {name} (multi-device training) is not ported", file=sys.stderr)
-            return usage()
+    dp, tp = vals["--dp"] or 0, vals["--tp"] or 0
+    if dp > 1 and tp > 1:
+        print("error: --dp and --tp are mutually exclusive", file=sys.stderr)
+        return usage()
     if len(argv) != 2:
         return usage()
+    world = max(dp, tp)
+    if world <= 1:
+        return _run(argv, vals, device)
+    from .parallel.launch import spawn
 
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on "
+                               "the CPU")
+        if torch.cuda.device_count() < world:
+            raise RuntimeError(f"{world} ranks exceed the available CUDA devices "
+                               f"({torch.cuda.device_count()}): one a rank")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    codes = spawn(_rank_main, world, (argv, vals, device.type), backend=backend)
+    return max(codes)
+
+
+def _rank_main(rank: int, argv: list[str], vals: dict, device_type: str) -> int:
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    return _run(argv, vals, device, rank)
+
+
+def _run(argv: list[str], vals: dict, device, rank: int = 0) -> int:
+    """Read, initialize, train and write, as rank ``rank`` of ``--dp``/
+    ``--tp`` ranks (or alone)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     from .config import parse_config
     from .io.colmap import read_cameras_binary, read_images_binary, read_points3d_binary
     from .train.init import initialize_gaussians
@@ -67,24 +97,26 @@ def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> 
     root = Path(argv[1]) / config.dataset_path
     sparse = root / "sparse" / "0"
 
-    print(f"Loading COLMAP reconstruction from {sparse} ...")
+    say(f"Loading COLMAP reconstruction from {sparse} ...")
     cameras = read_cameras_binary(sparse / "cameras.bin", config.downsample_factor)
     images = read_images_binary(sparse / "images.bin", str(root) + "/",
                                 config.downsample_factor)
     points = read_points3d_binary(sparse / "points3D.bin")
     xyz = np.stack([p.xyz for p in points.values()])
     rgb = np.stack([p.rgb for p in points.values()])
-    print(f"  {len(cameras)} cameras, {len(images)} images, {len(points)} points")
+    say(f"  {len(cameras)} cameras, {len(images)} images, {len(points)} points")
     t0 = time.time()
     gaussians = initialize_gaussians(xyz, rgb, config)
-    print(f"Initialized {gaussians.num} gaussians in {time.time() - t0:.2f}s")
+    say(f"Initialized {gaussians.num} gaussians in {time.time() - t0:.2f}s")
 
-    trainer = Trainer(config, gaussians, images, cameras, device=device)
+    trainer = Trainer(config, gaussians, images, cameras, device=device,
+                      dp=vals["--dp"] or 0, tp=vals["--tp"] or 0)
     if vals["--resume"] is not None:
         trainer.load_checkpoint(vals["--resume"])
-        print(f"Resumed from {vals['--resume']} at iteration {trainer.iter}")
-    trainer.train(max_iters=vals["--max-iters"])
-
+        say(f"Resumed from {vals['--resume']} at iteration {trainer.iter}")
+    trainer.train(max_iters=vals["--max-iters"], verbose=rank == 0)
+    if rank != 0:
+        return 0
     out = Path(config.output_dir)
     ck = out / "checkpoint.npz"
     trainer.save_checkpoint(ck)

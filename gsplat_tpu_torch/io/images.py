@@ -45,14 +45,19 @@ class AsyncImageLoader:
         seed: int = 0,
         prefetch: int = 2,
         start: int = 0,
+        stride: int = 1,
     ):
         """``start`` is the draw counter to resume from (the training
         iteration): draw k depends only on (seed, k), so a resumed run
-        samples the image sequence an uninterrupted run would."""
+        samples the image sequence an uninterrupted run would. The loader
+        takes draws start, start + stride, ...: rank r of a data-parallel
+        batch of B takes draw r of each batch with ``start = k * B + r``,
+        ``stride = B`` and decodes no other rank's images."""
         self._paths = paths
         self._device = torch.device(device)
         self._seed = seed
         self._seq = start
+        self._stride = stride
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -60,7 +65,7 @@ class AsyncImageLoader:
 
     def _next_index(self) -> int:
         k = self._seq
-        self._seq += 1
+        self._seq += self._stride
         return random.Random(self._seed * 1_000_003 + k).randint(0, len(self._paths) - 1)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:

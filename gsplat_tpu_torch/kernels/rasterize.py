@@ -194,6 +194,7 @@ def rasterize_backward_plain(
     num_tiles_x: int,
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
+    grad_scale: tuple[float, float] | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: every tile at once, 64 pairs a step, last
     chunk first (the reference kernel's formulation).
@@ -211,7 +212,7 @@ def rasterize_backward_plain(
         return rows
     lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
     px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev)
-    scale_u, scale_v = grad_scales(num_tiles_x, num_tiles_y, tile)
+    scale_u, scale_v = grad_scale or grad_scales(num_tiles_x, num_tiles_y, tile)
     tfin = out[:, 3, :, None]  # (T, PIX, 1)
     nspl = out[:, 4, :, None]
     di = d_tiles.permute(0, 2, 1)  # (T, PIX, 3)
@@ -278,6 +279,7 @@ def rasterize_backward(
     num_tiles_x: int,
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
+    grad_scale: tuple[float, float] | None = None,
 ) -> torch.Tensor:
     """Per-pair gradient rows (P, 9) f32, in sorted-pair order.
 
@@ -285,14 +287,16 @@ def rasterize_backward(
     ``rasterize_forward``; ``out`` is its (T, 5, PIX) output and ``d_tiles``
     the (T, 3, PIX) image cotangent in tile layout (zero on padded pixels).
     Rows are ``[du dv dc00 dc01 dc11 dopa dr dg db]``: du, dv scaled by
-    ``grad_scales``, dopa with respect to the sigmoid-ed opacity. Every row
-    is written, zeros for pairs no pixel reached. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel.
+    ``grad_scale`` (default ``grad_scales``, the padded grid's), dopa with
+    respect to the sigmoid-ed opacity. Every row is written, zeros for pairs
+    no pixel reached. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel.
     """
     if attrs.device.type == "cpu":
         return rasterize_backward_plain(
             attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
+            grad_scale=grad_scale,
         )
     name = "rasterize_backward"
     _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
@@ -308,7 +312,7 @@ def rasterize_backward(
     grads = torch.empty(
         (splat_gid.shape[0], GRAD_COLS), dtype=torch.float32, device=attrs.device
     )
-    scale_u, scale_v = grad_scales(num_tiles_x, num_tiles_y, tile)
+    scale_u, scale_v = grad_scale or grad_scales(num_tiles_x, num_tiles_y, tile)
     err = lib.gs_rasterize_backward(
         grads.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),

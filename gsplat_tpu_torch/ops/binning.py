@@ -169,8 +169,10 @@ def _exclusive_offsets(counts: torch.Tensor):
     return ext, int(ext[-1])  # host sync: the exact size of the next level
 
 
-def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size):
-    """Level-1 records: one run of tile rows per visible Gaussian.
+def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size,
+                      row_limit=None):
+    """Level-1 records: one run of tile rows per visible Gaussian, rows
+    clipped to ``[0, row_limit)`` (default ``num_tiles_y``).
 
     Returns (geometry, records (2, N) int32 [gid, ty0 - offset],
     offsets_ext (N+1,) int32, total_rows). After expansion, slot s of a
@@ -189,7 +191,8 @@ def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_siz
     hx = torch.minimum(
         a1x.abs() + a2x.abs(), s_e * torch.sqrt(a1x * a1x + a2x * a2x)
     )
-    ty0, ty1 = _span_y(v, a1y, a2y, s_e, tile_size, num_tiles_y)
+    nty_eff = num_tiles_y if row_limit is None else row_limit
+    ty0, ty1 = _span_y(v, a1y, a2y, s_e, tile_size, nty_eff)
     has_x = (torch.floor((u + hx) / ts) >= 0) & (
         torch.ceil((u - hx - (ts - 1.0)) / ts) < num_tiles_x
     )
@@ -284,18 +287,22 @@ def build_tile_tables(
     num_tiles_x: int,
     num_tiles_y: int,
     tile_size: int,
+    row_limit: int | None = None,
 ) -> TileTables:
     """Exact binning of every frame.
 
     Args:
       uv: (N, 2) screen positions. z: (N,) camera depths. radius: (N, 4|5)
       [r_major r_minor sin cos (ell_scale)] records. mask: (N,) visibility.
+      row_limit: tile rows at and past it are not enumerated (<=
+        ``num_tiles_y``): a strip of a tile-sharded frame whose last rows
+        lie past the image's (``parallel/tile_parallel.py``).
     """
     num_tiles = num_tiles_x * num_tiles_y
     qd_bits = depth_key_bits(num_tiles)
     geom, rec1, off1, total_rows = row_expand_inputs(
         uv, z, radius, mask, num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y,
-        tile_size=tile_size,
+        tile_size=tile_size, row_limit=row_limit,
     )
     rows = segment_expand(rec1, off1, total_rows)
     rec2, off2, total_pairs = pair_expand_inputs(

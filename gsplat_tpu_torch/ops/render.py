@@ -21,7 +21,8 @@ kernel assigns chunks to tiles. The backward kernel here writes every pair
 row itself.
 
 Gradient conventions (the reference's): uv cotangents are scaled by 0.5 x
-the padded tile grid's width and height inside the backward; the 0.99
+the padded tile grid's width and height inside the backward (unless
+``grad_scale_wh`` names another size); the 0.99
 alpha clamp and the power <= 0 clamp are ignored in the derivative; the
 background gets no gradient; ``t_final`` and ``n_splats`` carry none.
 """
@@ -48,7 +49,7 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start,
-                bg, num_tiles_x, num_tiles_y, tile):
+                bg, num_tiles_x, num_tiles_y, tile, grad_scale):
         out = rasterize_forward(
             attrs, splat_gid, tile_start, tile_count, bg,
             num_tiles_x=num_tiles_x, tile=tile,
@@ -57,6 +58,7 @@ class _Rasterize(torch.autograd.Function):
                               pair_start, out)
         ctx.bg = bg
         ctx.grid = (num_tiles_x, num_tiles_y, tile)
+        ctx.grad_scale = grad_scale
         return out
 
     @staticmethod
@@ -68,9 +70,10 @@ class _Rasterize(torch.autograd.Function):
             attrs, splat_gid, tile_start, tile_count, out,
             d_out[:, 0:3, :].contiguous(), ctx.bg,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
+            grad_scale=ctx.grad_scale,
         )
         d_attrs = segment_sum(rows, pair_slot, pair_start, attrs.shape[0])
-        return d_attrs, *(None,) * 9
+        return d_attrs, *(None,) * 10
 
 
 def pack_attrs(
@@ -118,15 +121,23 @@ def rasterize(
     width: int,
     height: int,
     tile: int,
+    grad_scale_wh: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Render the image from binning's ``tables`` (same uv as binned);
-    differentiable with respect to uv, conic, rgb and opacity_logit."""
+    differentiable with respect to uv, conic, rgb and opacity_logit.
+
+    ``grad_scale_wh`` (W, H) replaces the padded grid in the uv-gradient
+    scale (0.5 W, 0.5 H), as the reference's tile-sharded step passes the
+    global image's unpadded size for a strip (ROADMAP R10)."""
     num_tiles_x = (width + tile - 1) // tile
     num_tiles_y = (height + tile - 1) // tile
     attrs = pack_attrs(uv, conic, rgb, opacity_logit)
+    grad_scale = None if grad_scale_wh is None else (
+        0.5 * grad_scale_wh[0], 0.5 * grad_scale_wh[1])
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
         tables.pair_slot, tables.pair_start, float(bg), num_tiles_x, num_tiles_y, tile,
+        grad_scale,
     )
     # Cropping outside the Function: autograd gives the padded pixels zero
     # cotangents, as the reference's tiles_to_image does.

@@ -1,0 +1,81 @@
+"""Camera data parallelism over ``torch.distributed`` (port of
+``gsplat_tpu/parallel/data_parallel.py``).
+
+A batch of B cameras is spread over the B ranks of a process group, one
+camera a rank. Every rank holds the whole state, replicated; it renders
+its own camera and back-propagates it (``compute_loss_and_grads``), then
+the ranks sum (``comm.sum_over_ranks``: one float32 and one int32 buffer):
+
+- the gradients and the uv gradient, divided by B: the loss is the mean of
+  the cameras' losses;
+- each camera's uv-gradient norm (the densification statistic, taken
+  before the mean) and each camera's visibility mask (``visible_count``);
+  a Gaussian is updated where any camera sees it (``visible_count > 0``);
+- the losses (their mean is the step's) and the pair counts (their max).
+
+Then every rank applies the same masked Adam update to the same state, so
+the replicas stay bit-identical with no parameter traffic. Dead capacity
+rows may carry NaN gradients; they stay dead rows, and ``apply_adam``
+scrubs them as in one camera's step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from ..ops.loss import compute_psnr
+from ..train.state import GaussianParams, TrainState
+from ..train.step import StepMetrics, StepStatics, apply_adam, compute_loss_and_grads
+from . import comm
+
+
+class BatchGrads(NamedTuple):
+    """A camera batch's reduced gradients and statistics (the same on every
+    rank), and this rank's own image."""
+
+    loss: torch.Tensor  # mean over the batch
+    psnr: torch.Tensor  # mean over the batch
+    image: torch.Tensor  # this rank's render
+    grads: dict  # name -> mean gradient
+    g_uv: torch.Tensor  # (N_cap, 2) mean uv gradient
+    g_norm: torch.Tensor  # (N_cap,) sum of the cameras' uv-gradient norms
+    visible_count: torch.Tensor  # (N_cap,) int32: cameras that see each Gaussian
+    num_pairs: int  # max over the batch
+
+
+def dp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torch.Tensor,
+                      bg: float, st: StepStatics, group=None) -> BatchGrads:
+    """This rank's camera forward and backward, then the batch's sums."""
+    loss, image, mask, tables, grads, g_uv = compute_loss_and_grads(
+        params, view, proj, campos, gt_image, bg, st)
+    g_norm = torch.sqrt(torch.sum(g_uv * g_uv, dim=1))
+    summed, (g_uv_sum, g_norm_sum), scalars, visible_count, pairs = comm.sum_over_ranks(
+        grads, [g_uv, g_norm], [loss, compute_psnr(image, gt_image)], mask,
+        tables.num_pairs, group)
+    b = dist.get_world_size(group)
+    return BatchGrads(
+        loss=scalars[0].sum() / b, psnr=scalars[1].sum() / b, image=image,
+        grads={k: g / b for k, g in summed.items()}, g_uv=g_uv_sum / b, g_norm=g_norm_sum,
+        visible_count=visible_count, num_pairs=max(pairs),
+    )
+
+
+def dp_train_step(
+    state: TrainState, view, proj, campos, gt_image: torch.Tensor, bg: float,
+    iteration: int, st: StepStatics, group=None,
+) -> tuple[TrainState, StepMetrics]:
+    """One replicated optimizer step over the batch of the group's cameras,
+    this rank's being (view, proj, campos, gt_image, bg); updates ``state``
+    in place. Metrics: the mean loss and PSNR, the Gaussians any camera
+    sees, the largest pair count."""
+    r = dp_loss_and_grads(state.params, view, proj, campos, gt_image, bg, st, group)
+    union = r.visible_count > 0
+    apply_adam(state, r.grads, r.g_uv, union, iteration, st,
+               visible_count=r.visible_count, g_norm=r.g_norm)
+    return state, StepMetrics(loss=r.loss, psnr=r.psnr,
+                              num_visible=torch.sum(union.to(torch.int32)),
+                              num_pairs=r.num_pairs)
+

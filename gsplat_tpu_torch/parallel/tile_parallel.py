@@ -1,0 +1,115 @@
+"""One camera's tile rows sharded over ``torch.distributed`` ranks (port
+of ``gsplat_tpu/parallel/tile_parallel.py``).
+
+Rank d of D renders strip d: ``strip_rows`` whole tile rows starting at
+row ``d * strip_rows``, the last strip padded past the image. Every rank
+runs the per-Gaussian forward on the replicated parameters, shifts uv into
+the strip's coordinates, and bins and rasterizes only its strip; binning's
+``row_limit`` keeps the last strip's padding rows out, so the strips' pair
+sets together are the whole frame's. The strips are all-gathered (without
+autograd) and every rank computes the fused loss on the whole image.
+
+The gradient is the single-camera step's: every rank takes d(loss)/d(image)
+on the whole image, back-propagates its own rows of it through its strip's
+render, and the ranks sum the parameter gradients and the uv gradient. The
+reference reaches the same sum through the all-gather's transpose and a
+``pmean``. ``torch.distributed.nn``'s differentiable all-gather is not used:
+its backward needs an all-to-all, which gloo does not offer.
+
+The uv-gradient scale is the global image's unpadded (W, H), as in the
+reference (``grad_scale_wh``): where the tile grid pads the image, the uv
+gradient differs from the single-camera step's by W / W_pad and H / H_pad
+(ROADMAP R10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from ..ops.binning import build_tile_tables
+from ..ops.loss import compute_psnr, fused_loss
+from ..ops.render import rasterize
+from ..train.state import PARAM_DIMS, GaussianParams, TrainState
+from ..train.step import StepMetrics, StepStatics, _as_f32, _per_gaussian, apply_adam
+from . import comm
+
+
+def strip_rows(st: StepStatics, n_ranks: int) -> int:
+    """Tile rows of each strip."""
+    return (st.num_tiles_y + n_ranks - 1) // n_ranks
+
+
+class StripGrads(NamedTuple):
+    """One camera's loss, image and gradients, the same on every rank."""
+
+    loss: torch.Tensor
+    psnr: torch.Tensor
+    image: torch.Tensor  # (H, W, 3), gathered from the strips
+    grads: dict  # name -> gradient
+    g_uv: torch.Tensor  # (N_cap, 2)
+    mask: torch.Tensor  # (N_cap,) bool: visible on any rank
+    num_pairs: int  # summed over the strips
+
+
+def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torch.Tensor,
+                      bg: float, st: StepStatics, group=None) -> StripGrads:
+    """This rank's strip forward, the whole image's loss, this rank's strip
+    backward, then the sums over the strips."""
+    d, n_ranks = dist.get_rank(group), dist.get_world_size(group)
+    rows_local = strip_rows(st, n_ranks)
+    h_local = rows_local * st.tile
+    dev = params.xyz.device
+    view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
+    names = list(PARAM_DIMS)
+    leaves = [getattr(params, name) for name in names]
+    with torch.enable_grad():
+        uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
+                               requires_grad=True)
+        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+        uv = uv + uv_probe
+        uv_l = uv - torch.tensor([0.0, float(d * h_local)], dtype=torch.float32, device=dev)
+        tables = build_tile_tables(
+            uv_l.detach(), z.detach(), radius, mask,
+            num_tiles_x=st.num_tiles_x, num_tiles_y=rows_local, tile_size=st.tile,
+            row_limit=min(max(st.num_tiles_y - d * rows_local, 0), rows_local),
+        )
+        strip = rasterize(
+            uv_l, conic, rgb, params.opacity, tables, bg,
+            width=st.width, height=h_local, tile=st.tile,
+            grad_scale_wh=(st.width, st.height),
+        ).image
+        image = comm.all_gather_rows(strip, group)[: st.height].detach().requires_grad_(True)
+        loss = fused_loss(image, gt_image, st.ssim_frac)
+        (d_image,) = torch.autograd.grad(loss, image)
+        d_strip = torch.zeros_like(strip)
+        mine = d_image[d * h_local:(d + 1) * h_local]
+        d_strip[: mine.shape[0]] = mine
+        got = torch.autograd.grad(strip, leaves + [uv_probe], grad_outputs=d_strip,
+                                  allow_unused=True)
+    grads = {name: torch.zeros_like(leaf) if g is None else g
+             for name, leaf, g in zip(names, leaves, got)}
+    image = image.detach()
+    summed, (g_uv,), scalars, visible_count, pairs = comm.sum_over_ranks(
+        grads, [got[-1]], [loss.detach(), compute_psnr(image, gt_image)], mask,
+        tables.num_pairs, group)
+    # Every rank computed the same loss; rank 0's slot is the one all read.
+    return StripGrads(loss=scalars[0, 0], psnr=scalars[1, 0], image=image, grads=summed,
+                      g_uv=g_uv, mask=visible_count > 0, num_pairs=sum(pairs))
+
+
+def tp_train_step(
+    state: TrainState, view, proj, campos, gt_image: torch.Tensor, bg: float,
+    iteration: int, st: StepStatics, group=None,
+) -> tuple[TrainState, StepMetrics]:
+    """One optimizer step on one camera, its tile rows sharded over the
+    group's ranks; updates ``state`` in place. Metrics: loss and PSNR of
+    the whole image, the Gaussians any strip sees, the strips' pairs."""
+    r = tp_loss_and_grads(state.params, view, proj, campos, gt_image, bg, st, group)
+    apply_adam(state, r.grads, r.g_uv, r.mask, iteration, st)
+    return state, StepMetrics(loss=r.loss, psnr=r.psnr,
+                              num_visible=torch.sum(r.mask.to(torch.int32)),
+                              num_pairs=r.num_pairs)
+

@@ -176,13 +176,19 @@ def apply_adam(
     mask: torch.Tensor,
     iteration: int,
     st: StepStatics,
+    visible_count: torch.Tensor | None = None,
+    g_norm: torch.Tensor | None = None,
 ) -> TrainState:
     """Masked Adam update and densification accumulators, in place.
 
     The reference returns a new state; updating in place here saves a copy
     of the parameters and moments. The xyz learning rate decays
     exponentially and is scaled by ``scene_extent``; with ``l_max == 0``
-    SH is not optimized.
+    SH is not optimized. ``visible_count`` (N_cap,) int32 and ``g_norm``
+    (N_cap,), the per-camera visibility counts and uv-gradient norms summed
+    over a camera batch, generalize the accumulators to data-parallel
+    batches; by default they are the single camera's ``mask`` and
+    ``|g_uv|``.
     """
     dev = g_uv.device
     it = torch.tensor(float(iteration), dtype=torch.float32, device=dev)
@@ -209,11 +215,12 @@ def apply_adam(
         param.copy_(p)
         state.adam_m[name].copy_(m)
         state.adam_v[name].copy_(v)
-    g_norm = torch.sqrt(torch.sum(g_uv * g_uv, dim=1))
+    if g_norm is None:
+        g_norm = torch.sqrt(torch.sum(g_uv * g_uv, dim=1))
     state.uv_grad_accum.copy_(
         torch.where(mask, state.uv_grad_accum + g_norm, state.uv_grad_accum)
     )
-    state.accum_dur.add_(mask.to(torch.int32))
+    state.accum_dur.add_(mask.to(torch.int32) if visible_count is None else visible_count)
     return state
 
 

@@ -7,12 +7,25 @@ by name and also sends every ``test_split_ratio``-th to the test set;
 ``needs_grow``, then the Morton re-sort), opacity resets, eval PSNR and
 image dumps; ``save_to_ply`` exports the result.
 
-Differences by design. The reference's data- and tile-parallel modes are
-not ported. Binning sizes every frame exactly, so the reference's pair and
-row capacities, their growth and its overflow monitor have no counterpart;
-what stays of the monitor is the non-finite loss check: a flag on the
-device collects every step's loss, and one host read at each print or
-density boundary raises ``FloatingPointError`` for the window. The split
+``Trainer(..., dp=B)`` trains a batch of B cameras a step, one a rank of a
+process group of B ranks (``parallel/data_parallel.py``); ``tp=D`` splits
+each step's one camera into D strips of tile rows, one a rank
+(``parallel/tile_parallel.py``). Each rank runs its own ``Trainer`` on the
+replicated state: the loop, its schedule and its density steps (the same
+split noise) run identically on every rank, so no rank skips a collective
+and the replicas stay bit-identical; eval, image dumps, the progress bar
+and the PLY and checkpoint writes happen on rank 0 only. Under dp the
+cameras are bucketed by (W, H, fx, fy) and every batch draws within one
+bucket (``_dp_bucket_choice``), rank r taking draw r of each batch; under
+tp every rank draws the same image.
+
+Differences by design. Binning sizes every frame exactly, so the
+reference's pair and row capacities, their growth and its overflow monitor
+have no counterpart; what stays of the monitor is the non-finite loss
+check: a flag on the device collects every step's loss, and one host read
+at each print or density boundary raises ``FloatingPointError`` for the
+window (under dp and tp the loss is the ranks' reduced one, so every rank
+raises at the same boundary). The split
 noise comes from ``density.split_noise`` (a ``torch.Generator`` seeded by
 ``seed * 1_000_003 + iteration``) instead of threefry.
 """
@@ -20,6 +33,7 @@ noise comes from ``density.split_noise`` (a ``torch.Generator`` seeded by
 from __future__ import annotations
 
 import queue
+import random
 import threading
 import warnings
 from pathlib import Path
@@ -33,6 +47,9 @@ from ..io.colmap import Camera, Image, compute_max_diagonal
 from ..io.ply import save_ply
 from ..ops.camera import CameraMatrices, build_camera_matrices
 from ..ops.loss import compute_psnr
+from ..parallel import require_world
+from ..parallel.data_parallel import dp_train_step
+from ..parallel.tile_parallel import tp_train_step
 from ..utils import checkpoint
 from .density import (
     DensityInfo, DensityStatics, adaptive_density_step, morton_sort, reset_opacity,
@@ -53,6 +70,9 @@ def require_device(device: torch.device | str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on "
                            "the CPU")
+    if device.type == "cuda" and (device.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(f"{device} exceeds the available CUDA devices "
+                           f"({torch.cuda.device_count()})")
     return device
 
 
@@ -64,8 +84,18 @@ class Trainer:
         images: dict[int, Image],
         cameras: dict[int, Camera],
         device: torch.device | str = "cuda",
+        dp: int = 0,
+        tp: int = 0,
     ):
+        """``dp``/``tp`` above 1: this process is one rank of a process
+        group of that many ranks (``parallel.initialize_multihost``), which
+        must exist; 0 or 1 trains alone. They exclude each other."""
         self.device = require_device(device)
+        self.dp = int(dp) if dp and dp > 1 else 0
+        self.tp = int(tp) if tp and tp > 1 else 0
+        if self.dp and self.tp:
+            raise ValueError("dp and tp modes are mutually exclusive")
+        self.rank = require_world(self.dp or self.tp) if (self.dp or self.tp) else 0
         self.config = config
         self.images = images
         self.cameras = cameras
@@ -140,6 +170,60 @@ class Trainer:
             return 0.0
         return (iteration % 255) / 255.0
 
+    def _dp_bucket_choice(self, k: int, buckets: list[list[int]]) -> int:
+        """Counter-based, size-weighted geometry-bucket draw for iteration
+        ``k``: it depends only on (seed, k), as the loader's draws do, so a
+        resumed run picks the same bucket sequence, and weighting by bucket
+        size keeps every image's long-run frequency equal."""
+        n = len(self.train_images)
+        r = random.Random(self.config.seed * 7_919 + k).randrange(n)
+        for j, b in enumerate(buckets):
+            r -= len(b)
+            if r < 0:
+                return j
+        return len(buckets) - 1
+
+    def _dp_buckets(self) -> list[list[int]]:
+        """Positions of the train images grouped by camera geometry (W, H,
+        fx, fy), in order of first appearance."""
+        groups: dict[tuple, list[int]] = {}
+        for pos, im in enumerate(self.train_images):
+            cam = self.cameras[im.camera_id]
+            groups.setdefault((cam.width, cam.height, cam.focal_x, cam.focal_y), []).append(pos)
+        return list(groups.values())
+
+    def _loaders(self):
+        """(buckets, one loader per bucket): one bucket of every train image
+        unless under dp."""
+        c = self.config
+        names = [im.name for im in self.train_images]
+        if not self.dp:
+            # under tp every rank draws the same image
+            return [list(range(len(names)))], [image_io.AsyncImageLoader(
+                names, self.device, seed=c.seed, prefetch=2, start=self.iter)]
+        buckets = self._dp_buckets()
+        consumed = [0] * len(buckets)
+        if len(buckets) > 1:
+            for k in range(self.iter):
+                consumed[self._dp_bucket_choice(k, buckets)] += 1
+        else:
+            consumed[0] = self.iter
+        return buckets, [
+            image_io.AsyncImageLoader(
+                [names[p] for p in bucket], self.device, seed=c.seed + 1_000_003 * bi,
+                prefetch=2, start=consumed[bi] * self.dp + self.rank, stride=self.dp)
+            for bi, bucket in enumerate(buckets)
+        ]
+
+    def _step(self, cm: CameraMatrices, gt: torch.Tensor):
+        args = (self.state, cm.view, cm.proj, cm.campos, gt, self._bg(self.iter), self.iter,
+                self._statics(cm))
+        if self.dp:
+            return dp_train_step(*args)
+        if self.tp:
+            return tp_train_step(*args)
+        return train_step(*args)
+
     def _maybe_add_sh_band(self, iteration: int) -> None:
         c = self.config
         if (
@@ -157,11 +241,9 @@ class Trainer:
         num_iters = max_iters if max_iters is not None else c.num_iters
         # counter-based draws: a resumed run samples what an uninterrupted
         # one would
-        loader = image_io.AsyncImageLoader(
-            [im.name for im in self.train_images], self.device, seed=c.seed,
-            prefetch=2, start=self.iter,
-        )
-        bar = ProgressBar(num_iters) if verbose else None
+        buckets, loaders = self._loaders()
+        lead = self.rank == 0
+        bar = ProgressBar(num_iters) if verbose and lead else None
         out_dir = Path(c.output_dir)
         eval_interval = 3000 if c.strict_reference else max(c.test_eval_interval, 1)
         nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -169,12 +251,11 @@ class Trainer:
         try:
             while self.iter < num_iters:
                 self._maybe_add_sh_band(self.iter)
-                idx, gt = loader.next()
-                cm = self._matrices(self.train_images[idx])
-                self.state, metrics = train_step(
-                    self.state, cm.view, cm.proj, cm.campos, gt, self._bg(self.iter),
-                    self.iter, self._statics(cm),
-                )
+                bi = (self._dp_bucket_choice(self.iter, buckets)
+                      if self.dp and len(buckets) > 1 else 0)
+                idx, gt = loaders[bi].next()
+                cm = self._matrices(self.train_images[buckets[bi][idx]])
+                self.state, metrics = self._step(cm, gt)
                 nonfinite |= ~torch.isfinite(metrics.loss)
                 densify = (
                     self.iter > c.adaptive_control_start
@@ -190,10 +271,10 @@ class Trainer:
                     if bar is not None:
                         bar.update(self.iter, float(metrics.loss), num_active(self.state))
 
-                if self.iter % c.print_interval == 0:
+                if self.iter % c.print_interval == 0 and lead:
                     self._dump_image(cm, out_dir)
 
-                if self.iter % eval_interval == 0:
+                if self.iter % eval_interval == 0 and lead:
                     self.evaluate(verbose=verbose)
 
                 if densify:
@@ -208,7 +289,8 @@ class Trainer:
 
                 self.iter += 1
         finally:
-            loader.close()
+            for loader in loaders:
+                loader.close()
             if bar is not None:
                 bar.finish()
 
@@ -290,11 +372,17 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_to_ply(self, filename: str | Path) -> None:
+        """Write the alive Gaussians as a PLY (rank 0 only)."""
+        if self.rank != 0:
+            return
         g = to_gaussian_data(self.state, self.l_max)
         sh = None if g.sh is None else g.sh.reshape(g.num, -1)
         save_ply(filename, g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh)
 
     def save_checkpoint(self, path: str | Path) -> None:
+        """Write the state, iteration and SH band (rank 0 only)."""
+        if self.rank != 0:
+            return
         checkpoint.save_checkpoint(path, self.state, self.iter, self.l_max,
                                    cfg_hash=checkpoint.config_hash(self.config))
 

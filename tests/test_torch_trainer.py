@@ -13,8 +13,9 @@ JAX side never trains or renders, so no Pallas kernel is compiled.
 
 On the port alone: ``cli.main`` end to end to ``trained.ply``, a run
 stopped by ``--max-iters`` and resumed bit-equal to an uninterrupted one,
-the flag errors, a non-finite loss anywhere in a window raising
-``FloatingPointError`` at its boundary, ``evaluate``'s skip warning, and
+the flag errors (``--dp`` with ``--tp`` among them), a non-finite loss
+anywhere in a window raising ``FloatingPointError`` at its boundary,
+``evaluate``'s skip warning, and
 no silent CPU fallback when no card is present.
 """
 
@@ -269,10 +270,9 @@ def test_cli_flag_errors(capsys):
     assert cli.main(["--max-iters"], device="cpu") == 1
     assert cli.main(["cfg.yaml"], device="cpu") == 1
     assert "Usage:" in capsys.readouterr().err
-    for flag in ("--dp", "--tp"):
-        assert cli.main(["cfg.yaml", "root", flag, "2"], device="cpu") == 1
-        err = capsys.readouterr().err
-        assert "not ported" in err and "Usage:" in err
+    assert cli.main(["cfg.yaml", "root", "--dp", "2", "--tp", "2"], device="cpu") == 1
+    err = capsys.readouterr().err
+    assert "mutually exclusive" in err and "Usage:" in err
 
 
 def _trainer(dataset, tmp_path, **cfg):
