@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (``gsplat_tpu_torch/csrc``) with nvcc for
-sm_90a, then:
+sm_90a, then runs its entry points in their default mode, the JAX
+package's packed mode (f16/bf16/e5s9 pair attributes and packed gradient
+words), and its exact f32 mode where named
+(``gsplat_tpu_torch.train.step.exact_mode``):
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA;
 2. builds the kernels and prints the build time, ptxas's register use,
@@ -22,8 +25,9 @@ sm_90a, then:
    shapes of one view of the bench scene at 100K Gaussians (segment expand
    at both binning levels, each level's records, slots, time and bound
    printed; radix sort and the inverse permutation that makes binning's
-   ``pair_slot`` bit-equal; rasterizer image PSNR >= 60 dB, n_splats equal
-   on >= 99.9 % of pixels, a rerun bit-identical);
+   ``pair_slot`` bit-equal; the forward rasterizer in exact and in packed
+   mode, image PSNR >= 60 dB, n_splats equal on >= 99.9 % of pixels, a
+   rerun bit-identical);
 4. checks a small scene rendered on the card against the port's CPU path
    (which the CPU tests hold against the JAX package);
 5. renders the bench scene (1296x840, tile 16, SH degree 3) at 1,000,000
@@ -33,21 +37,31 @@ sm_90a, then:
 6. times each forward kernel against its plain version at the 1M view's
    shapes;
 7. compares the backward kernels with their plain versions at 100K
-   Gaussians, bench view, random image cotangent (backward rasterizer rows
-   within 1e-3 of each row's largest |value| and bit-identical on a rerun,
-   segment sum at rtol 1e-5 and bit-identical on a rerun; whether it is
-   bit-equal to the plain version on the CPU is printed);
+   Gaussians, bench view, random image cotangent, in exact and in packed
+   mode (backward rasterizer float32 rows within 1e-3 of each row's
+   largest |value| and bit-identical on a rerun; packed: its words
+   bit-equal to ``packing.pack_grad_rows`` of its own float32 rows on the
+   same inputs, bit-identical on a rerun, and unpacked within that bound
+   plus one rounding step of the word format of the plain version's words;
+   segment sum of the rows or the words at rtol 1e-5 and bit-identical on
+   a rerun; whether it is bit-equal to the plain version on the CPU is
+   printed);
 8. runs one ``train_step`` of a small scene (20K Gaussians, 320x200) on the
-   card and on the port's CPU path: loss, gradients, moments and
-   accumulators must agree;
+   card and on the port's CPU path, in each mode: loss, gradients, moments
+   and accumulators must agree;
 9. trains a perturbed copy of the 1M scene for 8 steps over the 4 views
-   rendered from the scene itself (``train_step``): loss, ms per step and
-   pairs; finite losses, a lower mean loss on the second pass, every kernel
-   launched, the radix sort exactly once per step (the tile sort; the
-   backward sorts nothing), peak memory, and bit-identical gradients from
-   two calls on the same state; then a torch.profiler run of 4 more steps:
+   rendered from the scene itself (``train_step``), in packed mode, then
+   from the same start in exact mode: loss, ms per step and pairs; finite
+   losses, a lower mean loss on the second pass, every kernel of the
+   mode's path launched (the packed run only packed rasterizers and
+   segment sums, the exact run none), the radix sort exactly once per step
+   (the tile sort; the backward sorts nothing), peak memory, and
+   bit-identical gradients from two calls on the same state; then
+   torch.profiler over TRAIN_PROFILE_STEPS more steps of each mode, in
+   windows of half as many taken in turns (packed, exact, exact, packed):
    device ms per step, the device's busy share, and the device time of
-   each kernel;
+   each kernel; and the two modes' losses and device ms per step side by
+   side;
 10. times the backward kernels against their plain versions at the 1M
     view's shapes;
 11. trains through ``Trainer.train`` at full width: the true scene is
@@ -87,11 +101,11 @@ sm_90a, then:
     accumulators exactly twice its; views 0 and 1 give reduced gradients
     within rtol 1e-5 of the mean of the two single-camera gradients; 4
     steps keep finite losses and bit-identical replicas (checksums of
-    every tensor's bytes, gathered). Tile parallel at 1296x832 (26 tile
-    rows a strip): image, loss and pairs equal the single step's, the
-    parameters after one step within 2e-5; at 1296x840 (R10) the loss
-    equals and the uv gradient's v column is the single step's x 840/848
-    within rtol 1e-5. ``Trainer(dp=2)`` and ``Trainer(tp=2)`` on [11]'s
+    every tensor's bytes, gathered). Tile parallel, in exact mode, at
+    1296x832 (26 tile rows a strip): image, loss and pairs equal the single
+    step's, the parameters after one step within 2e-5; at 1296x840 (R10)
+    the loss equals and the uv gradient's v column is the single step's x
+    840/848 within rtol 1e-5. ``Trainer(dp=2)`` and ``Trainer(tp=2)`` on [11]'s
     cameras with a 100K-point cloud, 12 iterations (a density step at 5,
     an opacity reset at 10): replicas bit-identical. Every kernel must
     launch on every rank on this path. Prints ms a step of the single
@@ -102,13 +116,16 @@ sm_90a, then:
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
 ``repeat_interleave``, ``torch.sort(stable=True)``, ``argsort``,
-``index_add_``; none for the rasterizers; the segment sum also with the
+``index_add_``; none for the rasterizers and the packed segment sum; the
+segment sum also with the
 ``pair_slot`` scatter that feeds it; the radix sort at both call sites,
 the tile sort and the density step's Morton re-sort), and the least time an H100 could take
 for the work (``kernel_bound``; for the rasterizers from the pair-pixels
 these inputs need and those of them past the 1/255 cutoff,
 ``pair_pixel_counts``), then orders the kernels by launches per train step
-x (time - bound). Prints one JSON line of kernels, then the nvidia-smi
+x (time - bound). Prints one JSON line of kernels (the rasterizers and the
+segment sum once a mode, ``"mode"``; launches from [9]'s run of that
+mode), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
@@ -124,15 +141,35 @@ runs [1] and [13] alone, with its checks (no result line).
     python3 -P chip_smoke.py --train-profile
 
 runs [1] and [9]'s train steps and a profile of TRAIN_PROFILE_STEPS more
-alone, without checks, with the
+alone, in each mode, without checks, with the
 ``gsplat_tpu_torch`` that the import path finds first: with ``-P`` and
 ``PYTHONPATH`` set to another checkout (an earlier commit unpacked by
 ``git archive``), one copy of this script profiles that checkout's train
 step, so that two trees compare in one call.
+
+    python3 -P chip_smoke.py --wall
+
+runs [1] and [9]'s train steps alone, without checks, with the
+``gsplat_tpu_torch`` that the import path finds first, as above: in each
+mode from the same start (the packed mode's state freed before the exact
+mode's starts), TRAIN_STEPS steps to warm up, then WALL_STEPS more, each
+between two device synchronizations, and prints the median wall ms and
+process CPU ms (host time the process spent on its own threads) a step. A
+checkout from before the packed mode times its one (exact) mode. Run in
+several processes of two checkouts taken in turns, it says whether a
+change moved the host's cost of a step.
+
+    python3 -P chip_smoke.py --exact-bits
+
+runs [1] and prints the sha256 of [9]'s first exact-mode gradient call
+(target, image, loss and gradients at 1M Gaussians), with the
+``gsplat_tpu_torch`` that the import path finds first, as above: equal
+digests of two checkouts show exact mode bit for bit unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -169,12 +206,12 @@ SOURCES = {
 TRAIN_STEPS = 8
 TRAINER_VIEWS = 8  # [11]: cameras at distinct centres
 TRAINER_ITERS = 24  # [11]: iterations of Trainer.train
-PROFILED_STEPS = 4  # [9]: train steps under torch.profiler after the timed ones
-# --train-profile: profiled steps. 16 resolve ~0.01 ms/step of device time
-# between two checkouts (three runs of one within 0.010 on an H100); [9]'s
-# 4 spread up to 0.34.
+# [9] and --train-profile: train steps under torch.profiler after the timed
+# ones, in each mode. 16 resolve ~0.01 ms/step of device time between two
+# checkouts (three runs of one within 0.010 on an H100); 4 spread up to 0.34.
 TRAIN_PROFILE_STEPS = 16
 PROFILE_TOP = 10  # [9]: other kernels listed by device time
+WALL_STEPS = 32  # --wall: timed train steps a mode, after TRAIN_STEPS to warm up
 PARALLEL_TITLE = ("[13] dp and tp steps and Trainer(dp=2)/(tp=2), two ranks on one card "
                   "over gloo, 1M Gaussians at 1296x840 and 1296x832")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
@@ -198,9 +235,20 @@ K2_PASS_OPS = 44
 # Pixels a warp of each rasterizer holds: 32 threads x 4 pixels of a row.
 K1_WARP_PIXELS = 128
 K2_WARP_PIXELS = 128
+# Packed mode (csrc/packing.cuh), operations a pair, counted from the
+# source as above (a conversion, shift, mask, compare or select is 1):
+# rounding a staged pair (round_pair_attrs: two f16 offsets 2 x 10, seven
+# bf16 roundings 7 x 2, the e5s9 pack 35 and unpack 18), once per pair a
+# rasterizer stages; K2's words (three bf16 pairs 3 x 5, the e5s9 pack 35),
+# once per pair up to every tile's deepest n_splats (the rows past it all
+# take one zero row's words, packed once a thread); K4's unpacking of a word
+# row (three bf16 pairs 3 x 2, the e5s9 unpack 15).
+PACK_ATTR_OPS = 87
+PACK_GRAD_OPS = 50
+UNPACK_GRAD_OPS = 21
 
 
-def kernel_bound(name: str, **work) -> dict:
+def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     """The least time an H100 could take for one kernel's work.
 
     Bytes count each input read once and each output written once; FP32
@@ -210,8 +258,11 @@ def kernel_bound(name: str, **work) -> dict:
     of them past the 1/255 cutoff, ``pair_pixel_counts``). ``work`` keys:
     ``expand`` [(cols, records, total)] (segment_expand), ``keys``
     (radix_sort), ``gaussians``, ``pairs``, ``tiles``, ``pair_pixels``,
-    ``passing`` (rasterizers; segment_sum takes gaussians and pairs,
-    inverse_permutation pairs).
+    ``passing``, ``reached`` (rasterizers; segment_sum takes gaussians and
+    pairs, inverse_permutation pairs). ``packed``: the packed mode's
+    rasterizers also round each pair up to every tile's deepest n_splats
+    (``reached``), K2 writes 16-byte word rows and packs those it reaches,
+    K4 reads and unpacks every row.
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -227,14 +278,21 @@ def kernel_bound(name: str, **work) -> dict:
         # attribute rows, splat_gid, tile_start and tile_count; 5 output rows
         nbytes = 36 * g + 4 * p + 8 * t + 4 * 5 * pix * t
         ops = ALPHA_OPS * work["pair_pixels"]
+        if packed:
+            ops += PACK_ATTR_OPS * work["reached"]
         if name == "rasterize_forward":
             ops += K1_PASS_OPS * work["passing"]
-        else:  # + the image cotangent in, one 9-float row per pair out
-            nbytes += 4 * 3 * pix * t + 36 * p
+        else:  # + the image cotangent in, one row (9 floats or 4 words) per pair out
+            nbytes += 4 * 3 * pix * t + (16 if packed else 36) * p
             ops += K2_PASS_OPS * work["passing"]
+            if packed:
+                ops += PACK_GRAD_OPS * work["reached"]
     elif name == "segment_sum":  # rows, pair_slot, pair_start in; sums out
-        nbytes = 40 * work["pairs"] + 40 * work["gaussians"]
-        ops = 9 * work["pairs"]
+        p, g = work["pairs"], work["gaussians"]
+        if packed:  # word rows 16 + pair_slot 4 a pair, pair_start, sums
+            nbytes, ops = 20 * p + 4 * (g + 1) + 36 * g, (9 + UNPACK_GRAD_OPS) * p
+        else:
+            nbytes, ops = 40 * p + 40 * g, 9 * p
     else:
         raise ValueError(f"no bound for {name}")
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -443,26 +501,30 @@ def path_inputs(params, cm, st):
     )
 
 
-def pair_pixel_counts(raster, out, num_tiles_x: int) -> dict:
+def pair_pixel_counts(raster, out, num_tiles_x: int, packed: bool = False) -> dict:
     """What the rasterizers' work is made of on these inputs: the
     pair-pixels of the forward's n_splats row (``pair_pixels``), and those
     of them whose alpha passes the 1/255 cutoff (``passing``), alpha
-    evaluated as the plain versions evaluate it, 64 pairs of every tile a
-    step. Also the pair-pixels that the kernels' warps step through, a
-    warp going on to its pixels' largest n_splats: K1's warps hold
-    K1_WARP_PIXELS pixels of a tile (``fwd_warp_pair_pixels``), K2's
-    K2_WARP_PIXELS (``bwd_warp_pair_pixels``)."""
+    evaluated as the plain versions evaluate it (in ``packed`` mode on the
+    rounded pairs), 64 pairs of every tile a step; the pairs up to each
+    tile's deepest n_splats (``reached``). Also the pair-pixels that the
+    kernels' warps step through, a warp going on to its pixels' largest
+    n_splats: K1's warps hold K1_WARP_PIXELS pixels of a tile
+    (``fwd_warp_pair_pixels``), K2's K2_WARP_PIXELS
+    (``bwd_warp_pair_pixels``)."""
     from gsplat_tpu_torch.kernels.rasterize import (
-        ALPHA_CUTOFF, ALPHA_MAX, _pixel_centres, _tile_lists)
+        ALPHA_CUTOFF, ALPHA_MAX, _pair_attrs, _pixel_centres, _tile_lists, _tile_origins)
 
     attrs, gid, start, count = raster
     nspl = out[:, 4, :, None]  # (T, PIX, 1)
     lists, valid = _tile_lists(gid, start, count)
-    px, py = _pixel_centres(start.shape[0], num_tiles_x, TILE, attrs.device)
+    num_tiles = start.shape[0]
+    px, py = _pixel_centres(num_tiles, num_tiles_x, TILE, attrs.device, packed)
+    origins = _tile_origins(num_tiles, num_tiles_x, TILE, attrs.device)
     passing = 0
     with torch.no_grad():
         for c0 in range(0, min(int(nspl.max()), lists.shape[1]), 64):
-            a = attrs[lists[:, c0:c0 + 64]][:, None]  # (T, 1, K, 9)
+            a = _pair_attrs(attrs, lists[:, c0:c0 + 64], origins, packed)  # (T, 1, K, 9)
             dx, dy = a[..., 0] - px, a[..., 1] - py  # (T, PIX, K)
             power = torch.clamp(-0.5 * (a[..., 2] * dx * dx + 2.0 * a[..., 3] * dx * dy
                                         + a[..., 4] * dy * dy), max=0.0)
@@ -473,15 +535,15 @@ def pair_pixel_counts(raster, out, num_tiles_x: int) -> dict:
     n = out[:, 4].double()  # (T, PIX)
     warp_steps = {w: int(n.view(n.shape[0], -1, w).amax(dim=2).sum().item()) * w
                   for w in (K1_WARP_PIXELS, K2_WARP_PIXELS)}
-    return dict(pair_pixels=int(n.sum().item()), passing=passing,
+    reached = int(torch.minimum(n.amax(dim=1), count.double()).sum().item())
+    return dict(pair_pixels=int(n.sum().item()), passing=passing, reached=reached,
                 fwd_warp_pair_pixels=warp_steps[K1_WARP_PIXELS],
                 bwd_warp_pair_pixels=warp_steps[K2_WARP_PIXELS])
 
 
 def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     """Each kernel vs its plain version on the card; raises on disagreement."""
-    from gsplat_tpu_torch.kernels import expand, rasterize, segsum, sort
-    from gsplat_tpu_torch.ops.render import tiles_to_image
+    from gsplat_tpu_torch.kernels import expand, segsum, sort
 
     inp = path_inputs(params, cm, st)
     res = {}
@@ -533,8 +595,26 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         library_ms=cuda_ms(lambda: torch.argsort(perm), timing_iters),
         **kernel_bound("inverse_permutation", pairs=perm.shape[0]),
     )
-    # K1: image PSNR >= 60 dB, n_splats equal on >= 99.9 % of pixels.
-    kw = dict(num_tiles_x=st.num_tiles_x)
+    # K1 in both modes: image PSNR >= 60 dB, n_splats equal on >= 99.9 % of
+    # pixels, a rerun bit-identical.
+    for packed in (False, True):
+        res["rasterize_forward" + ("/packed" if packed else "")] = compare_forward(
+            inp, st, timing_iters, packed)
+    log(f"  rows {inp['num_rows']}, pairs {inp['num_pairs']}, "
+        f"sort key bits {key_bits}")
+    log_times(res)
+    return res
+
+
+def compare_forward(inp: dict, st, timing_iters: int, packed: bool) -> dict:
+    """K1 against its plain version in one mode (``packed``: the pairs
+    rounded as the reference's packed stream carries them); raises on
+    disagreement. Returns its times, error and bound."""
+    from gsplat_tpu_torch.kernels import rasterize
+    from gsplat_tpu_torch.ops.render import tiles_to_image
+
+    kw = dict(num_tiles_x=st.num_tiles_x, packed=packed)
+    name = "rasterize_forward" + (" (packed)" if packed else "")
     got = rasterize.rasterize_forward(*inp["raster"], BG, **kw)
     again = rasterize.rasterize_forward(*inp["raster"], BG, **kw)
     ref = rasterize.rasterize_forward_plain(*inp["raster"], BG, **kw)
@@ -543,30 +623,26 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     img_psnr = psnr(to_img(got), to_img(ref))
     same_n = (got[:, 4] == ref[:, 4]).double().mean().item()
     err = (got[:, :3] - ref[:, :3]).abs().max().item()
-    log(f"  rasterize_forward: image PSNR vs plain {img_psnr:.2f} dB, "
+    log(f"  {name}: image PSNR vs plain {img_psnr:.2f} dB, "
         f"n_splats equal on {100 * same_n:.4f} % of pixels, "
         f"max |T_final diff| {(got[:, 3] - ref[:, 3]).abs().max().item():.3g}, "
         f"rerun bit-identical {torch.equal(got, again)}")
     if not (img_psnr >= 60.0 and same_n >= 0.999 and math.isfinite(err)
             and torch.equal(got, again)):
-        raise AssertionError("rasterize_forward disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with its plain version")
     attrs, gid, start, _ = inp["raster"]
-    work = pair_pixel_counts(inp["raster"], got, st.num_tiles_x)
+    work = pair_pixel_counts(inp["raster"], got, st.num_tiles_x, packed)
     log_work(work)
-    res["rasterize_forward"] = dict(
+    return dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: rasterize.rasterize_forward(*inp["raster"], BG, **kw),
                    timing_iters),
         plain_ms=cuda_ms(lambda: rasterize.rasterize_forward_plain(
             *inp["raster"], BG, **kw), max(1, timing_iters // 4)),
         library_ms=None,
-        **kernel_bound("rasterize_forward", gaussians=attrs.shape[0],
+        **kernel_bound("rasterize_forward", packed=packed, gaussians=attrs.shape[0],
                        pairs=gid.shape[0], tiles=start.shape[0], **work),
     )
-    log(f"  rows {inp['num_rows']}, pairs {inp['num_pairs']}, "
-        f"sort key bits {key_bits}")
-    log_times(res)
-    return res
 
 
 def log_work(work: dict) -> None:
@@ -606,14 +682,15 @@ def check_small_scene_against_cpu(dev) -> None:
         raise AssertionError("card render disagrees with the CPU path")
 
 
-def backward_inputs(inp: dict, st, seed: int = 0):
+def backward_inputs(inp: dict, st, seed: int = 0, packed: bool = False):
     """The backward rasterizer's inputs at the shapes train_step gives it
-    (from ``path_inputs``), with a random image cotangent; and the
-    attribute table's row count."""
+    (from ``path_inputs``; the forward's output in mode ``packed``), with a
+    random image cotangent; and the attribute table's row count."""
     from gsplat_tpu_torch.kernels.rasterize import rasterize_forward
 
     attrs, gid, start, count = inp["raster"]
-    out = rasterize_forward(attrs, gid, start, count, BG, num_tiles_x=st.num_tiles_x)
+    out = rasterize_forward(attrs, gid, start, count, BG, num_tiles_x=st.num_tiles_x,
+                            packed=packed)
     gen = torch.Generator(device=attrs.device).manual_seed(seed)
     d_tiles = torch.randn((start.shape[0], 3, st.tile * st.tile), generator=gen,
                           device=attrs.device)
@@ -625,14 +702,53 @@ def bits_of(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
+def word_steps(words: torch.Tensor) -> torch.Tensor:
+    """(P, 9) float32: the rounding step of each value of (P, 4) packed
+    gradient words: a bf16 ulp at the value (from its exponent bits; 2^-133
+    for zeros) for the six bf16 halves, one code 2^(e - 31) of the e5s9
+    triple for the colour gradients."""
+    from gsplat_tpu_torch.kernels import packing
+
+    vals = packing.unpack_grad_rows(words)[:, :6]
+    exp = (bits_of(vals) >> 23) & 0xFF
+    bf16 = torch.ldexp(torch.ones_like(vals), torch.clamp(exp, min=1) - 127 - 7)
+    e = ((words[:, 3:4].to(torch.int64) & 0xFFFFFFFF) >> 27).to(torch.float32)
+    code = torch.ldexp(torch.ones_like(e), (e - packing.GRAD_E5_BIAS - 7).to(torch.int32))
+    return torch.cat([bf16, code.expand(-1, 3)], dim=1)
+
+
 def compare_backward(params, cm, st, timing_iters: int) -> dict:
-    """The backward kernels vs their plain versions on the card; raises on
-    disagreement."""
-    from gsplat_tpu_torch.kernels import rasterize, segsum, sort
+    """The backward kernels vs their plain versions on the card, in both
+    modes; raises on disagreement."""
+    from gsplat_tpu_torch.kernels import segsum, sort
 
     inp = path_inputs(params, cm, st)
-    args, n = backward_inputs(inp, st)
-    kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y)
+    res = {}
+    for packed in (False, True):
+        res.update(compare_backward_mode(inp, st, timing_iters, packed))
+    # Binning's scatter that makes pair_slot from the tile sort's permutation.
+    perm = sort.radix_sort_plain(*inp["sort"])[1]
+    if not torch.equal(segsum.inverse_permutation(perm), inp["runs"][0]):
+        raise AssertionError("pair_slot is not the inverse of the tile sort's permutation")
+    r = res["segment_sum"]
+    r["scatter_ms"] = cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters)
+    log(f"  pairs {perm.shape[0]}, Gaussians {inp['raster'][0].shape[0]}; segment_sum + "
+        f"pair_slot scatter {r['ms'] + r['scatter_ms']:.4f} ms ({r['ms']:.4f} + "
+        f"{r['scatter_ms']:.4f}) vs index_add_ {r['library_ms']:.4f} ms")
+    log_times(res)
+    return res
+
+
+def compare_backward_mode(inp: dict, st, timing_iters: int, packed: bool) -> dict:
+    """K2 and K4 against their plain versions in one mode. Packed: K2 reads
+    the rounded pairs and writes words, which must be the port's pack of
+    K2's own float32 rows on the same inputs, bit for bit; K4 sums the
+    words."""
+    from gsplat_tpu_torch.kernels import packing, rasterize, segsum
+
+    args, n = backward_inputs(inp, st, packed=packed)
+    kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, packed=packed)
+    sfx, label = ("/packed", " (packed)") if packed else ("", "")
     res = {}
     # K2. The 256-pixel sums run in another order (registers and warp
     # shuffles vs a tensor sum) and T is replayed by a reciprocal instead of
@@ -645,21 +761,44 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
     err = (rows - ref).abs()
     scale = ref.abs().amax(dim=1, keepdim=True)
     worst = (err / (scale + 1e-6)).max().item()
-    log(f"  rasterize_backward: max |err| {err.max().item():.3g}, worst row-relative "
-        f"{worst:.3g}, rerun bit-identical {torch.equal(rows, again)}")
+    log(f"  rasterize_backward{label}: float32 rows max |err| {err.max().item():.3g}, worst "
+        f"row-relative {worst:.3g}, rerun bit-identical {torch.equal(rows, again)}")
     if not (bool((err <= 1e-3 * scale + 1e-6).all()) and torch.equal(rows, again)
             and bool(torch.isfinite(rows).all())):
-        raise AssertionError("rasterize_backward disagrees with its plain version")
+        raise AssertionError(f"rasterize_backward{label} disagrees with its plain version")
+    out_rows = rows
+    if packed:
+        # The words: the port's pack of K2's own float32 rows, bit for bit;
+        # unpacked, within the rows' bound of the plain version's words plus
+        # one rounding step of the format (near-equal sums can round to
+        # neighbouring bf16 values or e5s9 codes).
+        words = rasterize.rasterize_backward(*args, BG, pack_grads=True, **kw)
+        words_again = rasterize.rasterize_backward(*args, BG, pack_grads=True, **kw)
+        ref_words = rasterize.rasterize_backward_plain(*args, BG, pack_grads=True, **kw)
+        own = torch.equal(words, packing.pack_grad_rows(rows))
+        got_v, ref_v = packing.unpack_grad_rows(words), packing.unpack_grad_rows(ref_words)
+        err = (got_v - ref_v).abs()
+        step = torch.maximum(word_steps(words), word_steps(ref_words))
+        within = bool((err <= 1e-3 * scale + 1e-6 + step).all())
+        log(f"  rasterize_backward{label}: words bit-equal to the pack of its float32 rows "
+            f"{own}, rerun bit-identical {torch.equal(words, words_again)}; unpacked vs the "
+            f"plain version's max |err| {err.max().item():.3g}, within 1e-3 of the row's "
+            f"largest |value| plus one step {within}; words equal to the plain version's "
+            f"{100 * (words == ref_words).all(dim=1).double().mean().item():.4f} % of rows")
+        if not (own and within and torch.equal(words, words_again)):
+            raise AssertionError("rasterize_backward's packed words disagree")
+        out_rows = words
     gid, start = args[1], args[2]
-    work = pair_pixel_counts(args[:4], args[4], st.num_tiles_x)
+    work = pair_pixel_counts(args[:4], args[4], st.num_tiles_x, packed)
     log_work(work)
-    res["rasterize_backward"] = dict(
+    res["rasterize_backward" + sfx] = dict(
         max_abs_err=err.max().item(),
-        ms=cuda_ms(lambda: rasterize.rasterize_backward(*args, BG, **kw), timing_iters),
-        plain_ms=cuda_ms(lambda: rasterize.rasterize_backward_plain(*args, BG, **kw),
-                         max(1, timing_iters // 4)),
+        ms=cuda_ms(lambda: rasterize.rasterize_backward(*args, BG, pack_grads=packed, **kw),
+                   timing_iters),
+        plain_ms=cuda_ms(lambda: rasterize.rasterize_backward_plain(
+            *args, BG, pack_grads=packed, **kw), max(1, timing_iters // 4)),
         library_ms=None,
-        **kernel_bound("rasterize_backward", gaussians=n, pairs=gid.shape[0],
+        **kernel_bound("rasterize_backward", packed=packed, gaussians=n, pairs=gid.shape[0],
                        tiles=start.shape[0], **work),
     )
     # K4 over binning's runs at rtol 1e-5; index_add_ on the card adds with
@@ -667,38 +806,31 @@ def compare_backward(params, cm, st, timing_iters: int) -> dict:
     # column's largest |value|. On the CPU index_add_ adds in index order,
     # the kernel's order.
     runs = inp["runs"]
-    pair_slot, pair_start = runs
-    sums = segsum.segment_sum(rows, *runs, n)
-    again = segsum.segment_sum(rows, *runs, n)
-    ref = segsum.segment_sum_plain(rows, *runs, n)
-    on_cpu = segsum.segment_sum_plain(rows.cpu(), *(t.cpu() for t in runs), n)
+    pair_start = runs[1]
+    sums = segsum.segment_sum(out_rows, *runs, n)
+    again = segsum.segment_sum(out_rows, *runs, n)
+    ref = segsum.segment_sum_plain(out_rows, *runs, n)
+    on_cpu = segsum.segment_sum_plain(out_rows.cpu(), *(t.cpu() for t in runs), n)
     err = (sums - ref).abs()
     longest = int((pair_start[1:] - pair_start[:-1]).max())
-    log(f"  segment_sum: max |err| {err.max().item():.3g}, rerun bit-identical "
+    log(f"  segment_sum{label}: max |err| {err.max().item():.3g}, rerun bit-identical "
         f"{torch.equal(sums, again)}, bit-equal to the plain version on the CPU "
         f"{torch.equal(sums.cpu(), on_cpu)}; longest run {longest} pairs")
     if not (bool((err <= 1e-5 * ref.abs() + 1e-5 * ref.abs().amax(dim=0)).all())
             and torch.equal(sums, again)):
-        raise AssertionError("segment_sum disagrees with its plain version")
-    # Binning's scatter that makes pair_slot from the tile sort's permutation.
-    perm = sort.radix_sort_plain(*inp["sort"])[1]
-    if not torch.equal(segsum.inverse_permutation(perm), pair_slot):
-        raise AssertionError("pair_slot is not the inverse of the tile sort's permutation")
+        raise AssertionError(f"segment_sum{label} disagrees with its plain version")
     gid64 = gid.long()
-    res["segment_sum"] = dict(
+    # One PyTorch call computes the float32 rows' sums; none unpacks words.
+    library = None if packed else cuda_ms(
+        lambda: torch.zeros((n, 9), device=rows.device).index_add_(0, gid64, rows),
+        timing_iters)
+    res["segment_sum" + sfx] = dict(
         max_abs_err=err.max().item(), longest_run=longest,
-        ms=cuda_ms(lambda: segsum.segment_sum(rows, *runs, n), timing_iters),
-        scatter_ms=cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters),
-        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(rows, *runs, n), timing_iters),
-        library_ms=cuda_ms(lambda: torch.zeros((n, 9), device=rows.device).index_add_(
-            0, gid64, rows), timing_iters),
-        **kernel_bound("segment_sum", gaussians=n, pairs=gid.shape[0]),
+        ms=cuda_ms(lambda: segsum.segment_sum(out_rows, *runs, n), timing_iters),
+        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(out_rows, *runs, n), timing_iters),
+        library_ms=library,
+        **kernel_bound("segment_sum", packed=packed, gaussians=n, pairs=gid.shape[0]),
     )
-    r = res["segment_sum"]
-    log(f"  pairs {gid.shape[0]}, Gaussians {n}; segment_sum + pair_slot scatter "
-        f"{r['ms'] + r['scatter_ms']:.4f} ms ({r['ms']:.4f} + {r['scatter_ms']:.4f}) vs "
-        f"index_add_ {r['library_ms']:.4f} ms")
-    log_times(res)
     return res
 
 
@@ -892,12 +1024,12 @@ def port_kernel_names() -> set:
 
 
 def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float,
-                  steps: int = PROFILED_STEPS):
+                  steps: int = TRAIN_PROFILE_STEPS, label: str = "", kernels: bool = True):
     """torch.profiler over ``steps`` more train steps: device ms and
     launches per step, the busy share (device ms over ``wall_ms``, the
-    median ms/step of the timed steps), the port's kernels, the other
-    kernels together and those that take the most device time. Returns the
-    state."""
+    median ms/step of the timed steps), the port's kernels and the other
+    kernels together and, with ``kernels``, those that take the most device
+    time. Returns the state and the device ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -913,61 +1045,123 @@ def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float,
     names = port_kernel_names()
     ours = [r for r in rows if any(k in r[0] for k in names)]
     ours_ms = sum(ms for _, ms, _ in ours)
-    log(f"  device profile of {steps} steps: {device:.3f} ms/step, busy "
+    log(f"  device profile of {steps} steps{label}: {device:.3f} ms/step, busy "
         f"{100 * device / wall_ms:.1f} % of {wall_ms:.3f} ms, "
         f"{sum(n for *_, n in rows):.1f} launches/step; port kernels "
         f"{ours_ms:.3f} ms/step, other kernels {device - ours_ms:.3f} ms/step")
     others = [r for r in rows if r not in ours][:PROFILE_TOP]
-    for i, (key, ms, n) in enumerate(ours + others):
+    for i, (key, ms, n) in enumerate(ours + others if kernels else []):
         if i == len(ours):
             log(f"  other kernels, top {PROFILE_TOP}:")
         log(f"    {ms:8.3f} ms {n:6.1f}x  {key[:96]}")
-    return state
+    return state, device
+
+
+def mode_context(mode: str):
+    """The package's ``exact_mode()`` for "exact", nothing for another
+    mode ("packed", the default, or the one mode of an earlier checkout)."""
+    if mode != "exact":
+        return contextlib.nullcontext()
+    from gsplat_tpu_torch.train.step import exact_mode
+
+    return exact_mode()
+
+
+def profile_modes(runs: dict, cams, gts, st) -> dict:
+    """Device profiles of TRAIN_PROFILE_STEPS more train steps of each
+    mode's run, in windows of half as many taken in turns (A B B A), so
+    that a drift of the card's clocks during the run falls on both modes
+    alike (every kernel, glue included, has run 1.5 % faster in one window
+    than in the next: PERF.md); the kernel lists of each mode's first
+    window. ``runs`` maps a mode to [state, next iteration, median ms/step
+    of its timed steps] and is updated; returns each mode's device ms per
+    step, the mean of its windows."""
+    modes = list(runs)
+    steps = TRAIN_PROFILE_STEPS // 2
+    device = {m: [] for m in modes}
+    for mode in modes + modes[::-1]:
+        run = runs[mode]
+        with mode_context(mode):
+            run[0], ms = profile_steps(run[0], cams, gts, st, run[1], run[2], steps,
+                                       label=f", {mode} mode", kernels=not device[mode])
+        run[1] += steps
+        device[mode].append(ms)
+    return {m: statistics.mean(v) for m, v in device.items()}
 
 
 def train_slice(cams, st, dev):
-    """The slice: train a perturbed 1M scene on the 4 views rendered from
-    the scene itself, then profile a few more steps. Returns the launches
-    of the training run and the trained parameters."""
+    """[9] The slice: train a perturbed 1M scene on the 4 views rendered
+    from the scene itself, first in the packed mode (the default: the main
+    path), then from the same start in exact mode (a path of its own);
+    then profile TRAIN_PROFILE_STEPS more steps of each (``profile_modes``).
+    Returns per mode the launches of its training run, the losses, the
+    median ms/step and the device ms/step; and the packed run's trained
+    parameters."""
     from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.train.state import init_state
     from gsplat_tpu_torch.train.step import compute_loss_and_grads
 
     gts, state = train_scene(cams, st, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    state, losses, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS))
-    torch.cuda.synchronize()
-    launches = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    half = len(cams)
-    first, second = statistics.mean(losses[:half]), statistics.mean(losses[half:])
-    median = statistics.median(times[1:])
-    log(f"  median {median:.3f} ms/step over steps 1-{TRAIN_STEPS - 1}; mean loss "
-        f"pass 1 {first:.6f}, pass 2 {second:.6f}; peak allocated {peak:.0f} MiB; "
-        f"launches {launches}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"a loss is not finite: {losses}")
-    if not second < first:
-        raise AssertionError("the second pass over the views did not lower the loss")
-    # [9] takes no density step, so the morton site stays at 0.
-    if min(v for k, v in launches.items() if k != "radix_sort/morton") <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: {launches}")
-    # One train step sorts once: the tile sort in the forward. The backward
-    # sums over binning's runs and sorts nothing.
-    if not launches["radix_sort/tile"] == launches["radix_sort"] == TRAIN_STEPS:
-        raise AssertionError(f"radix_sort did not launch once per step, at the tile "
-                             f"sort: {launches}")
-    runs = [compute_loss_and_grads(state.params, cams[0].view, cams[0].proj,
-                                   cams[0].campos, gts[0], BG, st) for _ in range(2)]
-    (_, _, _, _, g_a, uv_a), (_, _, _, _, g_b, uv_b) = runs
-    same = all(torch.equal(bits_of(g_a[k]), bits_of(g_b[k])) for k in g_a)
-    if not (same and torch.equal(bits_of(uv_a), bits_of(uv_b))):
-        raise AssertionError("two gradient calls on the same state differ")
-    log("  gradients of two calls on the same state are bit-identical")
-    del runs, g_a, g_b, uv_a, uv_b
-    state = profile_steps(state, cams, gts, st, TRAIN_STEPS, median)
-    return launches, state.params
+    out, runs = {}, {}
+    for mode in ("packed", "exact"):
+        if state is None:
+            state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
+        log(f"  {mode} mode:")
+        with mode_context(mode):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            state, losses, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS))
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            half = len(cams)
+            first, second = statistics.mean(losses[:half]), statistics.mean(losses[half:])
+            median = statistics.median(times[1:])
+            log(f"  median {median:.3f} ms/step over steps 1-{TRAIN_STEPS - 1}; mean loss "
+                f"pass 1 {first:.6f}, pass 2 {second:.6f}; peak allocated {peak:.0f} MiB; "
+                f"launches {launches}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"a loss is not finite: {losses}")
+            if not second < first:
+                raise AssertionError("the second pass over the views did not lower the loss")
+            # [9] takes no density step, so the morton site stays at 0. The
+            # packed run launches only packed rasterizers and segment sums,
+            # the exact run none.
+            packed_keys = [k for k in launches if k.endswith("/packed")]
+            want = {k: launches[k.split("/")[0]] if mode == "packed" else 0 for k in packed_keys}
+            base = {k: v for k, v in launches.items()
+                    if k != "radix_sort/morton" and k not in packed_keys}
+            if min(base.values()) <= 0 or {k: launches[k] for k in packed_keys} != want:
+                raise AssertionError(f"a kernel of the {mode} path never launched, or in the "
+                                     f"other mode: {launches}")
+            # One train step sorts once: the tile sort in the forward. The
+            # backward sums over binning's runs and sorts nothing.
+            if not launches["radix_sort/tile"] == launches["radix_sort"] == TRAIN_STEPS:
+                raise AssertionError(f"radix_sort did not launch once per step, at the tile "
+                                     f"sort: {launches}")
+            calls = [compute_loss_and_grads(state.params, cams[0].view, cams[0].proj,
+                                            cams[0].campos, gts[0], BG, st) for _ in range(2)]
+            (_, _, _, _, g_a, uv_a), (_, _, _, _, g_b, uv_b) = calls
+            same = all(torch.equal(bits_of(g_a[k]), bits_of(g_b[k])) for k in g_a)
+            if not (same and torch.equal(bits_of(uv_a), bits_of(uv_b))):
+                raise AssertionError("two gradient calls on the same state differ")
+            log("  gradients of two calls on the same state are bit-identical")
+            del calls, g_a, g_b, uv_a, uv_b
+        out[mode] = dict(launches=launches, losses=losses, median=median)
+        runs[mode] = [state, TRAIN_STEPS, median]
+        state = None
+    for mode, ms in profile_modes(runs, cams, gts, st).items():
+        out[mode]["device_ms"] = ms
+    trained = runs["packed"][0].params
+    del runs
+    pk, ex = out["packed"], out["exact"]
+    rel = max(abs(a / b - 1) for a, b in zip(pk["losses"], ex["losses"]))
+    log(f"  packed vs exact, same start and views: losses within {rel:.3g} relative; "
+        f"device {pk['device_ms']:.3f} vs {ex['device_ms']:.3f} ms/step "
+        f"({pk['device_ms'] - ex['device_ms']:+.3f}), median {pk['median']:.3f} vs "
+        f"{ex['median']:.3f} ms/step")
+    return out, trained
 
 
 def trainer_cameras(width=WIDTH, height=HEIGHT, n=TRAINER_VIEWS):
@@ -1583,44 +1777,47 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
     del state
 
     # tp at a whole number of tile rows a strip: the single step's image,
-    # loss and pairs.
+    # loss and pairs. In exact mode: the packed mode rounds v - y_off before
+    # its tile offset (as the reference does), so its strips need not give
+    # the frame's bits.
     single, tp = fresh(), fresh()
-    loss_s, img_s, _, tab_s, _, _ = compute_loss_and_grads(
-        single.params, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, st_even)
-    r = on_path(lambda: tp_loss_and_grads(tp.params, cm_even.view, cm_even.proj,
-                                          cm_even.campos, gt_even, BG, st_even))
-    img_err = (r.image - img_s).abs().max().item()
-    say(f"tp at {width}x{even_height}: loss {float(r.loss)!r} vs single {float(loss_s)!r}, "
-        f"image max |diff| {img_err!r}, pairs {r.num_pairs} vs {tab_s.num_pairs}")
-    check(float(r.loss) == float(loss_s) and img_err == 0.0
-          and r.num_pairs == tab_s.num_pairs, "tp image, loss and pairs")
-    del r, img_s
-    train_step(single, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, 0, st_even)
-    on_path(lambda: tp_train_step(tp, cm_even.view, cm_even.proj, cm_even.campos, gt_even,
-                                  BG, 0, st_even))
-    a, b = state_tensors(single), state_tensors(tp)
-    err = max((a[k] - b[k]).abs().nan_to_num(0.0).max().item() for k in a
-              if k.startswith("params."))
-    say(f"tp at {width}x{even_height}, one step: params max |tp - single| {err:.3g}")
-    check(err <= 2e-5, "tp params after one step")
-    del single, tp, a, b
+    with mode_context("exact"):
+        loss_s, img_s, _, tab_s, _, _ = compute_loss_and_grads(
+            single.params, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, st_even)
+        r = on_path(lambda: tp_loss_and_grads(tp.params, cm_even.view, cm_even.proj,
+                                              cm_even.campos, gt_even, BG, st_even))
+        img_err = (r.image - img_s).abs().max().item()
+        say(f"tp at {width}x{even_height}: loss {float(r.loss)!r} vs single {float(loss_s)!r}, "
+            f"image max |diff| {img_err!r}, pairs {r.num_pairs} vs {tab_s.num_pairs}")
+        check(float(r.loss) == float(loss_s) and img_err == 0.0
+              and r.num_pairs == tab_s.num_pairs, "tp image, loss and pairs")
+        del r, img_s
+        train_step(single, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, 0, st_even)
+        on_path(lambda: tp_train_step(tp, cm_even.view, cm_even.proj, cm_even.campos, gt_even,
+                                      BG, 0, st_even))
+        a, b = state_tensors(single), state_tensors(tp)
+        err = max((a[k] - b[k]).abs().nan_to_num(0.0).max().item() for k in a
+                  if k.startswith("params."))
+        say(f"tp at {width}x{even_height}, one step: params max |tp - single| {err:.3g}")
+        check(err <= 2e-5, "tp params after one step")
+        del single, tp, a, b
 
-    # tp at the padded height (R10): the same loss; the uv gradient's v
-    # column scaled by H / H_pad.
-    state = fresh()
-    loss_s, _, _, _, _, uv_s = compute_loss_and_grads(state.params, cm.view, cm.proj,
-                                                      cm.campos, gts[0], BG, st)
-    r = on_path(lambda: tp_loss_and_grads(state.params, cm.view, cm.proj, cm.campos, gts[0],
-                                          BG, st))
-    # The strips' sums run in another order: a Gaussian whose rows cancel
-    # gets 1e-6 of the column's largest |value| besides rtol 1e-5.
-    ratio = height / (st.num_tiles_y * TILE)
-    ok_v, rel_v, top_v = rel_close(r.g_uv[:, 1], uv_s[:, 1] * ratio, 1e-5, 1e-6)
-    ok_u, rel_u, top_u = rel_close(r.g_uv[:, 0], uv_s[:, 0], 1e-5, 1e-6)
-    say(f"tp at {width}x{height} (R10): loss {float(r.loss)!r} vs {float(loss_s)!r}; g_uv "
-        f"v column vs single x {height}/{st.num_tiles_y * TILE}: worst |diff| / |value| "
-        f"{rel_v:.3g}, / the column's max {top_v:.3g}; u column {rel_u:.3g}, {top_u:.3g}")
-    check(float(r.loss) == float(loss_s) and ok_v and ok_u, "tp R10")
+        # tp at the padded height (R10): the same loss; the uv gradient's v
+        # column scaled by H / H_pad.
+        state = fresh()
+        loss_s, _, _, _, _, uv_s = compute_loss_and_grads(state.params, cm.view, cm.proj,
+                                                          cm.campos, gts[0], BG, st)
+        r = on_path(lambda: tp_loss_and_grads(state.params, cm.view, cm.proj, cm.campos, gts[0],
+                                              BG, st))
+        # The strips' sums run in another order: a Gaussian whose rows cancel
+        # gets 1e-6 of the column's largest |value| besides rtol 1e-5.
+        ratio = height / (st.num_tiles_y * TILE)
+        ok_v, rel_v, top_v = rel_close(r.g_uv[:, 1], uv_s[:, 1] * ratio, 1e-5, 1e-6)
+        ok_u, rel_u, top_u = rel_close(r.g_uv[:, 0], uv_s[:, 0], 1e-5, 1e-6)
+        say(f"tp at {width}x{height} (R10): loss {float(r.loss)!r} vs {float(loss_s)!r}; g_uv "
+            f"v column vs single x {height}/{st.num_tiles_y * TILE}: worst |diff| / |value| "
+            f"{rel_v:.3g}, / the column's max {top_v:.3g}; u column {rel_u:.3g}, {top_u:.3g}")
+        check(float(r.loss) == float(loss_s) and ok_v and ok_u, "tp R10")
     del r, uv_s
     watch_tp, watch_1 = Stopwatch(dev), Stopwatch(dev)
     with CollectiveClock() as clock:
@@ -1694,20 +1891,109 @@ def parallel_slice(dev, n: int = 1_000_000, width: int = WIDTH, height: int = HE
 
 def train_profile(dev) -> None:
     """``--train-profile``: [9]'s train steps and a device profile of
-    TRAIN_PROFILE_STEPS more alone, without its checks, with whatever
-    ``gsplat_tpu_torch`` is imported, so that one copy of this script can
-    profile several checkouts (see the module docstring)."""
+    TRAIN_PROFILE_STEPS more alone, in each mode from the same start,
+    without its checks, with whatever ``gsplat_tpu_torch`` is imported, so
+    that one copy of this script can profile several checkouts (see the
+    module docstring). A checkout from before the packed mode profiles its
+    one (exact) mode. The profiles take turns, so both modes' states stay
+    in memory: the wall medians printed are not for comparing checkouts
+    (``--wall`` is)."""
+    import inspect
+
     from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.ops.binning import build_tile_tables
+    from gsplat_tpu_torch.train.state import init_state
 
     _build.build()
     cams = views()
     st = statics(cams[0])
     gts, state = train_scene(cams, st, dev)
-    state, _, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS), quiet=True)
-    median = statistics.median(times[1:])
-    log(f"[9] train_step, 1M Gaussians: median {median:.3f} ms/step over steps 1-"
-        f"{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)})")
-    profile_steps(state, cams, gts, st, TRAIN_STEPS, median, TRAIN_PROFILE_STEPS)
+    two = "bf16_colors" in inspect.signature(build_tile_tables).parameters
+    runs = {}
+    for mode in ("packed", "exact") if two else ("its only",):
+        if state is None:
+            state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
+        with mode_context(mode):
+            state, _, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS), quiet=True)
+        median = statistics.median(times[1:])
+        log(f"[9] train_step, 1M Gaussians, {mode} mode: median {median:.3f} ms/step over "
+            f"steps 1-{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)})")
+        runs[mode], state = [state, TRAIN_STEPS, median], None
+    device = profile_modes(runs, cams, gts, st)
+    log("[9] device ms/step, the mean of each mode's windows: " + ", ".join(
+        f"{mode} {ms:.3f}" for mode, ms in device.items()))
+
+
+def wall_steps(dev) -> None:
+    """``--wall``: [9]'s train steps in each mode from the same start, the
+    first mode's state freed before the second's, without checks: the
+    median wall ms and process CPU ms of WALL_STEPS steps after TRAIN_STEPS
+    to warm up, each step between two device synchronizations, with
+    whatever ``gsplat_tpu_torch`` is imported (see the module docstring)."""
+    import inspect
+
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.ops.binning import build_tile_tables
+    from gsplat_tpu_torch.train.state import init_state
+    from gsplat_tpu_torch.train.step import train_step
+
+    _build.build()
+    cams = views()
+    st = statics(cams[0])
+    gts, state = train_scene(cams, st, dev)
+    two = "bf16_colors" in inspect.signature(build_tile_tables).parameters
+    for mode in ("packed", "exact") if two else ("its only",):
+        if state is None:
+            torch.cuda.empty_cache()
+            state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
+        wall = []
+        with mode_context(mode):
+            state, _, _ = run_steps(state, cams, gts, st, range(TRAIN_STEPS), quiet=True)
+            # The process clock ticks in whole scheduler ticks (10 ms on some
+            # hosts), so CPU time is read over all the steps.
+            cpu = time.process_time()
+            for it in range(TRAIN_STEPS, TRAIN_STEPS + WALL_STEPS):
+                cm, gt = cams[it % len(cams)], gts[it % len(cams)]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, _ = train_step(state, cm.view, cm.proj, cm.campos, gt, BG, it, st)
+                torch.cuda.synchronize()
+                wall.append(1e3 * (time.perf_counter() - t))
+            cpu = 1e3 * (time.process_time() - cpu) / WALL_STEPS
+        log(f"[wall] {mode} mode: median {statistics.median(wall):.3f} ms/step wall, "
+            f"{cpu:.3f} ms/step process CPU over {WALL_STEPS} steps; "
+            f"wall {', '.join(f'{x:.2f}' for x in wall)}")
+        state = None
+
+
+def exact_bits(dev, n: int = 1_000_000) -> None:
+    """``--exact-bits``: the sha256 of one exact-mode gradient call of [9]
+    (its start, view 0: the target, image, loss, uv gradient and every
+    gradient), with whatever ``gsplat_tpu_torch`` is imported, so that two
+    checkouts can be held bit-equal in exact mode (run as
+    ``--train-profile``). A checkout from before the packed mode has only
+    the exact mode."""
+    import hashlib
+    import inspect
+
+    from gsplat_tpu_torch.ops.binning import build_tile_tables
+    from gsplat_tpu_torch.train import step
+
+    cm = views()[0]
+    st = statics(cm)
+    two = "bf16_colors" in inspect.signature(build_tile_tables).parameters
+    with mode_context("exact" if two else "its only"):
+        truth = scene_params(n, seed=0, device=dev)
+        gt, _ = step.render_image(truth, cm.view, cm.proj, cm.campos, BG, st)
+        del truth
+        params = scene_params(n, seed=0, device=dev, perturb_seed=1)
+        loss, image, _, tables, grads, g_uv = step.compute_loss_and_grads(
+            params, cm.view, cm.proj, cm.campos, gt, BG, st)
+    digest = hashlib.sha256()
+    for t in [gt, image, loss.reshape(1), g_uv] + [grads[k] for k in sorted(grads)]:
+        digest.update(t.detach().contiguous().cpu().numpy().tobytes())
+    log(f"[exact bits] {step.__file__}: loss {float(loss)!r}, pairs {tables.num_pairs}, "
+        f"sha256 {digest.hexdigest()}")
 
 
 def main() -> int:
@@ -1730,6 +2016,12 @@ def main() -> int:
     if sys.argv[1:] == ["--train-profile"]:
         train_profile(dev)
         return 0
+    if sys.argv[1:] == ["--wall"]:
+        wall_steps(dev)
+        return 0
+    if sys.argv[1:] == ["--exact-bits"]:
+        exact_bits(dev)
+        return 0
     if sys.argv[1:] == ["--trainer"]:
         log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
         trainer_slice(dev)
@@ -1747,18 +2039,20 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("    " + line.strip())
-    k1 = "rasterize_forward_kernel"
-    sass = kernel_sass(lib._name, k1)
-    log(f"    {k1}: {ptxas_usage(_build.build_log, k1)}")
-    log(f"    expf in {k1}: {exp_instructions(sass)}")
-    loop = exp_loop_counts(sass)
-    if loop is None:
-        log(f"    {k1}: no loop around MUFU.EX2 found in the SASS")
-    else:
-        per = max(loop["exp"], 1)
-        log(f"    {k1} pair loop: {loop['instructions']} SASS instructions, "
-            f"{loop['lds']} LDS, {loop['exp']} MUFU.EX2 (pair-pixels); per pair-pixel "
-            f"{loop['instructions'] / per:.1f} instructions, {loop['lds'] / per:.2f} LDS")
+    # K1's two instantiations (mangled rasterize_forward_kernel<false>, <true>).
+    for mode, k1 in (("exact", "rasterize_forward_kernelILb0"),
+                     ("packed", "rasterize_forward_kernelILb1")):
+        sass = kernel_sass(lib._name, k1)
+        log(f"    rasterize_forward_kernel, {mode}: {ptxas_usage(_build.build_log, k1)}")
+        log(f"    expf: {exp_instructions(sass)}")
+        loop = exp_loop_counts(sass)
+        if loop is None:
+            log("    no loop around MUFU.EX2 found in the SASS")
+        else:
+            per = max(loop["exp"], 1)
+            log(f"    pair loop: {loop['instructions']} SASS instructions, "
+                f"{loop['lds']} LDS, {loop['exp']} MUFU.EX2 (pair-pixels); per pair-pixel "
+                f"{loop['instructions'] / per:.1f} instructions, {loop['lds'] / per:.2f} LDS")
 
     # 2b. The radix sort's edge cases.
     log("[2b] radix sort edge cases vs torch.sort(stable=True)")
@@ -1798,7 +2092,7 @@ def main() -> int:
         raise AssertionError("re-render of view 0 is not bit-identical")
     log(f"  re-render bit-identical; launches {fwd_launches}")
     for name in ("segment_expand", "radix_sort", "inverse_permutation",
-                 "rasterize_forward"):
+                 "rasterize_forward", "rasterize_forward/packed"):
         if fwd_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the forward path")
 
@@ -1812,12 +2106,16 @@ def main() -> int:
     compare_backward(scene_params(100_000, seed=0, device=dev), cams[0], st, 5)
 
     # 8. Small scene: one training step, card vs the CPU path.
-    log("[8] small scene train step, card vs CPU path")
-    check_small_train_against_cpu(dev)
+    log("[8] small scene train step, card vs CPU path, in each mode")
+    for mode in ("packed", "exact"):
+        log(f"  {mode} mode:")
+        with mode_context(mode):
+            check_small_train_against_cpu(dev)
 
-    # 9. The slice: train 1M Gaussians for 8 steps over 4 views.
-    log(f"[9] train_step, 1M Gaussians, 1296x840, SH 3, {TRAIN_STEPS} steps over 4 views")
-    launches, trained = train_slice(cams, st, dev)
+    # 9. The slice: train 1M Gaussians for 8 steps over 4 views, each mode.
+    log(f"[9] train_step, 1M Gaussians, 1296x840, SH 3, {TRAIN_STEPS} steps over 4 views, "
+        f"packed then exact")
+    modes, trained = train_slice(cams, st, dev)
 
     # 10. Backward kernel times at the 1M view's shapes.
     log("[10] backward kernels vs plain versions at 1M Gaussians")
@@ -1837,26 +2135,34 @@ def main() -> int:
     log(PARALLEL_TITLE)
     parallel_slice(dev)
 
-    table = [("segment_expand", None, res["segment_expand"]),
-             ("radix_sort", "tile", res["radix_sort"]),
-             ("inverse_permutation", None, res["inverse_permutation"]),
-             ("rasterize_forward", None, res["rasterize_forward"]),
-             ("rasterize_backward", None, bwd["rasterize_backward"]),
-             ("segment_sum", None, bwd["segment_sum"])]
+    # Launches: [9]'s packed run (the main path) for the packed kernels and
+    # those without a mode; its exact run (a path of its own) for the exact
+    # rasterizers and segment sum.
+    both = {**res, **bwd}
+    pk, ex = modes["packed"]["launches"], modes["exact"]["launches"]
+    table = [("segment_expand", "", None, pk["segment_expand"]),
+             ("radix_sort", "", "tile", pk["radix_sort/tile"]),
+             ("inverse_permutation", "", None, pk["inverse_permutation"])]
+    for name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
+        table += [(name, "/packed", None, pk[f"{name}/packed"]),
+                  (name, "", None, ex[name] - ex[f"{name}/packed"])]
     kernels, gaps = [], []
-    for name, site, r in table:
-        n_launch = launches[name if site is None else f"{name}/{site}"]
+    for name, sfx, site, n_launch in table:
+        r = both[name + sfx]
         entry = dict(name=name, route="cuda", source=SOURCES[name],
                      replaces=REPLACES[name], launches=n_launch,
                      launches_per_step=n_launch / TRAIN_STEPS)
         if site is not None:
             entry["site"] = site
+        if name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
+            entry["mode"] = "packed" if sfx else "exact"
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")})
         kernels.append(entry)
         # K5's ms and bound cover the frame's two calls.
         gaps.append((entry["launches_per_step"] / r.get("calls", 1)
-                     * (r["ms"] - r["bound_ms"]), f"{name} {site or ''}".strip()))
+                     * (r["ms"] - r["bound_ms"]),
+                     f"{name} {site or entry.get('mode', '')}".strip()))
     log("  launches per step x (time - bound), ms: " + ", ".join(
         f"{label} {gap:.4f}" for gap, label in sorted(gaps, reverse=True)))
     # The density step's re-sort: [11]'s launches, one a density step.

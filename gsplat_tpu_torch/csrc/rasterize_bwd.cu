@@ -1,7 +1,7 @@
 // Backward tile rasterizer: back-to-front replay, one gradient row per pair.
 //
 // Replaces the TPU kernel gsplat_tpu/kernels/rasterize.py::rasterize_backward
-// (:815; _backward_kernel / _backward_tile) in its exact f32 mode. The TPU
+// (:815; _backward_kernel / _backward_tile), in both its modes. The TPU
 // kernel walks (256 pixel x K pair) chunks with lane-axis cumulative
 // products, writes only the chunks it owns and leaves the rest of its
 // output uninitialised (ops/render.py masks and patches it afterwards).
@@ -18,6 +18,19 @@
 //   background's share T_final bg sum(dI) plus w_k (c_k . dI) of every
 //   later splat (the image cotangent is constant per pixel, so the
 //   reference's three per-colour sums collapse into one).
+//
+// Packed mode (the reference's default). kPackedIn: each pair's attributes
+// are rounded as the packed stream carries them when the batch is staged
+// (packing.cuh: round_pair_attrs, u and v relative to the tile's origin)
+// and the pixels take tile-local coordinates, as in the forward kernel.
+// kPackOut (the reference's pack_grads, kernels/rasterize.py:147-158,
+// :779): a pair's nine sums, formed exactly as the f32 rows are (by the
+// same instructions: only the stores after them differ), become
+// four int32 words [du|dv, dc00|dc01, dc11|dopa, e5s9(dr dg db)], written
+// by one thread with one 16-byte store; rows past every n_splats get the
+// words of a zero row. The reference forms those sums with bf16 matrix
+// products on its MXU; here they are the f32 sums of the exact mode, then
+// packed.
 //
 // What bounds it on an H100: instruction issue. Each replayed pair-pixel
 // is 26 FP32 operations up to the 1/255 cutoff (expf is 10 of them) and 44
@@ -55,6 +68,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "packing.cuh"
 #include "raster_common.cuh"
 
 namespace {
@@ -87,8 +101,10 @@ __device__ __forceinline__ void halve(float* x, int lane, int o) {
   }
 }
 
+// grads_out: (P, 9) float32 rows, or (P, 4) int32 words with kPackOut.
+template <bool kPackedIn, bool kPackOut>
 __global__ void __launch_bounds__(kThreads)
-rasterize_backward_kernel(float* __restrict__ grads,
+rasterize_backward_kernel(void* __restrict__ grads_out,
                           const float* __restrict__ attrs,
                           const int32_t* __restrict__ splat_gid,
                           const int32_t* __restrict__ tile_start,
@@ -110,9 +126,12 @@ rasterize_backward_kernel(float* __restrict__ grads,
   const int count = tile_count[t];
 
   // This thread's pixels: kPixPerThread neighbours in a row of the tile,
-  // (px + q, py) for q < kPixPerThread.
-  const float px = (float)((t % num_tiles_x) * kTile + (tid * kPixPerThread) % kTile);
-  const float py = (float)((t / num_tiles_x) * kTile + (tid * kPixPerThread) / kTile);
+  // (px + q, py) for q < kPixPerThread; global, or relative to the tile's
+  // origin (x0, y0) with kPackedIn.
+  const int tx0 = (t % num_tiles_x) * kTile, ty0 = (t / num_tiles_x) * kTile;
+  const float x0 = (float)tx0, y0 = (float)ty0;
+  const float px = (float)((kPackedIn ? 0 : tx0) + (tid * kPixPerThread) % kTile);
+  const float py = (float)((kPackedIn ? 0 : ty0) + (tid * kPixPerThread) / kTile);
   float T[kPixPerThread], rest[kPixPerThread], dr[kPixPerThread];
   float dg[kPixPerThread], db[kPixPerThread];
   int nspl[kPixPerThread];
@@ -145,9 +164,16 @@ rasterize_backward_kernel(float* __restrict__ grads,
   for (int w = 0; w < kWarps; ++w) maxn = max(maxn, s_maxn[w]);
   maxn = min(maxn, count);
 
-  float* g_tile = grads + (int64_t)start * kGrads;
-  for (int i = maxn * kGrads + tid; i < count * kGrads; i += kThreads) {
-    g_tile[i] = 0.0f;
+  float* g_tile = static_cast<float*>(grads_out) + (int64_t)start * kGrads;
+  uint4* w_tile = static_cast<uint4*>(grads_out) + start;
+  if (kPackOut) {
+    const float zeros[kGrads] = {};
+    const uint4 zero_row = gs::pack_grad_row(zeros);
+    for (int j = maxn + tid; j < count; j += kThreads) w_tile[j] = zero_row;
+  } else {
+    for (int i = maxn * kGrads + tid; i < count * kGrads; i += kThreads) {
+      g_tile[i] = 0.0f;
+    }
   }
 
   // Where this lane's reduced values go: value `lane` of the group
@@ -162,7 +188,11 @@ rasterize_backward_kernel(float* __restrict__ grads,
     const int nb = min(kBatch, maxn - b0);
     __syncthreads();  // the previous batch's shared rows are consumed
     for (int j = tid; j < nb; j += kThreads) {
-      const float* a = attrs + (int64_t)splat_gid[start + b0 + j] * kAttrs;
+      const float* g = attrs + (int64_t)splat_gid[start + b0 + j] * kAttrs;
+      float a[kAttrs];
+#pragma unroll
+      for (int k = 0; k < kAttrs; ++k) a[k] = g[k];
+      if (kPackedIn) gs::round_pair_attrs(a, x0, y0);
       s_attr[0][j] = make_float4(a[0], a[1], a[2], a[3]);
       s_attr[1][j] = make_float4(a[4], a[5], a[6], a[7]);
       s_attr[2][j] = make_float4(a[8], 0.0f, 0.0f, 0.0f);
@@ -235,31 +265,50 @@ rasterize_backward_kernel(float* __restrict__ grads,
       if ((lane & 7) == 0 && jt - 3 >= 0) part[(jt - 3) * kGrads + hi_row] = hi;
     }
     __syncthreads();
-    float* g_batch = g_tile + (int64_t)b0 * kGrads;
-    for (int i = tid; i < nb * kGrads; i += kThreads) {
+    // Value i of the batch: the warps' partials in warp order, du and dv
+    // scaled. In packed mode the sums land in s_part[0] and a thread per
+    // pair packs its row.
+    auto value = [&](int i) {
       float s = 0.0f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += s_part[w][i];
       const int k = i % kGrads;
       if (k == 0) s *= scale_u;
       if (k == 1) s *= scale_v;
-      g_batch[i] = s;
+      return s;
+    };
+    if (kPackOut) {
+      for (int i = tid; i < nb * kGrads; i += kThreads) s_part[0][i] = value(i);
+      __syncthreads();
+      for (int j = tid; j < nb; j += kThreads) {
+        w_tile[b0 + j] = gs::pack_grad_row(&s_part[0][j * kGrads]);
+      }
+    } else {
+      float* g_batch = g_tile + (int64_t)b0 * kGrads;
+      for (int i = tid; i < nb * kGrads; i += kThreads) g_batch[i] = value(i);
     }
   }
 }
 
 }  // namespace
 
+// packed: round the pairs' attributes as the packed stream carries them;
+// pack_grads: write (P, 4) int32 words instead of (P, 9) float32 rows.
 extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
                                      const void* splat_gid,
                                      const void* tile_start,
                                      const void* tile_count, const void* out,
                                      const void* d_tiles, int num_tiles,
                                      int num_tiles_x, float bg, float scale_u,
-                                     float scale_v, void* stream) {
+                                     float scale_v, int packed, int pack_grads,
+                                     void* stream) {
   if (num_tiles > 0) {
-    rasterize_backward_kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        (float*)grads, (const float*)attrs, (const int32_t*)splat_gid,
+    auto kernel = packed ? (pack_grads ? rasterize_backward_kernel<true, true>
+                                       : rasterize_backward_kernel<true, false>)
+                         : (pack_grads ? rasterize_backward_kernel<false, true>
+                                       : rasterize_backward_kernel<false, false>);
+    kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+        grads, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
         (const float*)out, (const float*)d_tiles, num_tiles_x, bg, scale_u,
         scale_v);

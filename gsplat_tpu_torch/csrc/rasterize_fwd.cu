@@ -18,6 +18,14 @@
 //   the backward kernel and the plain versions round it
 //   (raster_common.cuh), so all agree on which splats pass the cutoff.
 //
+// Packed mode (kPacked, the reference's default: its stream of f16/bf16/
+// e5s9 words, kernels/rasterize.py:392-393): each thread rounds the pair it
+// has staged as that stream carries it (packing.cuh: round_pair_attrs), u
+// and v relative to the tile's origin, and the pixels take tile-local
+// coordinates, so dx = u_rel - px_local as the reference computes it. The
+// rounding is ~60 instructions a pair, once per staged pair; the pair loop
+// is the exact mode's.
+//
 // What bounds it on an H100: instruction issue, not FP32. At the bench
 // point (~5.4M pairs at 1M Gaussians, 1296x840) the pixels' n_splats keep
 // ~146M pair-pixels, each 26 FP32 operations up to the 1/255 cutoff (expf
@@ -50,6 +58,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "packing.cuh"
 #include "raster_common.cuh"
 
 namespace {
@@ -79,6 +88,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+template <bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 rasterize_forward_kernel(float* __restrict__ out,
                          const float* __restrict__ attrs,
@@ -92,9 +102,12 @@ rasterize_forward_kernel(float* __restrict__ out,
   const int tid = threadIdx.x;
   const int start = tile_start[t];
   const int count = tile_count[t];
-  // This thread's pixels: (px + q, py) for q < kPixPerThread.
-  const float px = (float)((t % num_tiles_x) * kTile + (tid * kPixPerThread) % kTile);
-  const float py = (float)((t / num_tiles_x) * kTile + (tid * kPixPerThread) / kTile);
+  // This thread's pixels: (px + q, py) for q < kPixPerThread, global, or
+  // relative to the tile's origin (x0, y0) in packed mode.
+  const int tx0 = (t % num_tiles_x) * kTile, ty0 = (t / num_tiles_x) * kTile;
+  const float x0 = (float)tx0, y0 = (float)ty0;
+  const float px = (float)((kPacked ? 0 : tx0) + (tid * kPixPerThread) % kTile);
+  const float py = (float)((kPacked ? 0 : ty0) + (tid * kPixPerThread) / kTile);
 
   // Gather Gaussian gid's row into this thread's slot of buffer buf.
   auto stage = [&](int buf, int gid) {
@@ -127,7 +140,19 @@ rasterize_forward_kernel(float* __restrict__ out,
 
   for (int b0 = 0, buf = 0; b0 < count; b0 += kBatch, buf ^= 1) {
     cp_async_wait_all();  // this thread's copies of the batch have landed
-    if (b0 + tid < count) s_attr[buf][0][tid].w *= 2.0f;
+    if (b0 + tid < count) {
+      float4& a0 = s_attr[buf][0][tid];
+      if (kPacked) {
+        float4& a1 = s_attr[buf][1][tid];
+        float& a2 = s_attr[buf][2][tid].x;
+        float a[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2};
+        gs::round_pair_attrs(a, x0, y0);
+        a0 = make_float4(a[0], a[1], a[2], a[3]);
+        a1 = make_float4(a[4], a[5], a[6], a[7]);
+        a2 = a[8];
+      }
+      a0.w *= 2.0f;
+    }
     // Publishes the batch and frees the other buffer (read in the batch
     // before); the CTA leaves once every thread is done.
     if (__syncthreads_count(all_done) == kThreads) break;
@@ -189,9 +214,11 @@ extern "C" int gs_rasterize_forward(void* out, const void* attrs,
                                     const void* splat_gid,
                                     const void* tile_start,
                                     const void* tile_count, int num_tiles,
-                                    int num_tiles_x, float bg, void* stream) {
+                                    int num_tiles_x, float bg, int packed,
+                                    void* stream) {
   if (num_tiles > 0) {
-    rasterize_forward_kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = packed ? rasterize_forward_kernel<true> : rasterize_forward_kernel<false>;
+    kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (float*)out, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count, num_tiles_x,
         bg);

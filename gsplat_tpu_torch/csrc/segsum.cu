@@ -32,6 +32,15 @@
 // in Gaussian order or in the order of the Gaussians' first rows; this
 // layout ~0.23 ms (PERF.md). Several Gaussians per group did no better.
 //
+// Packed rows (segment_sum_packed_kernel; the reference's packed branch,
+// kernels/segsum.py:108-124): each pair's row is four int32 words
+// [du|dv, dc00|dc01, dc11|dopa, e5s9(dr dg db)] (packing.cuh), 16 bytes,
+// one 32-byte sector. 4 lanes per Gaussian, 8 Gaussians a warp: lane k of
+// a Gaussian's group reads word k of each of its rows (a warp load reads 8
+// whole rows), unpacks it (two bf16 halves, or the three e5s9 channels for
+// k = 3) and adds the values in f32 in run order, as the f32 kernel does.
+// Bound: rows 16 P, pair_slot 4 P, pair_start 4 (N+1), output 36 N.
+//
 // A run is one group's serial walk (the longest at the bench point is
 // printed by chip_smoke.py [10]); runs are not split, since that would
 // change the summation order.
@@ -50,6 +59,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "packing.cuh"
 
 namespace {
 
@@ -86,6 +97,48 @@ segment_sum_kernel(float* __restrict__ out, const float* __restrict__ rows,
   out[(int64_t)g * kRows + k] = acc;
 }
 
+constexpr int kWords = 4;                  // int32 words of a packed row
+constexpr int kPackedGroups = 32 / kWords;  // Gaussians a warp, a lane a word
+
+__global__ void __launch_bounds__(kThreads)
+segment_sum_packed_kernel(float* __restrict__ out, const uint32_t* __restrict__ words,
+                          const int32_t* __restrict__ pair_slot,
+                          const int32_t* __restrict__ pair_start, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int g = warp * kPackedGroups + lane / kWords;
+  const int k = lane % kWords;  // columns 2k, 2k + 1; or 6, 7, 8 for k = 3
+  if (g >= n) return;
+  const int hi = pair_start[g + 1];
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int c = pair_start[g]; c < hi; c += kUnroll) {
+    int slot[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) slot[u] = c + u < hi ? pair_slot[c + u] : 0;
+    uint32_t w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      w[u] = c + u < hi ? words[(int64_t)slot[u] * kWords + k] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c + u >= hi) continue;
+      float v[3] = {0.0f, 0.0f, 0.0f};
+      if (k < 3) {
+        gs::unpack_bf16_pair(w[u], v[0], v[1]);
+      } else {
+        gs::unpack_rgb_e5(w[u], gs::kGradE5Bias, v[0], v[1], v[2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc[i] += v[i];
+    }
+  }
+  float* o = out + (int64_t)g * kRows + 2 * k;
+  o[0] = acc[0];
+  o[1] = acc[1];
+  if (k == 3) o[2] = acc[2];
+}
+
 __global__ void __launch_bounds__(kThreads)
 inverse_permutation_kernel(int32_t* __restrict__ out,
                            const int32_t* __restrict__ perm, int p) {
@@ -112,6 +165,18 @@ extern "C" int gs_segment_sum(void* out, const void* rows, const void* pair_slot
     const int blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
     segment_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (float*)out, (const float*)rows, (const int32_t*)pair_slot,
+        (const int32_t*)pair_start, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gs_segment_sum_packed(void* out, const void* words, const void* pair_slot,
+                                     const void* pair_start, int n, void* stream) {
+  if (n > 0) {
+    const int warps = (n + kPackedGroups - 1) / kPackedGroups;
+    const int blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+    segment_sum_packed_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (float*)out, (const uint32_t*)words, (const int32_t*)pair_slot,
         (const int32_t*)pair_start, n);
   }
   return (int)cudaGetLastError();

@@ -12,9 +12,10 @@ launches on that stream, and returns ``cudaGetLastError()``; ``check``
 raises on a non-zero code.
 
 ``launches`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel (never the plain-PyTorch CPU path), and the radix sort's also per
-call site of the main path: a run can show that the main path went
-through each kernel.
+kernel (never the plain-PyTorch CPU path), the radix sort's also per
+call site of the main path, and the rasterizers' and the segment sum's
+also in packed mode (``name/packed``; the rest ran in exact mode): a run
+can show that the main path went through each kernel.
 """
 
 from __future__ import annotations
@@ -47,21 +48,24 @@ SIGNATURES = {
     # (host ints: shift, bits per pass), stream
     "gs_radix_sort": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
-    # num_tiles_x, bg, stream
-    "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+    # num_tiles_x, bg, packed, stream
+    "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     # grads, attrs, splat_gid, tile_start, tile_count, out, d_tiles,
-    # num_tiles, num_tiles_x, bg, scale_u, scale_v, stream
+    # num_tiles, num_tiles_x, bg, scale_u, scale_v, packed, pack_grads, stream
     "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                              ctypes.c_float, ctypes.c_float, _P],
+                              ctypes.c_float, ctypes.c_float, _I, _I, _P],
     # out, rows, pair_slot, pair_start, n, stream
     "gs_segment_sum": [_P, _P, _P, _P, _I, _P],
+    # out, words, pair_slot, pair_start, n, stream
+    "gs_segment_sum_packed": [_P, _P, _P, _P, _I, _P],
     # out, perm, p, stream
     "gs_inverse_permutation": [_P, _P, _I, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
-    "rasterize_forward": 0, "rasterize_backward": 0, "segment_sum": 0,
+    "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
+    "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
     "inverse_permutation": 0,
 }
 

@@ -1,6 +1,6 @@
 """Tile rasterizer, forward and backward (port of
 ``gsplat_tpu/kernels/rasterize.py::rasterize_forward`` and
-``rasterize_backward``, exact f32 mode).
+``rasterize_backward``, in both of its modes).
 
 Forward, per tile: front-to-back alpha compositing of the tile's
 depth-sorted pairs with the T < 1e-4 early stop, per-pixel splat count and
@@ -15,6 +15,15 @@ n_splats, one (9,) gradient row per pair ``[du dv dc00 dc01 dc11 dopa dr dg
 db]`` in sorted-pair order. CUDA kernel: ``csrc/rasterize_bwd.cu``. Both
 kernels take 16x16 tiles only.
 
+``packed`` is the reference's default mode (its packed pair stream): each
+pair's attributes are rounded as that stream carries them
+(``packing.round_pair_attrs``: f16 tile-relative u, v, bf16 conic and
+opacity, bf16 then e5s9 colour) and the pixels take tile-local
+coordinates. ``pack_grads`` writes the backward's rows as (P, 4) int32
+words (``packing.pack_grad_rows``) instead of (P, 9) float32. Either way
+the sums are formed in float32, where the reference's packed TPU kernels
+take bf16 matrix products.
+
 The plain versions evaluate ``power`` and alpha op by op in the order
 ``csrc/raster_common.cuh`` rounds them, so kernels and plain versions agree
 on which pair-pixels pass the 1/255 cutoff: change both together.
@@ -24,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, packing
 
 ALPHA_CUTOFF = 0.00392156862  # 1/255
 T_EPS = 1e-4
@@ -55,13 +64,33 @@ def _tile_lists(splat_gid, tile_start, tile_count):
     return lists, valid
 
 
-def _pixel_centres(num_tiles, num_tiles_x, tile, dev):
-    """(T, PIX, 1) float32 global x and y of every tile pixel."""
+def _tile_origins(num_tiles, num_tiles_x, tile, dev):
+    """(T,) float32 x and y of each tile's first pixel."""
     t_idx = torch.arange(num_tiles, device=dev)
+    return (((t_idx % num_tiles_x) * tile).to(torch.float32),
+            ((t_idx // num_tiles_x) * tile).to(torch.float32))
+
+
+def _pixel_centres(num_tiles, num_tiles_x, tile, dev, packed=False):
+    """(T, PIX, 1) float32 x and y of every tile pixel: global, or relative
+    to the tile's first pixel when ``packed``."""
     p_idx = torch.arange(tile * tile, device=dev)
-    px = ((t_idx % num_tiles_x) * tile)[:, None] + (p_idx % tile)[None, :]
-    py = ((t_idx // num_tiles_x) * tile)[:, None] + (p_idx // tile)[None, :]
-    return px.to(torch.float32)[:, :, None], py.to(torch.float32)[:, :, None]
+    x0, y0 = _tile_origins(num_tiles, num_tiles_x, tile, dev)
+    if packed:
+        x0, y0 = torch.zeros_like(x0), torch.zeros_like(y0)
+    px = x0[:, None] + (p_idx % tile).to(torch.float32)[None, :]
+    py = y0[:, None] + (p_idx // tile).to(torch.float32)[None, :]
+    return px[:, :, None], py[:, :, None]
+
+
+def _pair_attrs(attrs, idx, origins, packed):
+    """(T, 1, K, 9) attribute rows of the Gaussians ``idx`` (T, K): as they
+    are, or rounded as the packed stream carries them, u and v relative to
+    the tile origins ``origins`` ((T,) x, (T,) y)."""
+    a = attrs[idx]
+    if packed:
+        a = packing.round_pair_attrs(a, origins[0][:, None], origins[1][:, None])
+    return a[:, None]
 
 
 def _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile):
@@ -86,6 +115,7 @@ def rasterize_forward_plain(
     *,
     num_tiles_x: int,
     tile: int = KERNEL_TILE,
+    packed: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version: every tile at once, 64 pairs a step.
 
@@ -98,16 +128,16 @@ def rasterize_forward_plain(
     dev = attrs.device
     pix = tile * tile
     lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
-    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev)
+    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev, packed)
+    origins = _tile_origins(num_tiles, num_tiles_x, tile, dev)
 
     tcar = torch.ones((num_tiles, pix, 1), dtype=torch.float32, device=dev)
     tf = torch.full((num_tiles, pix), -1.0, dtype=torch.float32, device=dev)
     acc = torch.zeros((num_tiles, pix, 3), dtype=torch.float32, device=dev)
     nspl = torch.zeros((num_tiles, pix), dtype=torch.float32, device=dev)
     for c0 in range(0, lists.shape[1], _PLAIN_CHUNK):
-        a = attrs[lists[:, c0 : c0 + _PLAIN_CHUNK]]  # (T, K, 9)
+        a = _pair_attrs(attrs, lists[:, c0 : c0 + _PLAIN_CHUNK], origins, packed)
         real = valid[:, None, c0 : c0 + _PLAIN_CHUNK]  # (T, 1, K)
-        a = a[:, None, :, :]  # (T, 1, K, 9)
         dx = a[..., 0] - px  # (T, PIX, K)
         dy = a[..., 1] - py
         power = -0.5 * (a[..., 2] * dx * dx + 2.0 * a[..., 3] * dx * dy
@@ -142,18 +172,20 @@ def rasterize_forward(
     *,
     num_tiles_x: int,
     tile: int = KERNEL_TILE,
+    packed: bool = False,
 ) -> torch.Tensor:
     """Render every tile: (T, 5, tile*tile) rows [r g b T_final n_splats].
 
     ``attrs`` (N, 9) f32 per-Gaussian rows; ``splat_gid`` (P,) int32 pair ->
     Gaussian, tile-major and depth-sorted; ``tile_start``/``tile_count``
-    (T,) int32 ranges into it. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel.
+    (T,) int32 ranges into it; ``packed`` rounds each pair's attributes as
+    the reference's packed stream does. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.
     """
     if attrs.device.type == "cpu":
         return rasterize_forward_plain(
             attrs, splat_gid, tile_start, tile_count, bg,
-            num_tiles_x=num_tiles_x, tile=tile,
+            num_tiles_x=num_tiles_x, tile=tile, packed=packed,
         )
     name = "rasterize_forward"
     _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
@@ -166,10 +198,12 @@ def rasterize_forward(
     err = lib.gs_rasterize_forward(
         out.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, num_tiles_x,
-        float(bg), _build.stream_ptr(attrs.device),
+        float(bg), int(packed), _build.stream_ptr(attrs.device),
     )
     _build.check(err, name)
     _build.launches[name] += 1
+    if packed:
+        _build.launches[f"{name}/packed"] += 1
     return out
 
 
@@ -195,6 +229,8 @@ def rasterize_backward_plain(
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
     grad_scale: tuple[float, float] | None = None,
+    packed: bool = False,
+    pack_grads: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version: every tile at once, 64 pairs a step, last
     chunk first (the reference kernel's formulation).
@@ -203,15 +239,27 @@ def rasterize_backward_plain(
     product of its (1 - alpha), takes per-splat entry transmittances as
     exclusive cumulative products, and the suffix sum of w (c . dI) as a
     reversed cumulative sum carried across chunks. Chunks past every
-    pixel's n_splats are not visited; their rows stay zero.
+    pixel's n_splats are not visited; their rows stay zero. With
+    ``pack_grads`` the float32 rows are then packed.
     """
+    rows = _backward_rows_plain(
+        attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
+        num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
+        grad_scale=grad_scale, packed=packed,
+    )
+    return packing.pack_grad_rows(rows) if pack_grads else rows
+
+
+def _backward_rows_plain(attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg, *,
+                         num_tiles_x, num_tiles_y, tile, grad_scale, packed):
     num_tiles = tile_start.shape[0]
     dev = attrs.device
     rows = torch.zeros((splat_gid.shape[0], GRAD_COLS), dtype=attrs.dtype, device=dev)
     if splat_gid.shape[0] == 0:
         return rows
     lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
-    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev)
+    px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev, packed)
+    origins = _tile_origins(num_tiles, num_tiles_x, tile, dev)
     scale_u, scale_v = grad_scale or grad_scales(num_tiles_x, num_tiles_y, tile)
     tfin = out[:, 3, :, None]  # (T, PIX, 1)
     nspl = out[:, 4, :, None]
@@ -223,7 +271,7 @@ def rasterize_backward_plain(
     for c0 in reversed(range(0, used, _PLAIN_CHUNK)):
         sel = valid[:, c0 : c0 + _PLAIN_CHUNK]  # (T, K)
         kk = sel.shape[1]
-        a = attrs[lists[:, c0 : c0 + _PLAIN_CHUNK]][:, None]  # (T, 1, K, 9)
+        a = _pair_attrs(attrs, lists[:, c0 : c0 + _PLAIN_CHUNK], origins, packed)
         dx = a[..., 0] - px  # (T, PIX, K)
         dy = a[..., 1] - py
         c00, c01, c11, opa = a[..., 2], a[..., 3], a[..., 4], a[..., 5]
@@ -280,23 +328,26 @@ def rasterize_backward(
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
     grad_scale: tuple[float, float] | None = None,
+    packed: bool = False,
+    pack_grads: bool = False,
 ) -> torch.Tensor:
-    """Per-pair gradient rows (P, 9) f32, in sorted-pair order.
+    """Per-pair gradient rows (P, 9) f32, in sorted-pair order, or with
+    ``pack_grads`` their (P, 4) int32 words.
 
-    ``attrs``, ``splat_gid``, ``tile_start``, ``tile_count`` as for
-    ``rasterize_forward``; ``out`` is its (T, 5, PIX) output and ``d_tiles``
-    the (T, 3, PIX) image cotangent in tile layout (zero on padded pixels).
-    Rows are ``[du dv dc00 dc01 dc11 dopa dr dg db]``: du, dv scaled by
-    ``grad_scale`` (default ``grad_scales``, the padded grid's), dopa with
-    respect to the sigmoid-ed opacity. Every row is written, zeros for pairs
-    no pixel reached. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel.
+    ``attrs``, ``splat_gid``, ``tile_start``, ``tile_count`` and ``packed``
+    as for ``rasterize_forward``; ``out`` is its (T, 5, PIX) output and
+    ``d_tiles`` the (T, 3, PIX) image cotangent in tile layout (zero on
+    padded pixels). Rows are ``[du dv dc00 dc01 dc11 dopa dr dg db]``: du,
+    dv scaled by ``grad_scale`` (default ``grad_scales``, the padded
+    grid's), dopa with respect to the sigmoid-ed opacity. Every row is
+    written, zeros for pairs no pixel reached. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel.
     """
     if attrs.device.type == "cpu":
         return rasterize_backward_plain(
             attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
-            grad_scale=grad_scale,
+            grad_scale=grad_scale, packed=packed, pack_grads=pack_grads,
         )
     name = "rasterize_backward"
     _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
@@ -310,15 +361,19 @@ def rasterize_backward(
     _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, out, d_tiles)
     lib = _build.build()
     grads = torch.empty(
-        (splat_gid.shape[0], GRAD_COLS), dtype=torch.float32, device=attrs.device
+        (splat_gid.shape[0], packing.GRAD_WORDS) if pack_grads
+        else (splat_gid.shape[0], GRAD_COLS),
+        dtype=torch.int32 if pack_grads else torch.float32, device=attrs.device,
     )
     scale_u, scale_v = grad_scale or grad_scales(num_tiles_x, num_tiles_y, tile)
     err = lib.gs_rasterize_backward(
         grads.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
         d_tiles.data_ptr(), num_tiles, num_tiles_x, float(bg), scale_u, scale_v,
-        _build.stream_ptr(attrs.device),
+        int(packed), int(pack_grads), _build.stream_ptr(attrs.device),
     )
     _build.check(err, name)
     _build.launches[name] += 1
+    if packed:
+        _build.launches[f"{name}/packed"] += 1
     return grads

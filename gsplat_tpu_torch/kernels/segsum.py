@@ -1,5 +1,6 @@
 """Segment sum by Gaussian (port of
-``gsplat_tpu/kernels/segsum.py::segment_sum_by_gid``, f32 rows only).
+``gsplat_tpu/kernels/segsum.py::segment_sum_by_gid``, f32 rows and the
+packed gradient words).
 
 ``out[g] = sum(rows[pair_slot[c]] for c in [pair_start[g], pair_start[g+1]))``
 in ascending c: the per-Gaussian sums of the backward rasterizer's per-pair
@@ -8,7 +9,10 @@ rows, read through binning's per-Gaussian runs (``TileTables.pair_slot``,
 sums a gid-sorted stream; binning's runs already list each Gaussian's
 pairs in the order a stable sort of ``splat_gid`` would, so no second sort
 is made. CUDA kernel: ``csrc/segsum.cu`` (9 lanes per Gaussian, one per
-column, fixed summation order, deterministic).
+column, fixed summation order, deterministic). Packed rows (int32, the
+backward's ``pack_grads`` words, as the reference tells them by their
+dtype) are unpacked and summed in float32 in the same order (4 lanes per
+Gaussian, one per word).
 
 ``inverse_permutation`` makes binning's ``pair_slot`` from the tile sort's
 permutation (CUDA kernel in the same source: one 4-byte scatter a pair).
@@ -20,14 +24,17 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, packing
 
 
 def segment_sum_plain(
     rows: torch.Tensor, pair_slot: torch.Tensor, pair_start: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """Plain PyTorch version: ``index_add_`` of the rows in candidate order
-    over each candidate's Gaussian (on the CPU it adds in index order)."""
+    """Plain PyTorch version: ``index_add_`` of the rows (unpacked first if
+    packed) in candidate order over each candidate's Gaussian (on the CPU it
+    adds in index order)."""
+    if rows.dtype == torch.int32:
+        rows = packing.unpack_grad_rows(rows)
     counts = (pair_start[1:] - pair_start[:-1]).long()
     gid = torch.repeat_interleave(
         torch.arange(n, device=rows.device), counts, output_size=pair_slot.shape[0])
@@ -38,7 +45,8 @@ def segment_sum_plain(
 def segment_sum(
     rows: torch.Tensor, pair_slot: torch.Tensor, pair_start: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """(n, C) f32 per-Gaussian sums of (P, C) f32 ``rows``.
+    """(n, C) f32 per-Gaussian sums of (P, C) f32 ``rows``, or (n, 9) sums
+    of (P, 4) int32 packed gradient words (``packing.pack_grad_rows``).
 
     Binning's tables: ``pair_slot`` (P,) int32 maps each candidate to its
     row; ``pair_start`` (n+1,) int32 is non-decreasing from 0 to P, Gaussian
@@ -49,8 +57,11 @@ def segment_sum(
     if rows.device.type == "cpu":
         return segment_sum_plain(rows, pair_slot, pair_start, n)
     name = "segment_sum"
-    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 9:
-        raise ValueError(f"{name}: rows must be (P, 9) float32")
+    packed = rows.dtype == torch.int32
+    cols = packing.GRAD_WORDS if packed else 9
+    if rows.dim() != 2 or rows.shape[1] != cols or rows.dtype not in (
+            torch.float32, torch.int32):
+        raise ValueError(f"{name}: rows must be (P, 9) float32 or (P, 4) int32")
     p = rows.shape[0]
     for t, shape in ((pair_slot, (p,)), (pair_start, (n + 1,))):
         if t.dtype != torch.int32 or t.shape != shape:
@@ -59,12 +70,14 @@ def segment_sum(
     _build.require_cuda(name, rows, pair_slot, pair_start)
     lib = _build.build()
     out = torch.empty((n, 9), dtype=torch.float32, device=rows.device)
-    err = lib.gs_segment_sum(
+    err = (lib.gs_segment_sum_packed if packed else lib.gs_segment_sum)(
         out.data_ptr(), rows.data_ptr(), pair_slot.data_ptr(), pair_start.data_ptr(),
         int(n), _build.stream_ptr(rows.device),
     )
     _build.check(err, name)
     _build.launches[name] += 1
+    if packed:
+        _build.launches[f"{name}/packed"] += 1
     return out
 
 

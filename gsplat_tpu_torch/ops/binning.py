@@ -1,7 +1,6 @@
 """Tile binning + depth sort (port of ``gsplat_tpu/ops/binning.py``).
 
-Exact mode of the reference's ``build_tile_tables`` (``bf16_colors=False``),
-resized for a GPU:
+The reference's ``build_tile_tables``, resized for a GPU:
 
 1. Level 1 enumerates each visible Gaussian's tile ROWS (the pixel-rect
    y-span of its OBB/ellipse, ``_span_y``); level 2 computes, per row, the
@@ -26,6 +25,12 @@ resized for a GPU:
 Sizing is exact per frame: one host sync of the row total after level 1
 and one of the pair total after level 2, as the original CUDA renderer did.
 There are no capacities, sentinel rows/candidates or overflow reports.
+
+The reference's binning also carries each pair's attributes through its
+sort, rounded to its packed stream by default (``bf16_colors=True``). Here
+no attribute rides binning (the rasterizers read them through
+``splat_gid``), so ``bf16_colors`` is only recorded on the tables, and the
+rasterizers round each pair as that stream would carry it.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ class TileTables(NamedTuple):
     pair_slot: torch.Tensor  # (P,) int32, candidate -> sorted slot
     pair_start: torch.Tensor  # (N+1,) int32, Gaussian -> first candidate; [N] = P
     num_pairs: int
+    bf16_colors: bool  # the rasterizers round pairs to the packed stream
 
 
 class Geometry(NamedTuple):
@@ -288,6 +294,7 @@ def build_tile_tables(
     num_tiles_y: int,
     tile_size: int,
     row_limit: int | None = None,
+    bf16_colors: bool = True,
 ) -> TileTables:
     """Exact binning of every frame.
 
@@ -297,6 +304,9 @@ def build_tile_tables(
       row_limit: tile rows at and past it are not enumerated (<=
         ``num_tiles_y``): a strip of a tile-sharded frame whose last rows
         lie past the image's (``parallel/tile_parallel.py``).
+      bf16_colors: the reference's default packed mode (f16 tile-relative
+        u, v, bf16 conic and opacity, e5s9 colour), recorded on the tables
+        for the rasterizers; False is its exact f32 mode.
     """
     num_tiles = num_tiles_x * num_tiles_y
     qd_bits = depth_key_bits(num_tiles)
@@ -319,4 +329,5 @@ def build_tile_tables(
         pair_slot=inverse_permutation(perm),
         pair_start=off2[off1.long()],
         num_pairs=total_pairs,
+        bf16_colors=bool(bf16_colors),
     )

@@ -1,5 +1,4 @@
-"""Differentiable tile rasterization op (port of ``gsplat_tpu/ops/render.py``,
-exact f32 mode).
+"""Differentiable tile rasterization op (port of ``gsplat_tpu/ops/render.py``).
 
 The custom-gradient boundary is the reference's: per-Gaussian attribute
 rows ``attrs`` (N, 9) -> (T, 5, PIX) tile pixels. The forward is the
@@ -15,10 +14,18 @@ The reference sorts the pairs by Gaussian id a second time (its regroup
 The port's runs list each Gaussian's rows in that same order, so the sort
 is not made and the sums are the same.
 
-The reference's chunk-coverage mask, side buffers and packed bf16/e5s9
-gradient words are not ported: they exist only because of how its TPU
-kernel assigns chunks to tiles. The backward kernel here writes every pair
-row itself.
+Both of the reference's modes: by default (its default) the pairs are
+rounded as its packed stream carries them (``tables.bf16_colors``, set by
+``build_tile_tables``) and the per-pair gradient rows travel from the
+backward kernel to the segment sum as four packed int32 words
+(``bf16_grads=True``); ``build_tile_tables(bf16_colors=False)`` and
+``rasterize(bf16_grads=False)`` give its exact f32 mode. ``d_attrs`` is
+(N, 9) float32 either way.
+
+The reference's chunk-coverage mask and side buffers (and its repack of the
+side buffers into the packed words) are not ported: they exist only
+because of how its TPU kernel assigns chunks to tiles. The backward kernel
+here writes every pair row itself.
 
 Gradient conventions (the reference's): uv cotangents are scaled by 0.5 x
 the padded tile grid's width and height inside the backward (unless
@@ -49,16 +56,17 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start,
-                bg, num_tiles_x, num_tiles_y, tile, grad_scale):
+                bg, num_tiles_x, num_tiles_y, tile, grad_scale, packed, pack_grads):
         out = rasterize_forward(
             attrs, splat_gid, tile_start, tile_count, bg,
-            num_tiles_x=num_tiles_x, tile=tile,
+            num_tiles_x=num_tiles_x, tile=tile, packed=packed,
         )
         ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, pair_slot,
                               pair_start, out)
         ctx.bg = bg
         ctx.grid = (num_tiles_x, num_tiles_y, tile)
         ctx.grad_scale = grad_scale
+        ctx.modes = (packed, pack_grads)
         return out
 
     @staticmethod
@@ -66,14 +74,15 @@ class _Rasterize(torch.autograd.Function):
         attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start, out = (
             ctx.saved_tensors)
         num_tiles_x, num_tiles_y, tile = ctx.grid
+        packed, pack_grads = ctx.modes
         rows = rasterize_backward(
             attrs, splat_gid, tile_start, tile_count, out,
             d_out[:, 0:3, :].contiguous(), ctx.bg,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
-            grad_scale=ctx.grad_scale,
+            grad_scale=ctx.grad_scale, packed=packed, pack_grads=pack_grads,
         )
         d_attrs = segment_sum(rows, pair_slot, pair_start, attrs.shape[0])
-        return d_attrs, *(None,) * 10
+        return d_attrs, *(None,) * 12
 
 
 def pack_attrs(
@@ -122,10 +131,14 @@ def rasterize(
     height: int,
     tile: int,
     grad_scale_wh: tuple[int, int] | None = None,
+    bf16_grads: bool = True,
 ) -> RenderOutput:
     """Render the image from binning's ``tables`` (same uv as binned);
     differentiable with respect to uv, conic, rgb and opacity_logit.
 
+    The pairs are rounded to the packed stream where ``tables.bf16_colors``
+    says so; ``bf16_grads`` carries the per-pair gradient rows as packed
+    words (the reference's default), False as float32 rows.
     ``grad_scale_wh`` (W, H) replaces the padded grid in the uv-gradient
     scale (0.5 W, 0.5 H), as the reference's tile-sharded step passes the
     global image's unpadded size for a strip (ROADMAP R10)."""
@@ -137,7 +150,7 @@ def rasterize(
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
         tables.pair_slot, tables.pair_start, float(bg), num_tiles_x, num_tiles_y, tile,
-        grad_scale,
+        grad_scale, bool(tables.bf16_colors), bool(bf16_grads),
     )
     # Cropping outside the Function: autograd gives the padded pixels zero
     # cotangents, as the reference's tiles_to_image does.

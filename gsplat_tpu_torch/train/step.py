@@ -6,7 +6,11 @@ optimizer step on one camera: per-Gaussian projection, covariance and SH
 colour, exact tile binning, the forward rasterizer, the fused SSIM+L1
 loss, then autograd back through the rasterizer's custom backward (backward
 kernel, segment sum) and the per-Gaussian maths, and a
-visibility-masked Adam update.
+visibility-masked Adam update. As in the reference, the steps call
+``build_tile_tables`` and ``rasterize`` with their defaults, the packed
+mode (``ops/render.py``); ``exact_mode()`` binds those two functions to
+``bf16_colors=False`` / ``bf16_grads=False`` in every module that calls
+them (``MODE_CALL_SITES``), which gives the exact f32 mode.
 
 Everything runs eagerly (no jit); binning syncs the host twice per frame
 to size its outputs exactly, so the reference's ``overflow`` and
@@ -17,7 +21,10 @@ its gradient is exactly the reference's scaled ``grad_uv``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import importlib
 from typing import NamedTuple
 
 import torch
@@ -29,6 +36,34 @@ from ..ops.binning import TileTables, build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
 from .state import PARAM_DIMS, GaussianParams, TrainState
+
+# The package's modules that call build_tile_tables and rasterize, the two
+# functions that take the mode: exact_mode rebinds them there.
+MODE_CALL_SITES = ("gsplat_tpu_torch.train.step", "gsplat_tpu_torch.parallel.tile_parallel")
+
+
+@contextlib.contextmanager
+def exact_mode():
+    """For a ``with`` block: the package in the reference's exact f32 mode.
+
+    The default is the packed mode. As the reference's own tests reach
+    exact mode, ``build_tile_tables`` and ``rasterize`` are bound to
+    ``bf16_colors=False`` and ``bf16_grads=False`` in each module of
+    ``MODE_CALL_SITES``, so ``render_image``, ``train_step``,
+    ``dp_train_step``, ``tp_train_step`` and the Trainer run exact; they
+    are restored on exit."""
+    from ..ops import binning, render
+
+    mods = [importlib.import_module(name) for name in MODE_CALL_SITES]
+    saved = [(m, m.build_tile_tables, m.rasterize) for m in mods]
+    for m in mods:
+        m.build_tile_tables = functools.partial(binning.build_tile_tables, bf16_colors=False)
+        m.rasterize = functools.partial(render.rasterize, bf16_grads=False)
+    try:
+        yield
+    finally:
+        for m, tables, raster in saved:
+            m.build_tile_tables, m.rasterize = tables, raster
 
 
 @dataclasses.dataclass(frozen=True)

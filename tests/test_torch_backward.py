@@ -11,9 +11,10 @@
   Gaussian-major candidates in a stable tile order, and bit-equal to a
   stable sort of ``splat_gid`` followed by ``index_add_`` (the regroup the
   reference makes, which the port leaves out);
-- the port's differentiable ``rasterize`` against ``jax.vjp`` of the JAX
-  ``rasterize(bf16_grads=False)`` on the same tile tables, at a height that
-  is not a multiple of 16 (so the padded-grid uv scale shows).
+- the port's differentiable ``rasterize(bf16_grads=False)`` on exact-mode
+  tables against ``jax.vjp`` of the JAX ``rasterize(bf16_grads=False)`` on
+  the same tile tables, at a height that is not a multiple of 16 (so the
+  padded-grid uv scale shows).
 
 The CUDA kernels are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -227,9 +228,11 @@ def test_rasterize_vjp_matches_jax(rng):
         pair_start=torch.cat([torch.zeros(1, dtype=torch.int64),
                               torch.cumsum(counts, 0)]).to(torch.int32),
         num_pairs=num_pairs,
+        bf16_colors=False,
     )
     leaves = [_t(x).requires_grad_(True) for x in (uv, conic, rgb, opa)]
-    out = rasterize(*leaves, tables, bg, width=width, height=height, tile=TILE)
+    out = rasterize(*leaves, tables, bg, width=width, height=height, tile=TILE,
+                    bf16_grads=False)
     np.testing.assert_allclose(out.image.detach().numpy(), np.asarray(j_img),
                                rtol=2e-4, atol=2e-5)
     grads = torch.autograd.grad(out.image, leaves, grad_outputs=_t(d_img))

@@ -196,7 +196,8 @@ def test_pair_pixel_counts_hand_counted():
               torch.ones(1, dtype=torch.int32))
     out = rasterize_forward_plain(*raster, 0.0, num_tiles_x=1)
     assert chip_smoke.pair_pixel_counts(raster, out, 1) == dict(
-        pair_pixels=256, passing=11, fwd_warp_pair_pixels=256, bwd_warp_pair_pixels=256)
+        pair_pixels=256, passing=11, reached=1, fwd_warp_pair_pixels=256,
+        bwd_warp_pair_pixels=256)
 
 
 def test_kernel_bound_hand_counted():
@@ -229,6 +230,33 @@ def test_kernel_bound_hand_counted():
     # Inverse permutation: 4 bytes a pair in, 4 out.
     r = chip_smoke.kernel_bound("inverse_permutation", pairs=5)
     assert (r["bytes"], r["ops"], r["bound_by"]) == (40, 0, "bytes")
+
+
+def test_kernel_bound_packed_hand_counted():
+    # Packed mode: the rasterizers also round each pair up to every tile's
+    # deepest n_splats (87 operations a pair); K2 writes 4-word rows (16
+    # bytes, not 36) and packs those it reaches (50 a pair: 2 of the 3);
+    # K4 reads 16-byte rows and unpacks every one (21 a pair), pair_start is
+    # N + 1 words.
+    kw = dict(gaussians=2, pairs=3, tiles=1, pair_pixels=10, passing=4, reached=2)
+    r = chip_smoke.kernel_bound("rasterize_forward", packed=True, **kw)
+    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120, 300 + 2 * 87)
+    r = chip_smoke.kernel_bound("rasterize_backward", packed=True, **kw)
+    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120 + 3072 + 48,
+                                      260 + 176 + 2 * 87 + 2 * 50)
+    r = chip_smoke.kernel_bound("segment_sum", packed=True, gaussians=2, pairs=3)
+    assert (r["bytes"], r["ops"]) == (3 * 16 + 3 * 4 + 3 * 4 + 2 * 36, 3 * (9 + 21))
+    # The one splat of test_pair_pixel_counts_hand_counted is exact in the
+    # packed formats: the same work.
+    from gsplat_tpu_torch.kernels.rasterize import rasterize_forward_plain
+
+    attrs = torch.tensor([[0.0, 0.0, 1.0, 0.0, 1.0, 0.5, 1.0, 1.0, 1.0]])
+    raster = (attrs, torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+              torch.ones(1, dtype=torch.int32))
+    out = rasterize_forward_plain(*raster, 0.0, num_tiles_x=1, packed=True)
+    assert chip_smoke.pair_pixel_counts(raster, out, 1, packed=True) == dict(
+        pair_pixels=256, passing=11, reached=1, fwd_warp_pair_pixels=256,
+        bwd_warp_pair_pixels=256)
 
 
 def test_gaussian_params_default_device_is_cuda():

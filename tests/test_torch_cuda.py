@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import expand_edge_counts  # noqa: E402
-from gsplat_tpu_torch.kernels import _build  # noqa: E402
+from gsplat_tpu_torch.kernels import _build, packing  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_backward_plain, rasterize_forward,
@@ -27,6 +27,7 @@ from gsplat_tpu_torch.kernels.segsum import (  # noqa: E402
 )
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain, sort_plan  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
+from gsplat_tpu_torch.train.step import exact_mode  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -146,6 +147,31 @@ def test_rasterize_kernel_close_to_plain(dev, n):
     assert same_n >= 0.999, same_n
 
 
+@pytest.mark.parametrize("n", [50, 3000])
+def test_rasterize_kernel_packed_close_to_plain(dev, n):
+    # Packed mode: each thread rounds the pair it stages; the plain version
+    # rounds the gathered rows the same way (packing.round_pair_attrs).
+    width, height = 160, 96
+    ntx, nty = width // 16, height // 16
+    uv, radius, z, attrs = _scene(np.random.default_rng(n + 1), n, width, height)
+    tables = build_tile_tables(uv, z, radius, torch.ones(n, dtype=torch.bool), num_tiles_x=ntx,
+                               num_tiles_y=nty, tile_size=16)
+    args = [t.to(dev) for t in (attrs, tables.splat_gid, tables.tile_start,
+                                tables.tile_count)]
+    before = _build.launches["rasterize_forward/packed"]
+    got = rasterize_forward(*args, 0.3, num_tiles_x=ntx, packed=True)
+    again = rasterize_forward(*args, 0.3, num_tiles_x=ntx, packed=True)
+    torch.cuda.synchronize()
+    assert _build.launches["rasterize_forward/packed"] == before + 2
+    assert torch.equal(got, again)
+    ref = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx, packed=True)
+    exact = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx)
+    torch.testing.assert_close(got[:, :3], ref[:, :3], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[:, 3], ref[:, 3], rtol=1e-3, atol=1e-5)
+    assert (got[:, 4] == ref[:, 4]).float().mean().item() >= 0.999
+    assert not torch.equal(ref, exact)  # the rounding shows
+
+
 def _one_tile_lists(rng, count, opa, wide):
     """Hand-made tables of two tiles (32x16 px): tile 0 lists ``count``
     pairs, tile 1 none. ``wide`` splats cover the tile evenly, so every
@@ -251,6 +277,38 @@ def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
         for t in torch.nonzero(maxn < count.long()).flatten().tolist():
             tail = got[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
             assert torch.equal(tail, torch.zeros_like(tail))  # written, as zeros
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("n,saturate", [(50, False), (3000, False), (400, True)])
+def test_rasterize_backward_packed_words(dev, n, saturate, packed):
+    # The packed words are the port's pack of the kernel's own float32 rows
+    # on the same inputs (packed or exact pairs), bit for bit; those rows
+    # are the plain version's within the exact mode's bound; rows past
+    # every n_splats are the words of a zero row.
+    args, _, d_tiles, ntx, nty = _backward_inputs(
+        np.random.default_rng(n + 2), n, 160, 88, saturate)
+    kw = dict(num_tiles_x=ntx, num_tiles_y=nty, packed=packed)
+    out = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx, packed=packed)
+    dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
+    rows = rasterize_backward(*dev_in, 0.3, **kw)
+    words = rasterize_backward(*dev_in, 0.3, pack_grads=True, **kw)
+    again = rasterize_backward(*dev_in, 0.3, pack_grads=True, **kw)
+    torch.cuda.synchronize()
+    assert words.dtype == torch.int32 and words.shape == (args[1].shape[0], 4)
+    assert torch.equal(words, again)
+    assert torch.equal(words, packing.pack_grad_rows(rows))
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    rows = rows.cpu()
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    assert ((rows - ref).abs() <= 1e-3 * scale + 1e-6).all()
+    if saturate:
+        start, count = args[2], args[3]
+        maxn = out[:, 4].amax(dim=1).long()
+        zero = packing.pack_grad_rows(torch.zeros((1, 9)))
+        t = int(torch.nonzero(maxn < count.long())[0])
+        tail = words.cpu()[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
+        assert tail.shape[0] > 0 and torch.equal(tail, zero.expand_as(tail))
 
 
 def _dead_groups(attrs, gid, start, count, out, ntx):
@@ -361,7 +419,27 @@ def test_segment_sum_kernel_close_to_plain(dev, n, p):
     assert (got.cpu()[torch.from_numpy(counts == 0)] == 0).all()
 
 
+@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
+def test_segment_sum_packed_kernel_equals_plain(dev, n, p):
+    rng = np.random.default_rng(p + 1)
+    pair_slot, pair_start, counts = _gaussian_runs(rng, n, p)
+    rows = torch.from_numpy((rng.standard_normal((p, 9)) * np.exp2(
+        rng.integers(-30, 0, (p, 1)))).astype(np.float32))
+    words = packing.pack_grad_rows(rows)
+    args = [t.to(dev) for t in (words, pair_slot, pair_start)]
+    before = _build.launches["segment_sum/packed"]
+    got = segment_sum(*args, n)
+    again = segment_sum(*args, n)
+    torch.cuda.synchronize()
+    assert _build.launches["segment_sum/packed"] == before + 2
+    assert torch.equal(got, again)
+    # The kernel adds each run's unpacked words in the plain version's order.
+    assert torch.equal(got.cpu(), segment_sum_plain(words, pair_slot, pair_start, n))
+    assert (got.cpu()[torch.from_numpy(counts == 0)] == 0).all()
+
+
 def test_train_step_on_card_close_to_cpu(dev):
+    # Exact mode: the bounds below are f32 summation orders.
     from gsplat_tpu_torch.ops.camera import build_camera_matrices
     from gsplat_tpu_torch.train import state as t_state
     from gsplat_tpu_torch.train import step as t_step
@@ -389,8 +467,9 @@ def test_train_step_on_card_close_to_cpu(dev):
     results = []
     for d in ("cpu", dev):
         state = t_state.init_state(t_state.params_from_jax(params, alive, d))
-        loss, _, mask, _, grads, g_uv = t_step.compute_loss_and_grads(
-            state.params, cm.view, cm.proj, cm.campos, gt.to(d), 0.2, st)
+        with exact_mode():
+            loss, _, mask, _, grads, g_uv = t_step.compute_loss_and_grads(
+                state.params, cm.view, cm.proj, cm.campos, gt.to(d), 0.2, st)
         t_step.apply_adam(state, grads, g_uv, mask, 0, st)
         results.append((float(loss), {k: v.cpu() for k, v in grads.items()}, g_uv.cpu(),
                         t_state.state_to_numpy(state)))

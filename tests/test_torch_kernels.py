@@ -9,7 +9,9 @@
   sort, vs ``np.argsort``: equal;
 - forward rasterizer vs the numpy oracle at the tolerances of
   tests/test_render.py (image rtol 2e-4 / atol 2e-5, T_final rtol 1e-3,
-  n_splats exact), including the early-termination/saturation case.
+  n_splats exact), including the early-termination/saturation case, in
+  exact mode (``bf16_colors=False``; the packed mode is held to the JAX
+  package in tests/test_torch_packed.py).
 
 The CUDA kernels themselves are compared with these plain versions on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -168,6 +170,7 @@ def _port_tables(uv, z, radius, mask, width, height):
     tables = build_tile_tables(
         torch.from_numpy(uv), torch.from_numpy(z), torch.from_numpy(radius),
         torch.from_numpy(mask), num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
+        bf16_colors=False,
     )
     gid = tables.splat_gid.numpy()
     start, count = tables.tile_start.numpy(), tables.tile_count.numpy()

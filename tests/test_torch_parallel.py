@@ -12,16 +12,21 @@ spawned rank imports this module to find its function.
   the full frame's rows, pair sets and per-tile order; ``_span_y`` with a
   row limit against JAX's;
 - ``rasterize(grad_scale_wh=)``: the u and v gradient rows scale by
-  W / W_pad and H / H_pad, the other columns do not move;
+  W / W_pad and H / H_pad, the other columns do not move (exact mode);
 - dp on two identical cameras is bit-equal to one ``train_step``, its
   accumulators twice the step's;
 - dp on 2 ranks against JAX's ``dp_train_step`` on 2 virtual devices, two
   distinct cameras at tests/test_train.py's 48x32 geometry. The JAX step's
   ``compute_loss_and_grads`` is replaced, in this test only, by the same
   function in exact mode (``bf16_colors=False``, ``bf16_grads=False``),
-  the mode the port is held to (tests/test_torch_train.py);
+  and the port's ranks are bound to it (``train.step.exact_mode``), the
+  mode the port is held to (tests/test_torch_train.py);
+- with no flags, dp and tp run the rasterizers in the packed mode, the
+  JAX package's default, as ``train_step`` does;
 - tp on 2 and 3 ranks at 48x32 against one ``train_step``; at 48x40
-  (R10) tp's uv gradient is the step's with its v column x 40/48;
+  (R10) tp's uv gradient is the step's with its v column x 40/48; both in
+  exact mode, where the strips' pairs round as the frame's (the packed
+  mode rounds ``v - y_off`` before its tile offset, as the reference does);
 - the dp trainer's per-rank (bucket, image) draws against the JAX
   Trainer's on a scene with two camera geometries;
 - ``Trainer(dp=2)`` and ``Trainer(tp=2)`` through a density step and an
@@ -38,6 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from gsplat_tpu_torch.train.step import exact_mode  # noqa: E402
 from gsplat_tpu_torch import cli  # noqa: E402
 from gsplat_tpu_torch import config as t_config  # noqa: E402
 from gsplat_tpu_torch import parallel  # noqa: E402
@@ -249,14 +255,15 @@ def test_grad_scale_wh_scales_only_uv_rows():
     uv, conic, radius, z, opa, rgb = (torch.from_numpy(x) for x in _make_scene(
         np.random.default_rng(11), 50, width, height))
     tables = binning.build_tile_tables(uv, z, radius, torch.ones(50, dtype=torch.bool),
-                                       num_tiles_x=3, num_tiles_y=2, tile_size=tile)
+                                       num_tiles_x=3, num_tiles_y=2, tile_size=tile,
+                                       bf16_colors=False)
     cot = torch.from_numpy(np.random.default_rng(12).normal(
         size=(height, width, 3)).astype(np.float32))
     out = []
     for wh in (None, (width, height)):
         leaves = [x.clone().requires_grad_(True) for x in (uv, conic, rgb, opa)]
         img = rasterize(*leaves, tables, BG, width=width, height=height, tile=tile,
-                        grad_scale_wh=wh).image
+                        grad_scale_wh=wh, bf16_grads=False).image
         out.append(torch.autograd.grad(img, leaves, grad_outputs=cot))
     (d_uv, *rest), (s_uv, *s_rest) = out
     assert tables.num_pairs > 100 and d_uv.abs().max() > 0
@@ -341,8 +348,9 @@ def _rank_dp_two_cameras(rank, params, alive, gts):
     _rank_setup()
     st, cm = _statics(), _camera(rank)
     state = _state(params, alive)
-    _, m = dp_train_step(state, cm.view, cm.proj, cm.campos, torch.from_numpy(gts[rank]),
-                         BG, 3, st)
+    with exact_mode():
+        _, m = dp_train_step(state, cm.view, cm.proj, cm.campos,
+                             torch.from_numpy(gts[rank]), BG, 3, st)
     return t_state.state_to_numpy(state), float(m.loss)
 
 
@@ -385,17 +393,55 @@ def test_dp_matches_jax_dp_train_step(monkeypatch):
     np.testing.assert_allclose(s0["uv_grad_accum"], ref["uv_grad_accum"], rtol=1e-3)
 
 
+def _rank_default_modes(rank, params, alive, gt):
+    """The (kernel, packed, pack_grads) of each rasterizer call that one dp
+    and one tp step make with no flags."""
+    from gsplat_tpu_torch.ops import render as t_render
+
+    _rank_setup()
+    st, cm = _statics(), _camera(0)
+    calls, real = [], (t_render.rasterize_forward, t_render.rasterize_backward)
+
+    def spy(fn):
+        def run(*a, **k):
+            calls.append((fn.__name__, k.get("packed"), k.get("pack_grads")))
+            return fn(*a, **k)
+        return run
+
+    t_render.rasterize_forward, t_render.rasterize_backward = map(spy, real)
+    try:
+        out = {}
+        for name, step in (("dp", dp_train_step), ("tp", tp_train_step)):
+            calls.clear()
+            step(_state(params, alive), cm.view, cm.proj, cm.campos, torch.from_numpy(gt), BG,
+                 0, st)
+            out[name] = list(calls)
+    finally:
+        t_render.rasterize_forward, t_render.rasterize_backward = real
+    return out
+
+
+def test_dp_and_tp_steps_default_to_packed():
+    params, alive = _scene()
+    outs = _run(_rank_default_modes, 2, params, alive, _gts(1)[0])
+    for o in outs:
+        for name in ("dp", "tp"):
+            assert o[name] == [("rasterize_forward", True, None),
+                               ("rasterize_backward", True, True)], (name, o[name])
+
+
 def _rank_tp(rank, params, alive, gt, height):
     _rank_setup()
     st, cm = _statics(height=height), _camera(0, height=height)
     gt = torch.from_numpy(gt)
     single, tp = _state(params, alive), _state(params, alive)
-    grads = [t_step.compute_loss_and_grads(single.params, cm.view, cm.proj, cm.campos, gt,
-                                           BG, st),
-             tp_loss_and_grads(tp.params, cm.view, cm.proj, cm.campos, gt, BG, st)]
-    (_, image, _, _, _, g_uv), r = grads
-    _, m1 = t_step.train_step(single, cm.view, cm.proj, cm.campos, gt, BG, 0, st)
-    _, m2 = tp_train_step(tp, cm.view, cm.proj, cm.campos, gt, BG, 0, st)
+    with exact_mode():
+        grads = [t_step.compute_loss_and_grads(single.params, cm.view, cm.proj, cm.campos,
+                                               gt, BG, st),
+                 tp_loss_and_grads(tp.params, cm.view, cm.proj, cm.campos, gt, BG, st)]
+        (_, image, _, _, _, g_uv), r = grads
+        _, m1 = t_step.train_step(single, cm.view, cm.proj, cm.campos, gt, BG, 0, st)
+        _, m2 = tp_train_step(tp, cm.view, cm.proj, cm.campos, gt, BG, 0, st)
     return dict(single=t_state.state_to_numpy(single), tp=t_state.state_to_numpy(tp),
                 loss=(float(m1.loss), float(m2.loss), float(r.loss)),
                 pairs=(m1.num_pairs, m2.num_pairs), g_uv=(g_uv.numpy(), r.g_uv.numpy()),

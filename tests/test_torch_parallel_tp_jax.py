@@ -6,7 +6,7 @@ in strips of 2, so the last strip is padded and the uv scale is R10's
 unpadded (W, H) (ROADMAP Queue 3). The JAX step's ``build_tile_tables``
 and ``rasterize`` are bound, in this test only, to exact mode
 (``bf16_colors=False``, ``bf16_grads=False``), the mode the port is held
-to. Loss, parameters, both Adam moments, ``uv_grad_accum`` and
+to, and the port's ranks to it too (``train.step.exact_mode``). Loss, parameters, both Adam moments, ``uv_grad_accum`` and
 ``accum_dur`` are compared: after one Adam step the parameters hardly
 depend on the gradients' scale, the moments do, so a factor between the
 two steps' strip sums would show there.

@@ -3,13 +3,16 @@
 One scene of 300 Gaussians at 64x48, SH degree 3 with random coefficients,
 made with numpy and loaded into the port through ``params_from_jax``:
 
-- the port's ``render_image`` (plain kernel versions on the CPU) against
+- the port's ``render_image`` (plain kernel versions on the CPU), bound
+  to exact mode (``train.step.exact_mode``), against
   the JAX exact path built from its public pieces (``_per_gaussian`` ->
   ``build_tile_tables(bf16_colors=False)`` -> ``rasterize``, Pallas in
   interpret mode): image rtol 2e-4 / atol 2e-5, equal tile tables,
   T_final rtol 1e-3, n_splats exact;
-- against the JAX default (packed bf16/f16) ``render_image``: atol 0.03 and
-  PSNR > 45 dB, the bounds of tests/test_render.py's packed-vs-exact test;
+- the port's exact image against the JAX default (packed bf16/f16)
+  ``render_image``: atol 0.03 and PSNR > 45 dB, the bounds of
+  tests/test_render.py's packed-vs-exact test (the port's packed mode is
+  held to it in tests/test_torch_packed.py);
 - importing the port leaves ``jax``, ``gsplat_tpu``, ``yaml`` and ``PIL``
   unloaded.
 """
@@ -24,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from gsplat_tpu_torch.train.step import exact_mode  # noqa: E402
 
 from gsplat_tpu.ops.binning import build_tile_tables as j_build_tile_tables  # noqa: E402
 from gsplat_tpu.ops.camera import build_camera_matrices  # noqa: E402
@@ -99,7 +103,9 @@ def jax_exact(scene):
 def port(scene):
     params, alive, cm, _, t_st = scene
     gp = params_from_jax(params, alive, "cpu")
-    image, tables = t_step.render_image(gp, cm.view, cm.proj, cm.campos, BG, t_st)
+    with exact_mode():
+        image, tables = t_step.render_image(gp, cm.view, cm.proj, cm.campos, BG, t_st)
+    assert not tables.bf16_colors
     return gp, image, tables
 
 

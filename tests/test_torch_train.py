@@ -9,7 +9,8 @@ Same numpy inputs through the JAX package and the port, at f32:
 - the per-Gaussian chain's autograd gradients against ``jax.vjp`` of
   ``gsplat_tpu.train.step._per_gaussian``;
 - ``state_from_jax`` -> ``state_to_numpy`` keeps a JAX ``TrainState``;
-- one and three ``train_step``s against a JAX exact-mode step built from the
+- one and three ``train_step``s, bound to exact mode
+  (``train.step.exact_mode``), against a JAX exact-mode step built from the
   package's public pieces (``_per_gaussian``, ``pack_attrs``,
   ``build_tile_tables(bf16_colors=False)``, ``rasterize(bf16_grads=False)``,
   ``fused_loss``, ``jax.value_and_grad`` with the uv probe, ``apply_adam``),
@@ -24,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from gsplat_tpu_torch.train.step import exact_mode  # noqa: E402
 
 from gsplat_tpu.ops import adam as j_adam  # noqa: E402
 from gsplat_tpu.ops.binning import build_tile_tables as j_build_tile_tables  # noqa: E402
@@ -195,8 +197,9 @@ def scene():
                 tan_fovy=cm.tan_fovy)
     j_st = j_step.StepStatics(chunk=128, pair_cap=PAIR_CAP, interpret=True, **COMMON, **intr)
     t_st = t_step.StepStatics(**COMMON, **intr)
-    gt, _ = t_step.render_image(t_state.params_from_jax(params, alive, "cpu"),
-                                cm.view, cm.proj, cm.campos, BG, t_st)
+    with exact_mode():
+        gt, _ = t_step.render_image(t_state.params_from_jax(params, alive, "cpu"),
+                                    cm.view, cm.proj, cm.campos, BG, t_st)
     # train a perturbed copy towards the scene's own render
     start = dict(params, rgb=params["rgb"] + 0.3 * rng.normal(size=(N_CAP, 3)).astype(np.float32),
                  opacity=params["opacity"] - 0.5)
@@ -294,8 +297,9 @@ def _port_trajectory(start, alive, cm, t_st, gt, steps):
     state = t_state.init_state(t_state.params_from_jax(start, alive, "cpu"))
     out = []
     for it in range(steps):
-        loss, _, mask, tables, grads, g_uv = t_step.compute_loss_and_grads(
-            state.params, cm.view, cm.proj, cm.campos, _t(gt), BG, t_st)
+        with exact_mode():
+            loss, _, mask, tables, grads, g_uv = t_step.compute_loss_and_grads(
+                state.params, cm.view, cm.proj, cm.campos, _t(gt), BG, t_st)
         t_step.apply_adam(state, grads, g_uv, mask, it, t_st)
         out.append((float(loss), {k: _np(v) for k, v in grads.items()}, _np(g_uv),
                     t_state.state_to_numpy(state), tables.num_pairs))
