@@ -112,6 +112,29 @@ words), and its exact f32 mode where named
     step (rank 0 alone), the dp step and the tp step, with the
     collectives' host ms: two ranks sharing one card, not a scaling
     figure.
+14. runs the modules ported last. (a) The C++ host runtime
+    (``io/native.py``, built by g++ at first use into
+    ``gsplat_tpu_torch/_build/``) on a cloud of [11]'s kind at
+    NATIVE_POINTS points: its KNN mean distance against scipy's cKDTree
+    (rtol 1e-6), a points3D.bin written by the port's writer parsed by the
+    native parser and the Python reader (equal arrays), and its PLY writer
+    against ``io/ply.py``'s (equal bytes, else the first differing offset),
+    each with both times. (b) ``build_tile_tables(depth_rank=)`` at the
+    100K bench view (4,293 tiles take 13 key bits and the capacity 2^17
+    takes 17: the 30-bit budget exactly full): each tile's pair set equal
+    to the default mode's, each tile in strictly ascending rank, the tables
+    equal to the CPU path's (a pair on one side only must lie within 1e-2
+    px of a tile edge in float64, R5), one tile sort launched; the render's
+    PSNR against the default mode, and the radix sort timed at the 30-bit
+    keys beside the default mode's. (c) ``tools/e2e_synthetic.py``'s
+    recipe for E2E_ITERS iterations on the card (16 views at 384x256 of
+    1,200 true Gaussians, 4,000 points, ``Trainer`` with density steps and
+    SH bands): PSNR before and after, the gain (above 6 dB), iterations a
+    second, the final Gaussians and the PLY's size, every kernel of the
+    packed path launched (the Morton site included); images through PIL on
+    disk. (d) ``StageTimers``' report of (c)'s stages, and ``device_trace``
+    over two more train steps: the trace file's size and its device
+    kernels (> 0).
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -125,7 +148,8 @@ these inputs need and those of them past the 1/255 cutoff,
 ``pair_pixel_counts``), then orders the kernels by launches per train step
 x (time - bound). Prints one JSON line of kernels (the rasterizers and the
 segment sum once a mode, ``"mode"``; launches from [9]'s run of that
-mode), then the nvidia-smi
+mode, ``launches_e2e`` from [14c]'s; the radix sort also in [14b]'s
+``depth_rank`` mode), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
@@ -137,6 +161,12 @@ runs [1] and [11] alone, with its checks (no result line).
     python3 chip_smoke.py --parallel
 
 runs [1] and [13] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --e2e
+
+runs [1] and [14] alone, with its checks (no result line): about 90 s on
+an H100 80GB HBM3 at 700 W, the e2e recipe's 600 iterations 20-26 s of
+it and the 1M-point Python reader 7-10 s.
 
     python3 -P chip_smoke.py --train-profile
 
@@ -212,6 +242,10 @@ TRAINER_ITERS = 24  # [11]: iterations of Trainer.train
 TRAIN_PROFILE_STEPS = 16
 PROFILE_TOP = 10  # [9]: other kernels listed by device time
 WALL_STEPS = 32  # --wall: timed train steps a mode, after TRAIN_STEPS to warm up
+NATIVE_POINTS = 1_000_000  # [14a]: the cloud of [11]'s size
+E2E_ITERS = 600  # [14c]: tools/e2e_synthetic.py's recipe at its full length
+REMAINING_TITLE = ("[14] native host runtime, depth_rank binning, the e2e recipe and "
+                   "profiling")
 PARALLEL_TITLE = ("[13] dp and tp steps and Trainer(dp=2)/(tp=2), two ranks on one card "
                   "over gloo, 1M Gaussians at 1296x840 and 1296x832")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
@@ -1194,7 +1228,6 @@ def trainer_scene(n: int, seed: int, dev, width=WIDTH, height=HEIGHT):
     arrays by image name, black background), and an SfM-like cloud, the
     true centres plus N(0, 0.05^2) jitter with uint8 colours."""
     from gsplat_tpu_torch.ops.camera import build_camera_matrices
-    from gsplat_tpu_torch.train.init import Y00
     from gsplat_tpu_torch.train.state import params_from_jax
     from gsplat_tpu_torch.train.step import render_image
 
@@ -1208,9 +1241,7 @@ def trainer_scene(n: int, seed: int, dev, width=WIDTH, height=HEIGHT):
         img, _ = render_image(truth, cm.view, cm.proj, cm.campos, 0.0, statics(cm, width, height))
         gts[im.name] = img.cpu().numpy()
     del truth
-    rng = np.random.default_rng(seed + 100)
-    xyz = arrays["xyz"][:n].astype(np.float64) + rng.normal(0.0, 0.05, (n, 3))
-    rgb = np.clip((arrays["rgb"][:n] * Y00 + 0.5) * 255, 0, 255).astype(np.uint8)
+    xyz, rgb = sfm_cloud(arrays, n, seed)
     return cams, images, gts, xyz, rgb
 
 
@@ -1296,7 +1327,7 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
     cfg = trainer_config(tmp)
     t0 = time.perf_counter()
     g = initialize_gaussians(xyz, rgb, cfg)
-    log(f"  {n} points: initialize_gaussians (scipy cKDTree KNN, {cfg.initial_scale_num_neighbors}"
+    log(f"  {n} points: initialize_gaussians (native KNN, {cfg.initial_scale_num_neighbors}"
         f" neighbours) {time.perf_counter() - t0:.2f} s")
     tr = trainer_mod.Trainer(cfg, g, images, cams, device=dev)
     log(f"  {len(images)} views, scene extent {tr.scene_extent:.4f}, capacity "
@@ -1996,6 +2027,305 @@ def exact_bits(dev, n: int = 1_000_000) -> None:
         f"sha256 {digest.hexdigest()}")
 
 
+def sfm_cloud(arrays: dict, n: int, seed: int):
+    """An SfM-like cloud of ``scene_arrays``' first n Gaussians: their
+    centres plus N(0, 0.05^2) jitter, float64, with uint8 colours."""
+    from gsplat_tpu_torch.train.init import Y00
+
+    rng = np.random.default_rng(seed + 100)
+    xyz = arrays["xyz"][:n].astype(np.float64) + rng.normal(0.0, 0.05, (n, 3))
+    rgb = np.clip((arrays["rgb"][:n] * Y00 + 0.5) * 255, 0, 255).astype(np.uint8)
+    return xyz, rgb
+
+
+def seconds(fn):
+    """(fn(), host seconds it took)."""
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+def native_slice(n: int = NATIVE_POINTS) -> list:
+    """[14a] The C++ host runtime (``io/native.py``) against its plain
+    versions on [11]'s kind of cloud at n points: the KNN against scipy's
+    cKDTree (rtol 1e-6), a points3D.bin of the port's writer parsed by both
+    readers (equal arrays), and the PLY writer against ``io/ply.py``'s
+    (equal bytes). Returns the failed checks."""
+    import tempfile
+
+    from gsplat_tpu_torch.io import colmap, native, ply
+    from gsplat_tpu_torch.train.init import initialize_gaussians, knn_mean_dist_plain
+
+    _, t_build = seconds(native.build)
+    log(f"  {native.library_path().name}: built and loaded in {t_build:.2f} s "
+        f"(g++ {' '.join(native.CXX_FLAGS)})")
+    arrays, _ = scene_arrays(n, 0)
+    xyz, rgb = sfm_cloud(arrays, n, 0)
+    del arrays
+    failed = []
+    k = 3
+    got, t_native = seconds(lambda: native.knn_mean_dist(xyz, k))
+    ref, t_plain = seconds(lambda: knn_mean_dist_plain(xyz, k))
+    rel = float(np.max(np.abs(got.astype(np.float64) - ref) / np.abs(ref)))
+    log(f"  KNN mean distance, {n} points, k = {k}: native {t_native:.3f} s, scipy cKDTree "
+        f"{t_plain:.3f} s ({t_plain / t_native:.2f}x); largest relative difference "
+        f"{rel:.3g} (rtol 1e-6)")
+    if not np.allclose(got, ref, rtol=1e-6, atol=0):
+        failed.append("KNN")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        path = Path(tmp) / "points3D.bin"
+        empty = np.zeros(0, np.int32)
+        points = {i + 1: colmap.Point3D(id=i + 1, xyz=xyz[i], rgb=rgb[i], error=0.5,
+                                        image_ids=empty, point2d_idxs=empty)
+                  for i in range(n)}
+        _, t_write = seconds(lambda: colmap.write_points3d_binary(points, path))
+        del points
+        nat, t_native = seconds(lambda: native.parse_points3d(path))
+        plain, t_plain = seconds(lambda: colmap.read_points3d_binary(path))
+        pl = (np.stack([p.xyz for p in plain.values()]),
+              np.stack([p.rgb for p in plain.values()]),
+              np.array([p.error for p in plain.values()]),
+              np.array(list(plain), np.uint64))
+        del plain
+        same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(nat, pl))
+        log(f"  points3D.bin, {n} points ({path.stat().st_size} bytes, written in "
+            f"{t_write:.2f} s): native parse {t_native:.3f} s, Python reader {t_plain:.3f} s "
+            f"({t_plain / t_native:.1f}x); arrays equal {same}, xyz equal to the cloud "
+            f"{np.array_equal(nat[0], xyz)}")
+        if not (same and np.array_equal(nat[0], xyz) and np.array_equal(nat[1], rgb)):
+            failed.append("points3D parse")
+        g = initialize_gaussians(xyz, rgb)
+        sh = np.random.default_rng(1).normal(0.0, 0.1, (n, 45)).astype(np.float32)
+        cols = (g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh)
+        _, t_native = seconds(lambda: native.save_ply(Path(tmp) / "native.ply", *cols))
+        _, t_plain = seconds(lambda: ply.save_ply(Path(tmp) / "plain.ply", *cols))
+        a = np.fromfile(Path(tmp) / "native.ply", np.uint8)
+        b = np.fromfile(Path(tmp) / "plain.ply", np.uint8)
+        m = min(a.size, b.size)
+        diff = np.flatnonzero(a[:m] != b[:m])
+        first = int(diff[0]) if diff.size else (None if a.size == b.size else m)
+        log(f"  PLY, {n} Gaussians with 45 SH coefficients ({a.size} bytes): native "
+            f"{t_native:.3f} s, io/ply.py {t_plain:.3f} s; "
+            + ("bytes equal" if first is None else f"first differing byte at offset {first}"))
+        if first is not None:
+            failed.append("PLY bytes")
+    return failed
+
+
+def strip_margin(uv, radius, gid, tile, num_tiles_x: int, ts: int) -> torch.Tensor:
+    """R5's check of a (Gaussian, tile) pair on which two devices' binning
+    disagree, in float64 on the CPU: the smallest distance, in pixels,
+    from the pair's OBB-ellipse extent in the tile's row (its y-span and
+    its x-interval in that strip, binning's closed forms) to the tile's
+    pixel-rect edges. Near 0, membership turns on f32 rounding."""
+    from gsplat_tpu_torch.ops import binning
+
+    g = gid.long().cpu()
+    u, v = uv[:, 0].double().cpu()[g], uv[:, 1].double().cpu()[g]
+    r = radius.double().cpu()[g]
+    a1x, a1y = r[:, 0] * r[:, 3], r[:, 0] * r[:, 2]
+    a2x, a2y = -r[:, 1] * r[:, 2], r[:, 1] * r[:, 3]
+    s_e = r[:, 4] if r.shape[1] >= 5 else torch.full_like(u, 2.0)
+    tile = tile.long().cpu()
+    tx, ty = (tile % num_tiles_x).double(), (tile // num_tiles_x).double()
+    hy = torch.minimum(a1y.abs() + a2y.abs(), s_e * torch.sqrt(a1y * a1y + a2y * a2y))
+    dy0 = ty * ts - v
+    dy1 = dy0 + (ts - 1.0)
+    xhi = torch.minimum(binning._strip_x_extreme(u, a1x, a1y, a2x, a2y, dy0, dy1),
+                        binning._strip_x_extreme_ell(u, s_e * a1x, s_e * a1y, s_e * a2x,
+                                                     s_e * a2y, dy0, dy1))
+    xlo = torch.maximum(-binning._strip_x_extreme(-u, -a1x, a1y, -a2x, a2y, dy0, dy1),
+                        -binning._strip_x_extreme_ell(-u, -s_e * a1x, s_e * a1y,
+                                                      -s_e * a2x, s_e * a2y, dy0, dy1))
+    edges = torch.stack([xhi - tx * ts, tx * ts + (ts - 1.0) - xlo,
+                         v + hy - ty * ts, ty * ts + (ts - 1.0) - (v - hy)])
+    return torch.nan_to_num(edges.abs(), nan=float("inf")).amin(dim=0)
+
+
+def pair_codes(tables, cap: int) -> torch.Tensor:
+    """Each slot's (tile, Gaussian) as tile * cap + gid, int64, sorted."""
+    tiles = torch.repeat_interleave(
+        torch.arange(tables.tile_count.shape[0], device=tables.splat_gid.device),
+        tables.tile_count.long())
+    return torch.sort(tiles * cap + tables.splat_gid.long()).values
+
+
+def depth_rank_slice(dev, n: int = 100_000) -> tuple:
+    """[14b] ``build_tile_tables(depth_rank=)`` on the card at the bench
+    view with n Gaussians (capacity 2^17: 13 + 17 key bits, the budget
+    exactly full). Returns (failed checks, the radix sort's entry for the
+    kernels line)."""
+    from gsplat_tpu_torch.kernels import _build, sort
+    from gsplat_tpu_torch.kernels.expand import segment_expand
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.render import rasterize
+    from gsplat_tpu_torch.train.step import _per_gaussian
+
+    cm = views()[0]
+    st = statics(cm)
+    params = scene_params(n, seed=0, device=dev)
+    with torch.no_grad():
+        view, proj, campos = (torch.as_tensor(x, device=dev)
+                              for x in (cm.view, cm.proj, cm.campos))
+        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+    cap = uv.shape[0]
+    num_tiles = st.num_tiles_x * st.num_tiles_y
+    qd_bits = max(1, (cap - 1).bit_length())
+    key_bits = binning.sort_key_bits(num_tiles, qd_bits)
+    rank = torch.empty(cap, dtype=torch.int32, device=dev)
+    rank[torch.argsort(z, stable=True)] = torch.arange(cap, dtype=torch.int32, device=dev)
+    kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile)
+    dflt = binning.build_tile_tables(uv, z, radius, mask, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    tables = binning.build_tile_tables(uv, z, radius, mask, depth_rank=rank, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    log(f"  {num_tiles} tiles ({num_tiles.bit_length()} bits), capacity {cap} ({qd_bits} "
+        f"bits): {key_bits}-bit keys, {len(sort.sort_plan(1, key_bits).bits)} passes; "
+        f"pairs {tables.num_pairs} (default mode {dflt.num_pairs}); launches {launches}")
+    failed = []
+    if not (launches["radix_sort/tile"] == 1 and launches["segment_expand"] == 2
+            and launches["inverse_permutation"] == 1):
+        failed.append("launches")
+    same_sets = (torch.equal(tables.tile_start, dflt.tile_start)
+                 and torch.equal(tables.tile_count, dflt.tile_count)
+                 and torch.equal(pair_codes(tables, cap), pair_codes(dflt, cap)))
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev),
+                                      tables.tile_count.long())
+    r = rank[tables.splat_gid.long()]
+    inner = tile_of[1:] == tile_of[:-1]
+    strict = bool((r[1:] > r[:-1])[inner].all())
+    log(f"  each tile's pair set equals the default mode's: {same_sets}; each tile in "
+        f"strictly ascending rank: {strict} ({int(inner.sum())} neighbouring pairs)")
+    if not (same_sets and strict):
+        failed.append("pair sets or rank order")
+    # The CPU path on the same inputs.
+    cpu = binning.build_tile_tables(uv.cpu(), z.cpu(), radius.cpu(), mask.cpu(),
+                                    depth_rank=rank.cpu(), **kw)
+    fields = ("splat_gid", "tile_start", "tile_count", "pair_slot", "pair_start")
+    differ = [f for f in fields if not torch.equal(getattr(tables, f).cpu(), getattr(cpu, f))]
+    log(f"  card vs CPU path: {'equal' if not differ else 'differ in ' + ', '.join(differ)} "
+        f"({', '.join(fields)}; pairs {tables.num_pairs} vs {cpu.num_pairs})")
+    if differ:
+        a, b = pair_codes(tables, cap).cpu(), pair_codes(cpu, cap)
+        odd = torch.cat([a[~torch.isin(a, b)], b[~torch.isin(b, a)]])
+        if odd.numel() == 0:  # equal sets in another order: a rank leaves none
+            failed.append("card vs CPU order")
+        else:
+            margin = strip_margin(uv, radius, odd % cap, odd // cap, st.num_tiles_x, st.tile)
+            log(f"  {odd.numel()} pairs on one side only; their float64 distance to a tile "
+                f"edge (R5): at most {float(margin.max()):.3g} px")
+            if float(margin.max()) > 1e-2:
+                failed.append("card vs CPU pair sets beyond R5")
+    with torch.no_grad():
+        img = rasterize(uv, conic, rgb, params.opacity, tables, BG, width=st.width,
+                        height=st.height, tile=st.tile).image
+        ref = rasterize(uv, conic, rgb, params.opacity, dflt, BG, width=st.width,
+                        height=st.height, tile=st.tile).image
+    p = psnr(img, ref)
+    log(f"  render in rank order vs the default mode: PSNR {p:.2f} dB")
+    if not (torch.isfinite(img).all() and img.shape == ref.shape):
+        failed.append("render")
+    # K3 at both modes' keys: the tile site's shapes at this view.
+    res = {}
+    for label, rk, qd in (("depth_rank", rank, qd_bits),
+                          ("default", None, binning.depth_key_bits(num_tiles))):
+        bits = binning.sort_key_bits(num_tiles, qd)
+        geom, rec1, off1, total_rows = binning.row_expand_inputs(
+            uv, z, radius, mask, depth_rank=rk, **kw)
+        rows = segment_expand(rec1, off1, total_rows)
+        rec2, off2, total = binning.pair_expand_inputs(geom, rows, num_tiles_x=st.num_tiles_x,
+                                                       tile_size=st.tile)
+        keys, _ = binning.pair_keys(geom, segment_expand(rec2, off2, total), qd)
+        got = sort.radix_sort(keys, bits)
+        want = torch.sort(keys, stable=True)
+        if not (torch.equal(got[0], want.values)
+                and torch.equal(got[1], want.indices.to(torch.int32))):
+            failed.append(f"radix sort of the {label} keys")
+        res[label] = dict(
+            max_abs_err=0.0, key_bits=bits, keys=keys.shape[0],
+            ms=cuda_ms(lambda k=keys, b=bits: sort.radix_sort(k, b), 10),
+            plain_ms=cuda_ms(lambda k=keys, b=bits: sort.radix_sort_plain(k, b), 10),
+            library_ms=cuda_ms(lambda k=keys: torch.sort(k, stable=True), 10),
+            **kernel_bound("radix_sort", keys=keys.shape[0]))
+        log(f"  radix_sort, {label} keys: {keys.shape[0]} keys of {bits} bits, "
+            f"{len(sort.sort_plan(1, bits).bits)} passes")
+    log_times({f"radix_sort/tile ({k})": v for k, v in res.items()})
+    entry = dict(launches=launches["radix_sort/tile"], **res["depth_rank"])
+    return failed, entry
+
+
+# Kernels the e2e recipe must launch (packed, the default mode): binning's,
+# the density steps' Morton re-sort, the packed rasterizers and segment sum.
+E2E_KERNELS = ("segment_expand", "radix_sort/tile", "radix_sort/morton",
+               "inverse_permutation", "rasterize_forward/packed",
+               "rasterize_backward/packed", "segment_sum/packed")
+
+
+def e2e_slice(dev, iters: int = E2E_ITERS) -> tuple:
+    """[14c] ``tools/e2e_synthetic.py``'s recipe at its full length on the
+    card, its stages under ``StageTimers``, and [14d] ``device_trace`` over
+    two more train steps. Returns (failed checks, the run's launches)."""
+    import tempfile
+
+    import PIL
+
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import e2e_synthetic
+    from gsplat_tpu_torch.utils.profiling import StageTimers, device_trace
+
+    log(f"  images through PIL {PIL.__version__} on disk")
+    timers = StageTimers()
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as tmp:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = e2e_synthetic.run(iters, root=tmp, device=dev, timers=timers,
+                                log=lambda msg: log("  " + msg))
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        log(f"  [14c] eval PSNR {res.psnr_before:.4f} -> {res.psnr_after:.4f} dB "
+            f"({res.gain_db:+.4f} dB; the JAX package's recorded run: +11 dB), "
+            f"{res.iters} iterations in {res.seconds:.3f} s ({res.iters_per_s:.2f} it/s), "
+            f"{res.initial_gaussians} -> {res.final_gaussians} Gaussians, l_max "
+            f"{res.l_max}, PLY {res.ply_bytes} bytes")
+        log(f"  launches: {launches}")
+        if not (math.isfinite(res.psnr_after) and res.gain_db > e2e_synthetic.MIN_GAIN_DB):
+            failed.append(f"e2e gain {res.gain_db:.3f} dB <= {e2e_synthetic.MIN_GAIN_DB}")
+        never = [k for k in E2E_KERNELS if launches[k] <= 0]
+        if never:
+            failed.append(f"never launched in the e2e run: {never}")
+        log("  [14d] StageTimers:")
+        for line in timers.report().splitlines():
+            log("    " + line)
+        with device_trace(Path(tmp) / "trace") as prof:
+            res.trainer.train(max_iters=iters + 2, verbose=False)
+        size = prof.trace_path.stat().st_size
+        events = json.loads(prof.trace_path.read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"  device_trace over 2 train steps: {prof.trace_path.name}, {size} bytes, "
+            f"{len(events)} events, {kernels} of them device kernels")
+        if not (size > 0 and kernels > 0):
+            failed.append("device_trace")
+    return failed, launches
+
+
+def remaining_slice(dev) -> dict:
+    """[14]: a-d above; raises if a check of any part failed."""
+    log(f"  [14a] native host runtime vs plain versions, {NATIVE_POINTS} points")
+    failed = native_slice()
+    log("  [14b] depth_rank binning on the card, 100K Gaussians, bench view")
+    f, entry = depth_rank_slice(dev)
+    failed += f
+    log(f"  [14c] e2e recipe, {E2E_ITERS} iterations, and [14d] profiling")
+    f, launches = e2e_slice(dev)
+    failed += f
+    if failed:
+        raise AssertionError(f"[14] failed: {failed}")
+    return dict(depth_rank=entry, e2e_launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2030,6 +2360,10 @@ def main() -> int:
         _build.build()
         log(PARALLEL_TITLE)
         parallel_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--e2e"]:
+        log(REMAINING_TITLE)
+        remaining_slice(dev)
         return 0
 
     # 2. Build.
@@ -2135,6 +2469,11 @@ def main() -> int:
     log(PARALLEL_TITLE)
     parallel_slice(dev)
 
+    # 14. The modules ported last: the native host runtime, depth_rank
+    # binning, the e2e recipe and the profiling hooks.
+    log(REMAINING_TITLE)
+    rest = remaining_slice(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -2146,12 +2485,16 @@ def main() -> int:
     for name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
         table += [(name, "/packed", None, pk[f"{name}/packed"]),
                   (name, "", None, ex[name] - ex[f"{name}/packed"])]
+    e2e = rest["e2e_launches"]
     kernels, gaps = [], []
     for name, sfx, site, n_launch in table:
         r = both[name + sfx]
+        key = f"{name}/{site}" if site else name + sfx
         entry = dict(name=name, route="cuda", source=SOURCES[name],
                      replaces=REPLACES[name], launches=n_launch,
-                     launches_per_step=n_launch / TRAIN_STEPS)
+                     launches_per_step=n_launch / TRAIN_STEPS,
+                     launches_e2e=e2e[key] - (e2e[key + "/packed"]
+                                              if key + "/packed" in e2e else 0))
         if site is not None:
             entry["site"] = site
         if name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
@@ -2171,6 +2514,15 @@ def main() -> int:
         name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
         replaces=REPLACES["radix_sort"], launches=morton["launches"],
         launches_per_density_step=morton["launches"] / morton["density_steps"], site="morton",
+        launches_e2e=e2e["radix_sort/morton"],
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")}))
+    # The tile sort of binning's exact-ordering mode: [14b]'s launches.
+    r = rest["depth_rank"]
+    kernels.append(dict(
+        name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
+        replaces=REPLACES["radix_sort"], launches=r["launches"], site="tile",
+        mode="depth_rank", key_bits=r["key_bits"],
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     print(json.dumps({"kernels": kernels}))

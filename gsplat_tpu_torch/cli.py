@@ -3,7 +3,8 @@
 
 Parses the config, reads the three COLMAP ``.bin`` files from
 ``<dataset_root>/<dataset_path>/sparse/0/``, initializes Gaussians from the
-SfM points, trains, and writes ``<output_dir>/checkpoint.npz`` and
+SfM points (points3D.bin through the native parser of ``io/native.py``,
+built at first use), trains, and writes ``<output_dir>/checkpoint.npz`` and
 ``<output_dir>/trained.ply``. Same flags as the reference: ``--resume
 ckpt.npz``, ``--max-iters N``, and ``--dp N`` (a batch of N cameras a
 step) or ``--tp N`` (each step's camera split into N strips of tile rows),
@@ -20,7 +21,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 USAGE = ("Usage: python -m gsplat_tpu_torch.cli <config.yaml> <dataset_root> "
@@ -89,7 +89,8 @@ def _run(argv: list[str], vals: dict, device, rank: int = 0) -> int:
     ``--tp`` ranks (or alone)."""
     say = print if rank == 0 else (lambda *a, **k: None)
     from .config import parse_config
-    from .io.colmap import read_cameras_binary, read_images_binary, read_points3d_binary
+    from .io import native
+    from .io.colmap import read_cameras_binary, read_images_binary
     from .train.init import initialize_gaussians
     from .train.trainer import Trainer
 
@@ -101,10 +102,8 @@ def _run(argv: list[str], vals: dict, device, rank: int = 0) -> int:
     cameras = read_cameras_binary(sparse / "cameras.bin", config.downsample_factor)
     images = read_images_binary(sparse / "images.bin", str(root) + "/",
                                 config.downsample_factor)
-    points = read_points3d_binary(sparse / "points3D.bin")
-    xyz = np.stack([p.xyz for p in points.values()])
-    rgb = np.stack([p.rgb for p in points.values()])
-    say(f"  {len(cameras)} cameras, {len(images)} images, {len(points)} points")
+    xyz, rgb, _, _ = native.parse_points3d(sparse / "points3D.bin")
+    say(f"  {len(cameras)} cameras, {len(images)} images, {xyz.shape[0]} points")
     t0 = time.time()
     gaussians = initialize_gaussians(xyz, rgb, config)
     say(f"Initialized {gaussians.num} gaussians in {time.time() - t0:.2f}s")

@@ -15,6 +15,8 @@ The reference's ``build_tile_tables``, resized for a GPU:
 3. ONE stable radix sort on ``(tile << qd_bits) | quantized depth``.
    Candidates are Gaussian-major and a Gaussian has at most one pair per
    tile, so stability reproduces the reference's ``(key, gid)`` order.
+   The exact-ordering mode (``depth_rank=``) puts a dense depth rank in
+   place of the quantized depth, in ``bitlen(N - 1)`` bits.
 4. Tile ranges come from ``searchsorted`` at the qd-aligned boundaries.
 5. The same two facts give the backward its per-Gaussian runs without a
    second sort: Gaussian g's candidates are the run ``[pair_start[g],
@@ -176,9 +178,11 @@ def _exclusive_offsets(counts: torch.Tensor):
 
 
 def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size,
-                      row_limit=None):
+                      row_limit=None, depth_rank=None):
     """Level-1 records: one run of tile rows per visible Gaussian, rows
-    clipped to ``[0, row_limit)`` (default ``num_tiles_y``).
+    clipped to ``[0, row_limit)`` (default ``num_tiles_y``). The depth
+    field is ``depth_rank`` where given (0 for Gaussians without a row),
+    else the quantized depth.
 
     Returns (geometry, records (2, N) int32 [gid, ty0 - offset],
     offsets_ext (N+1,) int32, total_rows). After expansion, slot s of a
@@ -204,7 +208,10 @@ def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_siz
     )
     zero = torch.zeros_like(ty0)
     row_counts = torch.where(mask & has_x, torch.clamp(ty1 - ty0, min=0), zero)
-    qd = quantize_depth(z, depth_key_bits(num_tiles_x * num_tiles_y))
+    if depth_rank is not None:
+        qd = torch.where(row_counts > 0, depth_rank.to(torch.int32), zero)
+    else:
+        qd = quantize_depth(z, depth_key_bits(num_tiles_x * num_tiles_y))
     geom = Geometry(u, v, a1x, a1y, a2x, a2y, s_e, qd)
     off_ext, total_rows = _exclusive_offsets(row_counts)
     gid = torch.arange(n, dtype=torch.int32, device=dev)
@@ -295,6 +302,7 @@ def build_tile_tables(
     tile_size: int,
     row_limit: int | None = None,
     bf16_colors: bool = True,
+    depth_rank: torch.Tensor | None = None,
 ) -> TileTables:
     """Exact binning of every frame.
 
@@ -307,12 +315,25 @@ def build_tile_tables(
       bf16_colors: the reference's default packed mode (f16 tile-relative
         u, v, bf16 conic and opacity, e5s9 colour), recorded on the tables
         for the rasterizers; False is its exact f32 mode.
+      depth_rank: optional (N,) int32 dense depth rank (0 = nearest, e.g.
+        the argsort of the argsort of z): the reference's exact-ordering
+        mode. The rank replaces the quantized depth in the sort key, so a
+        tile's splats are in exact rank order. It needs
+        ``bitlen(num_tiles) + bitlen(N - 1) <= 30``, N the capacity.
     """
     num_tiles = num_tiles_x * num_tiles_y
-    qd_bits = depth_key_bits(num_tiles)
+    if depth_rank is not None:
+        qd_bits = max(1, int(uv.shape[0] - 1).bit_length())
+        if int(num_tiles).bit_length() + qd_bits > 30:
+            raise ValueError(
+                "exact depth-rank mode needs bitlen(tiles) + bitlen(N-1) "
+                f"<= 30; got {int(num_tiles).bit_length()} + {qd_bits}"
+            )
+    else:
+        qd_bits = depth_key_bits(num_tiles)
     geom, rec1, off1, total_rows = row_expand_inputs(
         uv, z, radius, mask, num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y,
-        tile_size=tile_size, row_limit=row_limit,
+        tile_size=tile_size, row_limit=row_limit, depth_rank=depth_rank,
     )
     rows = segment_expand(rec1, off1, total_rows)
     rec2, off2, total_pairs = pair_expand_inputs(

@@ -2,14 +2,16 @@
 ``gsplat_tpu/train/init.py``, numpy as there).
 
 - isotropic log-scale from the mean distance to the 3 nearest neighbours
-  (scipy's ``cKDTree``; 0.01 where a point has none or sits on another);
+  (the C++ kd-tree of ``io/native.py``, built at first use; 0.01 where a
+  point has none or sits on another);
 - colour as the SH DC coefficient ``(rgb/255 - 0.5) / Y00``;
 - opacity ``logit(0.2)``; identity quaternion.
 
 With ``strict_reference=False`` the config's ``initial_opacity``,
 ``initial_scale_num_neighbors``, ``initial_scale_factor`` and
-``max_initial_scale`` apply. The reference's native KNN library is not
-carried over.
+``max_initial_scale`` apply. ``knn_mean_dist_plain`` (scipy's
+``cKDTree``) is the plain version the tests hold the native KNN against;
+a failed build raises and never falls back to it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 import numpy as np
 
 from ..config import ConfigParameters
+from ..io import native
 
 Y00 = 0.28209479177387814
 
@@ -69,8 +72,10 @@ class GaussianData:
         )
 
 
-def _knn_mean_dist(xyz: np.ndarray, k: int) -> np.ndarray:
-    """Mean distance to each point's k nearest neighbours (self excluded)."""
+def knn_mean_dist_plain(xyz: np.ndarray, k: int) -> np.ndarray:
+    """Mean distance to each point's k nearest neighbours (self excluded),
+    with scipy's ``cKDTree``: the plain version of
+    ``io.native.knn_mean_dist``."""
     from scipy.spatial import cKDTree
 
     tree = cKDTree(xyz)
@@ -106,7 +111,7 @@ def initialize_gaussians(
     k = 3 if strict else int(config.initial_scale_num_neighbors)
     opacity0 = 0.2 if strict else float(config.initial_opacity)
 
-    avg_dist = _knn_mean_dist(xyz, k) if n > 1 else np.full((n,), 0.01, np.float32)
+    avg_dist = native.knn_mean_dist(xyz, k)  # 0.01 for a lone point
     # A duplicated point has distance 0, whose log is -inf: 0.01 instead,
     # as for a point without neighbours.
     avg_dist = np.where(avg_dist > 0, avg_dist, 0.01).astype(np.float32)

@@ -219,3 +219,92 @@ def test_depth_key_bits_match_jax(num_tiles):
     assert qd == j_binning.depth_key_bits(num_tiles)
     assert binning.sort_key_bits(num_tiles, qd) <= 30
     assert binning.sort_key_bits(4293, 16) == 29  # 1296x840 at tile 16
+
+
+# ------------------------------------------------ exact-ordering mode (depth_rank)
+
+
+def _rank_scene(rng):
+    """tests/test_render.py::test_depth_rank_exact_ordering's scene: 150
+    Gaussians at 64x64, half of them at one depth, and their dense rank."""
+    n = 150
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, 64, 64)
+    z[: n // 2] = z[0]
+    rank = np.zeros(n, np.int32)
+    rank[np.argsort(z, kind="stable")] = np.arange(n, dtype=np.int32)
+    return uv, conic, radius, z, opa, rgb, np.ones(n, bool), rank
+
+
+def _port_rank_tables(uv, z, radius, mask, rank, ntx=4, nty=4):
+    return binning.build_tile_tables(
+        torch.from_numpy(uv), torch.from_numpy(z), torch.from_numpy(radius),
+        torch.from_numpy(mask), num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE,
+        depth_rank=torch.from_numpy(rank),
+    )
+
+
+def test_depth_rank_tables_equal_jax(rng):
+    """Under a rank the sort key has no rounding, so R6 cannot swap two
+    splats: the port's tables equal JAX's exactly, order included, and
+    each tile lists its splats in strictly ascending rank."""
+    uv, conic, radius, z, opa, rgb, mask, rank = _rank_scene(rng)
+    attrs = j_pack_attrs(jnp.asarray(uv), jnp.asarray(conic), jnp.asarray(rgb),
+                         jnp.asarray(opa))
+    ref = j_binning.build_tile_tables(
+        jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius), jnp.asarray(mask),
+        attrs=attrs, num_tiles_x=4, num_tiles_y=4, tile_size=TILE, pair_cap=2048,
+        chunk_size=128, row_cap=1024, interpret=True, depth_rank=jnp.asarray(rank),
+    )
+    port = _port_rank_tables(uv, z, radius, mask, rank)
+    assert port.num_pairs == int(ref.num_pairs) > 0
+    np.testing.assert_array_equal(port.tile_start.numpy(), np.asarray(ref.tile_start))
+    np.testing.assert_array_equal(port.tile_count.numpy(), np.asarray(ref.tile_count))
+    np.testing.assert_array_equal(port.splat_gid.numpy(),
+                                  np.asarray(ref.splat_gid)[: port.num_pairs])
+    for gids in _lists(port.splat_gid.numpy(), port.tile_start.numpy(),
+                       port.tile_count.numpy()):
+        assert np.all(np.diff(rank[gids]) > 0)
+
+
+def test_depth_rank_pair_set_equals_default_mode(rng):
+    """The rank changes only the order within a tile: the ranges and each
+    tile's set of splats equal the default mode's, and the per-Gaussian
+    runs still invert the tile sort."""
+    uv, conic, radius, z, opa, rgb, mask, rank = _rank_scene(rng)
+    port = _port_rank_tables(uv, z, radius, mask, rank)
+    dflt = _port_tables(uv, z, radius, mask, 4, 4)
+    np.testing.assert_array_equal(port.tile_start.numpy(), dflt.tile_start.numpy())
+    np.testing.assert_array_equal(port.tile_count.numpy(), dflt.tile_count.numpy())
+    lists = _lists(port.splat_gid.numpy(), port.tile_start.numpy(), port.tile_count.numpy())
+    d_lists = _lists(dflt.splat_gid.numpy(), dflt.tile_start.numpy(),
+                     dflt.tile_count.numpy())
+    assert [sorted(a) for a in lists] == [sorted(b) for b in d_lists]
+    gid, slot, start = (t.numpy() for t in (port.splat_gid, port.pair_slot, port.pair_start))
+    np.testing.assert_array_equal(gid[slot], np.repeat(np.arange(len(z)), np.diff(start)))
+
+
+def test_depth_rank_key_budget():
+    """bitlen(tiles) + bitlen(N - 1) <= 30: 1296x840 at tile 16 (4,293
+    tiles, 13 bits) takes a capacity of 2^17 (17 bits) exactly, and 2^17 + 1
+    raises the reference's ValueError in both packages."""
+    ntx, nty = 81, 53
+    assert binning.sort_key_bits(ntx * nty, 17) == 30
+    for n in (1 << 17, (1 << 17) + 1):
+        uv = np.zeros((n, 2), np.float32)
+        z = np.ones(n, np.float32)
+        radius = np.zeros((n, 4), np.float32)
+        mask = np.zeros(n, bool)
+        rank = np.arange(n, dtype=np.int32)
+        if n == 1 << 17:
+            port = _port_rank_tables(uv, z, radius, mask, rank, ntx, nty)
+            assert port.num_pairs == 0 and int(port.tile_count.sum()) == 0
+            continue
+        with pytest.raises(ValueError, match="depth-rank"):
+            _port_rank_tables(uv, z, radius, mask, rank, ntx, nty)
+        with pytest.raises(ValueError, match="depth-rank"):
+            j_binning.build_tile_tables(
+                jnp.asarray(uv), jnp.asarray(z), jnp.asarray(radius), jnp.asarray(mask),
+                attrs=jnp.zeros((n, 9), jnp.float32), num_tiles_x=ntx, num_tiles_y=nty,
+                tile_size=TILE, pair_cap=4096, chunk_size=128, interpret=True,
+                depth_rank=jnp.asarray(rank),
+            )

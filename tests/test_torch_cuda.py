@@ -235,6 +235,23 @@ def test_binning_on_card_equals_cpu(dev):
     assert same >= 0.999, same
 
 
+def test_binning_depth_rank_on_card_equals_cpu(dev):
+    """Under a dense depth rank no rounding enters the sort key: the card's
+    tables equal the CPU path's, order included (30 - 9 bits to spare)."""
+    width, height = 320, 240
+    uv, radius, z, _ = _scene(np.random.default_rng(1), 20_000, width, height)
+    mask = torch.ones(uv.shape[0], dtype=torch.bool)
+    rank = torch.empty(uv.shape[0], dtype=torch.int32)
+    rank[torch.argsort(z, stable=True)] = torch.arange(uv.shape[0], dtype=torch.int32)
+    kw = dict(num_tiles_x=width // 16, num_tiles_y=height // 16, tile_size=16)
+    cpu = build_tile_tables(uv, z, radius, mask, depth_rank=rank, **kw)
+    gpu = build_tile_tables(uv.to(dev), z.to(dev), radius.to(dev), mask.to(dev),
+                            depth_rank=rank.to(dev), **kw)
+    assert gpu.num_pairs == cpu.num_pairs > 0
+    for f in ("splat_gid", "tile_start", "tile_count", "pair_slot", "pair_start"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
 def _backward_inputs(rng, n, width, height, saturate=False):
     """Tables, attrs, forward output and a random image cotangent (CPU)."""
     ntx, nty = (width + 15) // 16, (height + 15) // 16

@@ -164,9 +164,12 @@ def test_import_pulls_in_no_jax_gsplat_tpu_or_yaml():
         " ('jax', 'jaxlib', 'gsplat_tpu', 'yaml', 'PIL'))\n"
         "print(len([k for k in sys.modules if k.startswith('gsplat_tpu_torch.')]))\n"
         "assert not bad, bad\n"
+        "from gsplat_tpu_torch.io import native\n"
+        "from gsplat_tpu_torch.kernels import _build\n"
+        "assert native._loaded is None and _build._lib is None  # nothing built at import\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 38  # every module was imported
+    assert int(proc.stdout.strip()) >= 43  # every module was imported
