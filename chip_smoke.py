@@ -135,6 +135,38 @@ words), and its exact f32 mode where named
     disk. (d) ``StageTimers``' report of (c)'s stages, and ``device_trace``
     over two more train steps: the trace file's size and its device
     kernels (> 0).
+15. drives the configuration's ceiling. (a) ``tools/bench_scale.py``'s
+    train step at SCALE_N = 4,250,000 Gaussians (configs/base.yaml's
+    max_gaussians), capacity 6,291,456 (2^22 + 2^21), 1296x840, SH 3, in
+    the packed (default) mode, at the JAX package's two recorded scale
+    points (scale_mul 0.97 and 1.52, ``SCALE_r04.json`` and
+    ``SCALE_WIDE_r04.json``): one step, then 3 x 6 timed by CUDA events;
+    pairs and tile rows beside the recorded counts with their relative
+    difference, ms a step, peak allocated memory, a device profile of
+    SCALE_PROFILE_STEPS more steps; every kernel of the packed path
+    launched (K5 twice a step, the tile sort, the inverse permutation, K1,
+    K2 and K4 packed, once a step); one exact-mode step from the same
+    state (finite loss, its pairs those of the packed path on that state,
+    no packed launch). At 0.97 also: two gradient calls on one state
+    bit-identical, and every kernel against its plain version at these
+    shapes as in [3], [6], [7] and [10] (K1 and K2 on the whole frame),
+    timed beside its bound and library call, and printed beside the 1M
+    view's times. (b) ``tools/train_at_scale.py`` at its default (2,000
+    iterations at 1296x840, 24 views of 6,000 true Gaussians, a
+    20,000-point start, max_gaussians 2M): finite losses (kept on the
+    card, read at the end), density steps at the schedule's iterations
+    (400 to 1,600), the capacity growing exactly at the steps whose new
+    total exceeds it (from 20,000 points it stays at 32,768), alive
+    opacities equal to logit(0.05) right after the schedule's one reset
+    (at 1,500),
+    l_max 3, eval PSNR higher after than before, the PLY's vertex count
+    equal to the alive count, the checkpoint reloaded into a fresh
+    ``Trainer`` bit-identical, every kernel of the packed path launched
+    and the Morton site once a density step; iterations a second, ms an
+    iteration with and without a density step (CUDA events between
+    iteration starts), the density step's ms and peak memory; images
+    through PIL on disk. (c) the same from a SPARSE_POINTS (2,000) point
+    start, with the same checks and at least two capacity growths.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -148,8 +180,10 @@ these inputs need and those of them past the 1/255 cutoff,
 ``pair_pixel_counts``), then orders the kernels by launches per train step
 x (time - bound). Prints one JSON line of kernels (the rasterizers and the
 segment sum once a mode, ``"mode"``; launches from [9]'s run of that
-mode, ``launches_e2e`` from [14c]'s; the radix sort also in [14b]'s
-``depth_rank`` mode), then the nvidia-smi
+mode, ``launches_e2e`` from [14c]'s, ``launches_scale`` from every run
+of [15] (its exact steps give the exact entries; no run of [15] takes
+``depth_rank``), ``scale`` the kernel's times at the 4.25M point; the
+radix sort also in [14b]'s ``depth_rank`` mode), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
@@ -167,6 +201,10 @@ runs [1] and [13] alone, with its checks (no result line).
 runs [1] and [14] alone, with its checks (no result line): about 90 s on
 an H100 80GB HBM3 at 700 W, the e2e recipe's 600 iterations 20-26 s of
 it and the 1M-point Python reader 7-10 s.
+
+    python3 chip_smoke.py --scale
+
+runs [1] and [15] alone, with its checks (no result line).
 
     python3 -P chip_smoke.py --train-profile
 
@@ -1024,7 +1062,7 @@ def train_scene(cams, st, dev):
     return gts, init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
 
 
-def run_steps(state, cams, gts, st, its, quiet: bool = False):
+def run_steps(state, cams, gts, st, its, quiet: bool = False, bg: float = BG):
     """train_step at iterations ``its``, view it % 4: (state, losses, ms
     between CUDA events per step)."""
     from gsplat_tpu_torch.train.step import train_step
@@ -1036,7 +1074,7 @@ def run_steps(state, cams, gts, st, its, quiet: bool = False):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        state, m = train_step(state, cm.view, cm.proj, cm.campos, gts[v], BG, it, st)
+        state, m = train_step(state, cm.view, cm.proj, cm.campos, gts[v], bg, it, st)
         end.record()
         end.synchronize()
         losses.append(float(m.loss))
@@ -1058,7 +1096,8 @@ def port_kernel_names() -> set:
 
 
 def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float,
-                  steps: int = TRAIN_PROFILE_STEPS, label: str = "", kernels: bool = True):
+                  steps: int = TRAIN_PROFILE_STEPS, label: str = "", kernels: bool = True,
+                  bg: float = BG):
     """torch.profiler over ``steps`` more train steps: device ms and
     launches per step, the busy share (device ms over ``wall_ms``, the
     median ms/step of the timed steps), the port's kernels and the other
@@ -1068,7 +1107,7 @@ def profile_steps(state, cams, gts, st, first_it: int, wall_ms: float,
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _, _ = run_steps(state, cams, gts, st,
-                                range(first_it, first_it + steps), quiet=True)
+                                range(first_it, first_it + steps), quiet=True, bg=bg)
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.device_time_total / 1e3 / steps, e.count / steps)
                    for e in prof.key_averages() if e.device_time_total > 0),
@@ -2326,6 +2365,295 @@ def remaining_slice(dev) -> dict:
     return dict(depth_rank=entry, e2e_launches=launches)
 
 
+# [15]: the configuration's ceiling. The JAX package's recorded geometry at
+# its two scale points (counts, not times): scale_mul -> file.
+SCALE_N = 4_250_000
+SCALE_POINTS = ((0.97, "SCALE_r04.json"), (1.52, "SCALE_WIDE_r04.json"))
+SCALE_PROFILE_STEPS = 4  # [15a]: profiled train steps a point
+SCALE_TIMING_ITERS = 5  # [15a]: kernel timings at the scale point
+SCALE_ITERS = 2000  # [15b]: tools/train_at_scale.py at its default length
+# [15c]: the recipe from a sparser cloud. From its default 20,000 points the
+# scene stays within the first bucket (32,768); from 2,000 the capacity
+# grows through 4,096 -> 8,192 -> 16,384 on an H100.
+SPARSE_POINTS = 2000
+SCALE_TITLE = ("[15] the configuration's ceiling: the 4.25M-Gaussian train step and the "
+               "garden-scale long run")
+# The kernels of the packed path, a step of the scale point: key -> launches
+# a step (K5 at both binning levels, the tile sort once).
+SCALE_STEP_LAUNCHES = {"segment_expand": 2, "radix_sort": 1, "radix_sort/tile": 1,
+                       "inverse_permutation": 1, "rasterize_forward": 1,
+                       "rasterize_forward/packed": 1, "rasterize_backward": 1,
+                       "rasterize_backward/packed": 1, "segment_sum": 1,
+                       "segment_sum/packed": 1}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def recorded_geometry(name: str) -> dict:
+    """The JAX package's counts at a scale point (``SCALE_*.json``)."""
+    return json.loads((Path(__file__).resolve().parent / name).read_text())
+
+
+def scale_point(dev, scale_mul: float, ref: dict, total: dict, compare: bool) -> tuple:
+    """[15a] at one ``scale_mul``: ``tools/bench_scale.run`` (one step, then
+    3 x 6 timed), its pairs and tile rows beside the JAX package's recorded
+    ones, a device profile, one exact-mode step from the same state; with
+    ``compare``, the packed path's gradients twice and every kernel against
+    its plain version at these shapes. Adds the runs' launches to
+    ``total``; returns the failed checks and, with ``compare``, the
+    kernels' results (else None)."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import bench_scale
+    from gsplat_tpu_torch.train.state import round_capacity
+    from gsplat_tpu_torch.train.step import compute_loss_and_grads, render_image, train_step
+
+    failed = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = bench_scale.run(SCALE_N, scale_mul, device=dev, log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    add_launches(total, launches)
+    steps = 1 + res.steps * len(res.step_ms)
+    # The JAX package recorded the last step's pairs and tile rows, its rows
+    # with a sentinel for every record of the capacity that has none.
+    rel = [(a - b) / b for a, b in ((res.pairs, ref["num_pairs"]),
+                                    (res.last_pairs, ref["num_pairs"]),
+                                    (res.reference_rows, ref["row_overflow"]))]
+    log(f"  [15a] scale_mul {scale_mul}: capacity {res.capacity}; pairs {res.pairs} at the "
+        f"first step, {res.last_pairs} at the last (JAX package, last step: "
+        f"{ref['num_pairs']}; {100 * rel[0]:+.4f} %, {100 * rel[1]:+.4f} %); tile rows at "
+        f"the first step {res.rows} of {res.row_gaussians} Gaussians, {res.reference_rows} "
+        f"with the sentinels (JAX package, last step: {ref['row_overflow']}; "
+        f"{100 * rel[2]:+.4f} %); {statistics.median(res.step_ms):.3f}"
+        f" ms a step (CUDA events, reps {', '.join(f'{t:.3f}' for t in res.step_ms)}); first "
+        f"step {res.first_s:.3f} s; loss {res.loss:.6f}; peak allocated "
+        + ("not measured" if res.peak_mib is None else f"{res.peak_mib:.0f} MiB"))
+    log(f"  launches over {steps} steps: {launches}")
+    want = {k: n * steps for k, n in SCALE_STEP_LAUNCHES.items()}
+    if {k: launches[k] for k in want} != want:
+        failed.append(f"scale_mul {scale_mul}: launches {launches}, want {want}")
+    if not (res.loss_finite and res.capacity == round_capacity(SCALE_N) and res.pairs > 0):
+        failed.append(f"scale_mul {scale_mul}: loss {res.loss}, capacity {res.capacity}")
+    state, cm, gt, st = res.state, res.camera, res.target, res.statics
+    # The profile's and the comparisons' launches are not counted.
+    state, _ = profile_steps(state, [cm], [gt], st, 1, statistics.median(res.step_ms),
+                             steps=SCALE_PROFILE_STEPS, label=f", scale_mul {scale_mul}",
+                             kernels=compare, bg=0.0)
+    kernels = None
+    if compare:
+        calls = [compute_loss_and_grads(state.params, cm.view, cm.proj, cm.campos, gt, 0.0, st)
+                 for _ in range(2)]
+        (_, _, _, tables, g_a, uv_a), (_, _, _, _, g_b, uv_b) = calls
+        same = all(torch.equal(bits_of(g_a[k]), bits_of(g_b[k])) for k in g_a)
+        same &= torch.equal(bits_of(uv_a), bits_of(uv_b))
+        counts_per_tile = tables.tile_count
+        log(f"  gradients of two calls on the same state bit-identical {same}; K1 and K2 "
+            f"compared on all {counts_per_tile.shape[0]} tiles, the densest holding "
+            f"{int(counts_per_tile.max())} pairs")
+        if not same:
+            failed.append("two gradient calls at the scale point differ")
+        del calls, g_a, g_b, uv_a, uv_b, tables
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels = compare_kernels(state.params, cm, st, SCALE_TIMING_ITERS)
+        kernels.update(compare_backward(state.params, cm, st, SCALE_TIMING_ITERS))
+        log(f"  peak allocated during the comparisons {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+            f" MiB")
+    # One exact-mode step from the same state: binning does not depend on
+    # the mode, so its pairs are the packed path's on this state.
+    packed_pairs = render_image(state.params, cm.view, cm.proj, cm.campos, 0.0, st)[1].num_pairs
+    _build.reset_launches()
+    with mode_context("exact"):
+        state, m = train_step(state, cm.view, cm.proj, cm.campos, gt, 0.0, steps, st)
+        exact_loss = float(m.loss)
+    torch.cuda.synchronize()
+    exact = dict(_build.launches)
+    add_launches(total, exact)
+    log(f"  exact-mode step from the same state: loss {exact_loss:.6f}, pairs {m.num_pairs} "
+        f"(packed on this state {packed_pairs}); launches {exact}")
+    if not (math.isfinite(exact_loss) and m.num_pairs == packed_pairs):
+        failed.append(f"scale_mul {scale_mul}: exact step loss {exact_loss}, pairs "
+                      f"{m.num_pairs} vs {packed_pairs}")
+    if any(exact[k] for k in exact if k.endswith("/packed")) or min(
+            exact[k] for k in SCALE_STEP_LAUNCHES if not k.endswith("/packed")) <= 0:
+        failed.append(f"scale_mul {scale_mul}: exact step launches {exact}")
+    del res, state, m
+    torch.cuda.empty_cache()
+    return failed, kernels
+
+
+def logit(p: float) -> torch.Tensor:
+    return torch.tensor(math.log(p) - math.log(1.0 - p), dtype=torch.float32)
+
+
+def schedule_its(iters: int, start: int, interval: int, end: int) -> list:
+    """The iterations at which the trainer fires a density step or an
+    opacity reset of this schedule."""
+    return [i for i in range(iters) if i > start and i % interval == 0 and i < end]
+
+
+def long_run_slice(dev, iters: int = SCALE_ITERS, width: int = WIDTH,
+                   height: int = HEIGHT, min_growths: int = 0, **run_args) -> tuple:
+    """[15b], [15c] ``tools/train_at_scale.py``'s run: its losses (kept on
+    the card, read at the end), a CUDA event at the start of each
+    iteration, the opacities right after each reset; then its checks, the
+    capacity growing at least ``min_growths`` times and exactly at the
+    density steps whose new total exceeds it. ``run_args`` go to
+    ``train_at_scale.run`` (another start; a smaller run to rehearse on
+    the CPU). Returns (failed checks, the run's launches)."""
+    import tempfile
+
+    import PIL
+
+    from gsplat_tpu_torch.io.ply import load_ply
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import train_at_scale
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+
+    log(f"  images through PIL {PIL.__version__} on disk")
+    rec = dict(events=[], losses=[], resets=[])
+    real_step, real_reset = trainer_mod.train_step, trainer_mod.reset_opacity
+
+    def step(*args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        rec["events"].append(ev)
+        state, m = real_step(*args)
+        rec["losses"].append(m.loss)
+        return state, m
+
+    def reset(state, value):
+        state = real_reset(state, value)
+        op = state.params.opacity.detach()[state.alive]
+        rec["resets"].append((len(rec["events"]) - 1, op.numel(),
+                              bool((op == logit(value).to(op.device)).all())))
+        return state
+
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        trainer_mod.train_step, trainer_mod.reset_opacity = step, reset
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            res = train_at_scale.run(iters, width, height, root=tmp, device=dev,
+                                     log=lambda m: log("  " + m), **run_args)
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+        finally:
+            trainer_mod.train_step, trainer_mod.reset_opacity = real_step, real_reset
+        tr, cfg = res.trainer, res.trainer.config
+        losses = torch.stack(rec["losses"]).cpu()
+        events = rec["events"]
+        # An iteration's time runs to the next one's start: the last is left out.
+        iter_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        dens_its = [d.iteration for d in res.density]
+        grown = [d for d in res.density if d.capacity_after != d.capacity_before]
+        for d in res.density:
+            log(f"  density step at {d.iteration}: pruned {d.pruned}, cloned {d.cloned}, "
+                f"split {d.split}, new total {d.new_total}, applied {d.applied}, capacity "
+                f"{d.capacity_before} -> {d.capacity_after}; {d.ms:.2f} ms")
+        for d in grown:
+            log(f"  grow_state at {d.iteration}: capacity {d.capacity_after}")
+        busy = {i for i in range(iters) if i % cfg.print_interval == 0
+                or i % cfg.test_eval_interval == 0}
+        plain = [ms for i, ms in enumerate(iter_ms) if i and i not in busy and i not in dens_its]
+        with_density = [ms for i, ms in enumerate(iter_ms) if i in dens_its and i not in busy]
+        dens_ms = [d.ms for d in res.density]
+        med = lambda xs: statistics.median(xs) if xs else math.nan  # noqa: E731
+        log(f"  eval PSNR {res.psnr_init:.4f} -> {res.psnr_final:.4f} dB "
+            f"({res.psnr_final - res.psnr_init:+.4f} dB), {iters} iterations in "
+            f"{res.wall_s:.3f} s ({res.it_per_s:.3f} it/s), {res.gaussians_init} -> "
+            f"{res.gaussians_final} Gaussians, capacities {res.capacities}, l_max {res.l_max}")
+        log(f"  ms an iteration (median, CUDA events between iteration starts): "
+            f"{med(plain):.3f} without a density step, "
+            f"{med(with_density):.3f} with one; density step "
+            f"{med(dens_ms):.3f} ms (median of {len(dens_ms)}, largest "
+            f"{max(dens_ms, default=math.nan):.3f}); peak allocated {peak:.0f} MiB")
+        log(f"  opacity resets (iteration, alive, all equal logit(0.05)): {rec['resets']}")
+        log(f"  launches: {launches}")
+        finite = bool(torch.isfinite(losses).all())
+        log(f"  losses: {losses.numel()} finite {finite}, first {losses[0].item():.6f}, "
+            f"last {losses[-1].item():.6f}, mean of the last 100 "
+            f"{losses[-100:].mean().item():.6f}")
+        if not (finite and losses.numel() == iters):
+            failed.append("a loss is not finite")
+        if len(grown) < min_growths:
+            failed.append(f"the capacity grew {len(grown)} times, not at least {min_growths}")
+        if not all((d.capacity_after > d.capacity_before) == (d.new_total > d.capacity_before)
+                   and d.capacity_after >= d.new_total for d in res.density):
+            failed.append("the capacity did not grow exactly where a density step needed it")
+        want_dens = schedule_its(iters, cfg.adaptive_control_start,
+                                 cfg.adaptive_control_interval, cfg.adaptive_control_end)
+        if dens_its != want_dens:
+            failed.append(f"density steps at {dens_its}, want {want_dens}")
+        want_resets = schedule_its(iters, cfg.reset_opacity_start, cfg.reset_opacity_interval,
+                                   cfg.reset_opacity_end)
+        if [r[0] for r in rec["resets"]] != want_resets or not all(r[2] for r in rec["resets"]):
+            failed.append(f"opacity resets {rec['resets']}, want them at {want_resets}")
+        if res.l_max != 3:
+            failed.append(f"l_max {res.l_max}")
+        if not (math.isfinite(res.psnr_final) and res.psnr_final > res.psnr_init):
+            failed.append("the eval PSNR did not rise")
+        verts = load_ply(res.ply)["xyz"].shape[0]
+        log(f"  final.ply: {verts} vertices, {res.gaussians_final} alive")
+        if verts != res.gaussians_final:
+            failed.append("PLY vertex count")
+        never = [k for k in E2E_KERNELS if launches[k] <= 0]
+        if never or launches["radix_sort/morton"] != len(res.density):
+            failed.append(f"launches {launches}")
+        fresh = trainer_mod.Trainer(cfg, res.gaussians, tr.images, tr.cameras, device=dev)
+        fresh.load_checkpoint(res.checkpoint)
+        diff = differing(fresh.state, tr.state)
+        log(f"  checkpoint reloaded into a fresh Trainer: iteration {fresh.iter}, l_max "
+            f"{fresh.l_max}, tensors differing {diff}")
+        if diff or fresh.iter != iters or fresh.l_max != res.l_max:
+            failed.append("the checkpoint does not reload bit-identical")
+        del res, tr, fresh
+    torch.cuda.empty_cache()
+    return failed, launches
+
+
+def scale_slice(dev) -> dict:
+    """[15]: a, b and c above; raises if a check of any part failed.
+    Returns the launches of every run it drove (the exact steps' and the
+    long runs' included) and the 0.97 point's kernel results."""
+    failed, total, kernels = [], {}, None
+    for i, (scale_mul, name) in enumerate(SCALE_POINTS):
+        log(f"  [15a] tools/bench_scale.py at {SCALE_N} Gaussians, scale_mul {scale_mul} "
+            f"(the JAX package's {name}), 1296x840, SH 3, packed")
+        f, res = scale_point(dev, scale_mul, recorded_geometry(name), total, compare=i == 0)
+        failed += f
+        kernels = kernels or res
+    for label, kw in (("15b", dict()), ("15c", dict(n_points=SPARSE_POINTS, min_growths=2))):
+        log(f"  [{label}] tools/train_at_scale.py, {SCALE_ITERS} iterations at 1296x840, 24 "
+            f"views, from {kw.get('n_points', 'its default')} points")
+        f, launches = long_run_slice(dev, **kw)
+        failed += f
+        add_launches(total, launches)
+    log(f"  [15] launches: {total}")
+    if failed:
+        raise AssertionError(f"[15] failed: {failed}")
+    return dict(launches=total, kernels=kernels)
+
+
+def log_scale_table(scale: dict, at_1m: dict) -> None:
+    """Each kernel's time, bound and library time at the 4.25M scale point
+    ([15a], scale_mul 0.97) beside the 1M view's ([6], [10])."""
+    log("  kernel: ms / bound / library at 4.25M (scale_mul 0.97) | at 1M; time ratio")
+    lib = lambda x: "none" if x is None else f"{x:.4f}"  # noqa: E731
+    for key, r in scale["kernels"].items():
+        one = at_1m[key]
+        log(f"    {key}: {r['ms']:.4f} / {r['bound_ms']:.4f} ({r['bound_by']}) / "
+            f"{lib(r['library_ms'])} | {one['ms']:.4f} / {one['bound_ms']:.4f} / "
+            f"{lib(one['library_ms'])}; x{r['ms'] / one['ms']:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2364,6 +2692,10 @@ def main() -> int:
     if sys.argv[1:] == ["--e2e"]:
         log(REMAINING_TITLE)
         remaining_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--scale"]:
+        log(SCALE_TITLE)
+        scale_slice(dev)
         return 0
 
     # 2. Build.
@@ -2474,6 +2806,12 @@ def main() -> int:
     log(REMAINING_TITLE)
     rest = remaining_slice(dev)
 
+    # 15. The configuration's ceiling: the 4.25M-Gaussian train step at
+    # both recorded scale points, and the garden-scale long run.
+    log(SCALE_TITLE)
+    scale = scale_slice(dev)
+    log_scale_table(scale, {**res, **bwd})
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -2485,7 +2823,7 @@ def main() -> int:
     for name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
         table += [(name, "/packed", None, pk[f"{name}/packed"]),
                   (name, "", None, ex[name] - ex[f"{name}/packed"])]
-    e2e = rest["e2e_launches"]
+    e2e, at_scale = rest["e2e_launches"], scale["launches"]
     kernels, gaps = [], []
     for name, sfx, site, n_launch in table:
         r = both[name + sfx]
@@ -2494,7 +2832,11 @@ def main() -> int:
                      replaces=REPLACES[name], launches=n_launch,
                      launches_per_step=n_launch / TRAIN_STEPS,
                      launches_e2e=e2e[key] - (e2e[key + "/packed"]
-                                              if key + "/packed" in e2e else 0))
+                                              if key + "/packed" in e2e else 0),
+                     launches_scale=at_scale[key] - at_scale.get(key + "/packed", 0))
+        # The same kernel at the 4.25M scale point's shapes ([15a]).
+        entry["scale"] = {k: scale["kernels"][name + sfx][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         if site is not None:
             entry["site"] = site
         if name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
@@ -2514,15 +2856,16 @@ def main() -> int:
         name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
         replaces=REPLACES["radix_sort"], launches=morton["launches"],
         launches_per_density_step=morton["launches"] / morton["density_steps"], site="morton",
-        launches_e2e=e2e["radix_sort/morton"],
+        launches_e2e=e2e["radix_sort/morton"], launches_scale=at_scale["radix_sort/morton"],
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
-    # The tile sort of binning's exact-ordering mode: [14b]'s launches.
+    # The tile sort of binning's exact-ordering mode: [14b]'s launches. [15]
+    # runs no such mode: its 30-bit keys end at capacity 2^17 at 1296x840.
     r = rest["depth_rank"]
     kernels.append(dict(
         name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
         replaces=REPLACES["radix_sort"], launches=r["launches"], site="tile",
-        mode="depth_rank", key_bits=r["key_bits"],
+        mode="depth_rank", key_bits=r["key_bits"], launches_scale=0,
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     print(json.dumps({"kernels": kernels}))

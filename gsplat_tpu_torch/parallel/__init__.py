@@ -36,6 +36,7 @@ def initialize_multihost(
     process_id: int | None = None,
     backend: str | None = None,
     timeout: float = DEFAULT_TIMEOUT_S,
+    local_rank: int | None = None,
 ) -> None:
     """Join the default process group as rank ``process_id`` of
     ``num_processes``.
@@ -44,7 +45,11 @@ def initialize_multihost(
     rank 0's store. ``backend`` says where the ranks' tensors live:
 
     - ``"nccl"`` (the default): every rank has its own CUDA device, rank r
-      on ``cuda:r`` of one host; fewer devices than ranks raises;
+      on ``cuda:local_rank`` of its own host; a ``local_rank`` past the
+      host's devices raises. ``local_rank`` None means ``process_id``,
+      which holds when all ranks share one host. On several hosts, give
+      each process its index among its host's processes: rank 9 of 16 on
+      two hosts of 8 cards is ``local_rank`` 1;
     - ``"gloo"``: ranks on the CPU, or ranks that share one CUDA device
       (their collectives are staged through host memory, ``comm``).
 
@@ -62,11 +67,13 @@ def initialize_multihost(
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if backend == "nccl":
+        local_rank = process_id if local_rank is None else local_rank
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if cards < num_processes:
-            raise RuntimeError(f"backend nccl runs one CUDA device a rank: {num_processes} "
-                               f"ranks exceed the available devices ({cards})")
-        torch.cuda.set_device(process_id)
+        if not 0 <= local_rank < cards:
+            raise RuntimeError(f"backend nccl runs one CUDA device a rank: rank {process_id} "
+                               f"at local rank {local_rank}: ranks exceed the available "
+                               f"devices ({cards})")
+        torch.cuda.set_device(local_rank)
     addr = coordinator_address
     dist.init_process_group(
         backend, init_method=addr if "://" in addr else f"tcp://{addr}",

@@ -31,7 +31,10 @@ spawned rank imports this module to find its function.
   Trainer's on a scene with two camera geometries;
 - ``Trainer(dp=2)`` and ``Trainer(tp=2)`` through a density step and an
   opacity reset keep the replicas bit-identical, and only rank 0 writes;
-- ``cli.main(..., "--dp"/"--tp", "2", device="cpu")`` writes trained.ply.
+- ``cli.main(..., "--dp"/"--tp", "2", device="cpu")`` writes trained.ply;
+- ``initialize_multihost(backend="nccl")`` on the second of two hosts of 8
+  cards (the device count, ``set_device`` and the process group stood in):
+  rank 9 of 16 at local rank 1 joins on device 1; local rank 8 raises.
 """
 
 import dataclasses
@@ -674,3 +677,26 @@ def test_process_group_checks():
         parallel.require_world(2)
     with pytest.raises(ValueError, match="mutually exclusive"):
         t_trainer.Trainer(None, None, {}, {}, device="cpu", dp=2, tp=2)
+
+
+def test_nccl_rank_on_second_host(monkeypatch):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("device", d)))
+    monkeypatch.setattr(parallel.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    parallel.initialize_multihost("10.0.0.1:29500", 16, 9, backend="nccl", local_rank=1)
+    assert calls[0] == ("device", 1)
+    backend, kw = calls[1]
+    assert (backend, kw["init_method"], kw["world_size"], kw["rank"]) == (
+        "nccl", "tcp://10.0.0.1:29500", 16, 9)
+    calls.clear()
+    with pytest.raises(RuntimeError, match="exceed the available devices"):
+        parallel.initialize_multihost("10.0.0.1:29500", 16, 9, backend="nccl",
+                                      local_rank=8)
+    with pytest.raises(RuntimeError, match="exceed the available devices"):
+        parallel.initialize_multihost("10.0.0.1:29500", 16, 9, backend="nccl")
+    assert calls == []
+    parallel.initialize_multihost("10.0.0.1:29500", 8, 3, backend="nccl")
+    assert calls[0] == ("device", 3) and calls[1][1]["rank"] == 3
