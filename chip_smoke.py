@@ -151,22 +151,55 @@ words), and its exact f32 mode where named
     bit-identical, and every kernel against its plain version at these
     shapes as in [3], [6], [7] and [10] (K1 and K2 on the whole frame),
     timed beside its bound and library call, and printed beside the 1M
-    view's times. (b) ``tools/train_at_scale.py`` at its default (2,000
-    iterations at 1296x840, 24 views of 6,000 true Gaussians, a
-    20,000-point start, max_gaussians 2M): finite losses (kept on the
-    card, read at the end), density steps at the schedule's iterations
-    (400 to 1,600), the capacity growing exactly at the steps whose new
-    total exceeds it (from 20,000 points it stays at 32,768), alive
-    opacities equal to logit(0.05) right after the schedule's one reset
-    (at 1,500),
-    l_max 3, eval PSNR higher after than before, the PLY's vertex count
+    view's times. (b) ``tools/train_at_scale.py`` at half its default
+    length, SCALE_ITERS (1,000) iterations with every event of its
+    schedule at half the iteration (LONG_RUN_SCHEDULE; 1296x840, 24 views
+    of 6,000 true Gaussians, a 20,000-point start, max_gaussians 2M):
+    finite losses (kept on the card, read at the end), density steps at
+    the schedule's iterations (200 to 800), the capacity growing exactly
+    at the steps whose new total exceeds it (from 20,000 points it stays
+    at 32,768), alive opacities equal to logit(0.05) right after the
+    schedule's one reset (at 750), l_max 3, eval PSNR higher after than before, the PLY's vertex count
     equal to the alive count, the checkpoint reloaded into a fresh
     ``Trainer`` bit-identical, every kernel of the packed path launched
     and the Morton site once a density step; iterations a second, ms an
     iteration with and without a density step (CUDA events between
     iteration starts), the density step's ms and peak memory; images
     through PIL on disk. (c) the same from a SPARSE_POINTS (2,000) point
-    start, with the same checks and at least two capacity growths.
+    start, with the same checks and at least two capacity growths. After
+    every Morton sort of (b) and (c) the alive rows must be a prefix.
+16. runs the photo recipes on ``procedural_texture`` (seed 0, 1536x1024:
+    eight octaves of value noise with a 1/f amplitude spectrum, a
+    gradient, 400 hard-edged discs and rectangles), written to a temporary PNG with its sha256 printed: the
+    reference photo is not in the repository. (a) ``tools/overfit_real.py``
+    at its defaults (2,000 steps of 10,000 Gaussians on the texture itself,
+    SH 3, no density control): finite losses, the PSNR at the end above
+    the first step's, every kernel of the packed step launched; PSNR every
+    200 steps, pairs, ms a step (CUDA events), peak memory. (b)
+    ``tools/quality_gate.py``'s fixed recipe (``quality_gate.run``): the
+    layers dataset of the texture, 32 views at 1296x840 (its seconds
+    printed), 7,000 iterations of configs/base.yaml's scaled schedule,
+    ``uv_grad_threshold`` x0.4, seed 0, 28 train and 4 held-out views:
+    finite losses (kept on the card, read at the end), density steps at
+    the schedule's iterations (600 to 4,900), the capacity growing exactly
+    at the steps whose new total exceeds it and at least DENSE_MIN_GROWTHS
+    (3) times, the alive rows a prefix after every Morton sort and the
+    Morton site launched once a density step, alive opacities equal to
+    logit(0.05) right after the reset at 3,000, l_max 3, no held-out view
+    in the train list, the held-out PSNR higher after than before, every
+    kernel of the packed path launched; prints the capacities, each
+    density step's counts and ms, it/s, ms an iteration with and without
+    a density step, pairs a step, peak memory and the final Gaussians
+    beside the JAX package's 625,898 (on the reference photo: context, not
+    a target), a device profile of DENSE_PROFILE_STEPS (8) more steps on
+    the final state, and the ms ``io.images.load_image`` takes to decode a
+    view (the trainer's loader decodes one an iteration).
+    (c) ``quality_gate.gate`` and ``main`` (with ``run`` stood in by (b)'s
+    result, no training) against a prior result written into a temporary
+    ``--out``: of the same texture 1 dB above (refused, exit 1), 0.1 dB
+    below (passes), of another texture above (ignored). The 30,000
+    iterations of ``tools/extended_run.py`` get no run here; its CPU tests
+    and (b), which trains through the same ``train_holdout``, hold it.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -182,7 +215,8 @@ x (time - bound). Prints one JSON line of kernels (the rasterizers and the
 segment sum once a mode, ``"mode"``; launches from [9]'s run of that
 mode, ``launches_e2e`` from [14c]'s, ``launches_scale`` from every run
 of [15] (its exact steps give the exact entries; no run of [15] takes
-``depth_rank``), ``scale`` the kernel's times at the 4.25M point; the
+``depth_rank``), ``launches_recipes`` from [16a] and [16b], ``scale``
+the kernel's times at the 4.25M point; the
 radix sort also in [14b]'s ``depth_rank`` mode), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
@@ -205,6 +239,10 @@ it and the 1M-point Python reader 7-10 s.
     python3 chip_smoke.py --scale
 
 runs [1] and [15] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --recipes
+
+runs [1] and [16] alone, with its checks (no result line).
 
     python3 -P chip_smoke.py --train-profile
 
@@ -2371,7 +2409,15 @@ SCALE_N = 4_250_000
 SCALE_POINTS = ((0.97, "SCALE_r04.json"), (1.52, "SCALE_WIDE_r04.json"))
 SCALE_PROFILE_STEPS = 4  # [15a]: profiled train steps a point
 SCALE_TIMING_ITERS = 5  # [15a]: kernel timings at the scale point
-SCALE_ITERS = 2000  # [15b]: tools/train_at_scale.py at its default length
+# [15b], [15c]: tools/train_at_scale.py at half its default length of 2,000
+# iterations, each event of its schedule at half its iteration (13 density
+# steps, the reset, 3 SH bands, as at 2,000), so that the whole script,
+# [16]'s 7,000 iterations included, keeps a margin within its time limit.
+SCALE_ITERS = 1000
+LONG_RUN_SCHEDULE = dict(adaptive_control_start=150, adaptive_control_interval=50,
+                         adaptive_control_end=850, reset_opacity_start=450,
+                         reset_opacity_interval=750, reset_opacity_end=851,
+                         add_sh_band_interval=250, print_interval=250, test_eval_interval=250)
 # [15c]: the recipe from a sparser cloud. From its default 20,000 points the
 # scene stays within the first bucket (32,768); from 2,000 the capacity
 # grows through 4,096 -> 8,192 -> 16,384 on an H100.
@@ -2496,15 +2542,122 @@ def schedule_its(iters: int, start: int, interval: int, end: int) -> list:
     return [i for i in range(iters) if i > start and i % interval == 0 and i < end]
 
 
+@contextlib.contextmanager
+def recorded_trainer():
+    """For a ``with`` block, the trainer module's ``train_step``,
+    ``reset_opacity`` and ``morton_sort`` replaced by recording ones: a
+    CUDA event at the start of each iteration and its loss kept on the
+    card and its pairs (``events``, ``losses``, ``pairs``); (iteration,
+    alive rows, whether every alive opacity equals the reset value) after
+    each reset (``resets``); whether the alive rows are a prefix after
+    each Morton sort (``prefix``); the last step's arguments (``last``).
+    Yields the record."""
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+
+    rec = dict(events=[], losses=[], pairs=[], resets=[], prefix=[], last=None)
+    real = trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort
+
+    def step(*args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        rec["events"].append(ev)
+        state, m = real[0](*args)
+        rec["losses"].append(m.loss)
+        rec["pairs"].append(m.num_pairs)
+        rec["last"] = args
+        return state, m
+
+    def reset(state, value):
+        state = real[1](state, value)
+        op = state.params.opacity.detach()[state.alive]
+        rec["resets"].append((len(rec["events"]) - 1, op.numel(),
+                              bool((op == logit(value).to(op.device)).all())))
+        return state
+
+    def morton(state):
+        state = real[2](state)
+        alive = state.alive
+        k = int(alive.sum())
+        rec["prefix"].append(bool(alive[:k].all()) and not bool(alive[k:].any()))
+        return state
+
+    trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort = (
+        step, reset, morton)
+    try:
+        yield rec
+    finally:
+        trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort = real
+
+
+def check_long_run(rec: dict, density: list, iters: int, cfg, min_growths: int) -> tuple:
+    """The checks and times that [15b], [15c] and [16b] share, from a
+    ``recorded_trainer`` record and the run's density steps (records with
+    ``train_at_scale.DensityRecord``'s fields): finite losses, one an
+    iteration; density steps and resets at the schedule's iterations; the
+    capacity growing at least ``min_growths`` times and exactly at the
+    steps whose new total exceeds it; every reset's opacities at the reset
+    value and the alive rows a prefix after every Morton sort. Prints ms an
+    iteration with and without a density step (CUDA events between
+    iteration starts) and each density step. Returns (the failed checks,
+    the median ms of an iteration without a density step, eval or dump)."""
+    failed = []
+    losses = torch.stack(rec["losses"]).cpu()
+    events = rec["events"]
+    # An iteration's time runs to the next one's start: the last is left out.
+    iter_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    dens_its = [d.iteration for d in density]
+    grown = [d for d in density if d.capacity_after != d.capacity_before]
+    for d in density:
+        log(f"  density step at {d.iteration}: pruned {d.pruned}, cloned {d.cloned}, "
+            f"split {d.split}, new total {d.new_total}, applied {d.applied}, capacity "
+            f"{d.capacity_before} -> {d.capacity_after}; {d.ms:.2f} ms")
+    for d in grown:
+        log(f"  grow_state at {d.iteration}: capacity {d.capacity_after}")
+    busy = {i for i in range(iters) if i % cfg.print_interval == 0
+            or i % cfg.test_eval_interval == 0}
+    plain = [ms for i, ms in enumerate(iter_ms) if i and i not in busy and i not in dens_its]
+    with_density = [ms for i, ms in enumerate(iter_ms) if i in dens_its and i not in busy]
+    dens_ms = [d.ms for d in density]
+    med = lambda xs: statistics.median(xs) if xs else math.nan  # noqa: E731
+    log(f"  ms an iteration (median, CUDA events between iteration starts): "
+        f"{med(plain):.3f} without a density step, "
+        f"{med(with_density):.3f} with one; density step "
+        f"{med(dens_ms):.3f} ms (median of {len(dens_ms)}, largest "
+        f"{max(dens_ms, default=math.nan):.3f})")
+    log(f"  opacity resets (iteration, alive, all equal logit(0.05)): {rec['resets']}")
+    finite = bool(torch.isfinite(losses).all())
+    log(f"  losses: {losses.numel()} finite {finite}, first {losses[0].item():.6f}, "
+        f"last {losses[-1].item():.6f}, mean of the last 100 "
+        f"{losses[-100:].mean().item():.6f}; pairs a step {rec['pairs'][0]} at the first, "
+        f"median of the last 100 {statistics.median(rec['pairs'][-100:])}")
+    if not (finite and losses.numel() == iters):
+        failed.append("a loss is not finite")
+    if len(grown) < min_growths:
+        failed.append(f"the capacity grew {len(grown)} times, not at least {min_growths}")
+    if not all((d.capacity_after > d.capacity_before) == (d.new_total > d.capacity_before)
+               and d.capacity_after >= d.new_total for d in density):
+        failed.append("the capacity did not grow exactly where a density step needed it")
+    want_dens = schedule_its(iters, cfg.adaptive_control_start,
+                             cfg.adaptive_control_interval, cfg.adaptive_control_end)
+    if dens_its != want_dens:
+        failed.append(f"density steps at {dens_its}, want {want_dens}")
+    want_resets = schedule_its(iters, cfg.reset_opacity_start, cfg.reset_opacity_interval,
+                               cfg.reset_opacity_end)
+    if [r[0] for r in rec["resets"]] != want_resets or not all(r[2] for r in rec["resets"]):
+        failed.append(f"opacity resets {rec['resets']}, want them at {want_resets}")
+    if len(rec["prefix"]) != len(density) or not all(rec["prefix"]):
+        failed.append(f"alive rows a prefix after each Morton sort: {rec['prefix']}")
+    return failed, med(plain)
+
+
 def long_run_slice(dev, iters: int = SCALE_ITERS, width: int = WIDTH,
                    height: int = HEIGHT, min_growths: int = 0, **run_args) -> tuple:
-    """[15b], [15c] ``tools/train_at_scale.py``'s run: its losses (kept on
-    the card, read at the end), a CUDA event at the start of each
-    iteration, the opacities right after each reset; then its checks, the
-    capacity growing at least ``min_growths`` times and exactly at the
-    density steps whose new total exceeds it. ``run_args`` go to
-    ``train_at_scale.run`` (another start; a smaller run to rehearse on
-    the CPU). Returns (failed checks, the run's launches)."""
+    """[15b], [15c] ``tools/train_at_scale.py``'s run under
+    ``recorded_trainer``, then ``check_long_run``'s checks with at least
+    ``min_growths`` growths, and the run's own: l_max 3, the eval PSNR
+    rising, the PLY, the checkpoint reload and the launches. ``run_args``
+    go to ``train_at_scale.run`` (another start; a smaller run to rehearse
+    on the CPU). Returns (failed checks, the run's launches)."""
     import tempfile
 
     import PIL
@@ -2515,28 +2668,8 @@ def long_run_slice(dev, iters: int = SCALE_ITERS, width: int = WIDTH,
     from gsplat_tpu_torch.train import trainer as trainer_mod
 
     log(f"  images through PIL {PIL.__version__} on disk")
-    rec = dict(events=[], losses=[], resets=[])
-    real_step, real_reset = trainer_mod.train_step, trainer_mod.reset_opacity
-
-    def step(*args):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        rec["events"].append(ev)
-        state, m = real_step(*args)
-        rec["losses"].append(m.loss)
-        return state, m
-
-    def reset(state, value):
-        state = real_reset(state, value)
-        op = state.params.opacity.detach()[state.alive]
-        rec["resets"].append((len(rec["events"]) - 1, op.numel(),
-                              bool((op == logit(value).to(op.device)).all())))
-        return state
-
-    failed = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
-        trainer_mod.train_step, trainer_mod.reset_opacity = step, reset
-        try:
+        with recorded_trainer() as rec:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
@@ -2545,57 +2678,14 @@ def long_run_slice(dev, iters: int = SCALE_ITERS, width: int = WIDTH,
             torch.cuda.synchronize()
             launches = dict(_build.launches)
             peak = torch.cuda.max_memory_allocated() / 2**20
-        finally:
-            trainer_mod.train_step, trainer_mod.reset_opacity = real_step, real_reset
         tr, cfg = res.trainer, res.trainer.config
-        losses = torch.stack(rec["losses"]).cpu()
-        events = rec["events"]
-        # An iteration's time runs to the next one's start: the last is left out.
-        iter_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        dens_its = [d.iteration for d in res.density]
-        grown = [d for d in res.density if d.capacity_after != d.capacity_before]
-        for d in res.density:
-            log(f"  density step at {d.iteration}: pruned {d.pruned}, cloned {d.cloned}, "
-                f"split {d.split}, new total {d.new_total}, applied {d.applied}, capacity "
-                f"{d.capacity_before} -> {d.capacity_after}; {d.ms:.2f} ms")
-        for d in grown:
-            log(f"  grow_state at {d.iteration}: capacity {d.capacity_after}")
-        busy = {i for i in range(iters) if i % cfg.print_interval == 0
-                or i % cfg.test_eval_interval == 0}
-        plain = [ms for i, ms in enumerate(iter_ms) if i and i not in busy and i not in dens_its]
-        with_density = [ms for i, ms in enumerate(iter_ms) if i in dens_its and i not in busy]
-        dens_ms = [d.ms for d in res.density]
-        med = lambda xs: statistics.median(xs) if xs else math.nan  # noqa: E731
         log(f"  eval PSNR {res.psnr_init:.4f} -> {res.psnr_final:.4f} dB "
             f"({res.psnr_final - res.psnr_init:+.4f} dB), {iters} iterations in "
             f"{res.wall_s:.3f} s ({res.it_per_s:.3f} it/s), {res.gaussians_init} -> "
-            f"{res.gaussians_final} Gaussians, capacities {res.capacities}, l_max {res.l_max}")
-        log(f"  ms an iteration (median, CUDA events between iteration starts): "
-            f"{med(plain):.3f} without a density step, "
-            f"{med(with_density):.3f} with one; density step "
-            f"{med(dens_ms):.3f} ms (median of {len(dens_ms)}, largest "
-            f"{max(dens_ms, default=math.nan):.3f}); peak allocated {peak:.0f} MiB")
-        log(f"  opacity resets (iteration, alive, all equal logit(0.05)): {rec['resets']}")
+            f"{res.gaussians_final} Gaussians, capacities {res.capacities}, l_max {res.l_max}; "
+            f"peak allocated {peak:.0f} MiB")
         log(f"  launches: {launches}")
-        finite = bool(torch.isfinite(losses).all())
-        log(f"  losses: {losses.numel()} finite {finite}, first {losses[0].item():.6f}, "
-            f"last {losses[-1].item():.6f}, mean of the last 100 "
-            f"{losses[-100:].mean().item():.6f}")
-        if not (finite and losses.numel() == iters):
-            failed.append("a loss is not finite")
-        if len(grown) < min_growths:
-            failed.append(f"the capacity grew {len(grown)} times, not at least {min_growths}")
-        if not all((d.capacity_after > d.capacity_before) == (d.new_total > d.capacity_before)
-                   and d.capacity_after >= d.new_total for d in res.density):
-            failed.append("the capacity did not grow exactly where a density step needed it")
-        want_dens = schedule_its(iters, cfg.adaptive_control_start,
-                                 cfg.adaptive_control_interval, cfg.adaptive_control_end)
-        if dens_its != want_dens:
-            failed.append(f"density steps at {dens_its}, want {want_dens}")
-        want_resets = schedule_its(iters, cfg.reset_opacity_start, cfg.reset_opacity_interval,
-                                   cfg.reset_opacity_end)
-        if [r[0] for r in rec["resets"]] != want_resets or not all(r[2] for r in rec["resets"]):
-            failed.append(f"opacity resets {rec['resets']}, want them at {want_resets}")
+        failed, _ = check_long_run(rec, res.density, iters, cfg, min_growths)
         if res.l_max != 3:
             failed.append(f"l_max {res.l_max}")
         if not (math.isfinite(res.psnr_final) and res.psnr_final > res.psnr_init):
@@ -2633,13 +2723,253 @@ def scale_slice(dev) -> dict:
     for label, kw in (("15b", dict()), ("15c", dict(n_points=SPARSE_POINTS, min_growths=2))):
         log(f"  [{label}] tools/train_at_scale.py, {SCALE_ITERS} iterations at 1296x840, 24 "
             f"views, from {kw.get('n_points', 'its default')} points")
-        f, launches = long_run_slice(dev, **kw)
+        f, launches = long_run_slice(dev, overrides=LONG_RUN_SCHEDULE, **kw)
         failed += f
         add_launches(total, launches)
     log(f"  [15] launches: {total}")
     if failed:
         raise AssertionError(f"[15] failed: {failed}")
     return dict(launches=total, kernels=kernels)
+
+
+# [16]: the photo recipes on a procedural texture (the reference photo is
+# not in the repository).
+TEXTURE_SEED = 0
+TEXTURE_W, TEXTURE_H = 1536, 1024
+# The JAX package's dense recipe on the reference photo (RESULT_SCALE_DENSE.json,
+# a TPU run): its final count, printed beside [16b]'s for context only.
+JAX_DENSE_GAUSSIANS = 625_898
+DENSE_MIN_GROWTHS = 3
+DENSE_PROFILE_STEPS = 8  # [16b]: profiled train steps on the final state
+RECIPES_TITLE = ("[16] the photo recipes on a procedural texture: overfit_real, the dense "
+                 "7,000-iteration layers recipe (quality_gate), the gate's logic")
+# The kernels of the packed path without a density step ([16a]).
+STEP_KERNELS = tuple(k for k in E2E_KERNELS if k != "radix_sort/morton")
+
+
+def mib(x) -> str:
+    return "not measured" if x is None else f"{x:.0f} MiB"
+
+
+def _upsample(grid: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Bilinear upsampling of a (gh, gw, c) grid to (height, width, c)."""
+    gh, gw = grid.shape[:2]
+    y = np.linspace(0, gh - 1, height)
+    x = np.linspace(0, gw - 1, width)
+    y0 = np.minimum(y.astype(int), gh - 2)
+    x0 = np.minimum(x.astype(int), gw - 2)
+    fy = (y - y0)[:, None, None]
+    fx = (x - x0)[None, :, None]
+    top = grid[y0][:, x0] * (1 - fx) + grid[y0][:, x0 + 1] * fx
+    bottom = grid[y0 + 1][:, x0] * (1 - fx) + grid[y0 + 1][:, x0 + 1] * fx
+    return top * (1 - fy) + bottom * fy
+
+
+def procedural_texture(seed: int = TEXTURE_SEED, width: int = TEXTURE_W,
+                       height: int = TEXTURE_H) -> np.ndarray:
+    """A seeded (height, width, 3) uint8 image with a photo's edges and
+    fine detail: eight octaves of value noise with a 1/f amplitude
+    spectrum (as natural images have: the same amplitude in every octave,
+    from 3 cells across the height to 384), a colour gradient, and
+    400 hard-edged discs and rectangles from 6 % of the height down to a
+    few pixels, each keeping some of the noise beneath it."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((height, width, 3))
+    for octave in range(8):
+        cells = 3 * 2**octave
+        grid = rng.uniform(-1, 1, (cells + 1, cells * width // height + 1, 3))
+        img += _upsample(grid, height, width)
+    img = 0.5 + 0.12 * img
+    ys, xs = np.mgrid[0:height, 0:width]
+    img += 0.3 * np.stack([xs / width, ys / height, 1 - xs / width], axis=-1) - 0.15
+    for _ in range(400):
+        colour = rng.uniform(0, 1, 3)
+        cy, cx = rng.uniform(0, height), rng.uniform(0, width)
+        r = np.exp(rng.uniform(np.log(0.003), np.log(0.06))) * height
+        disc = rng.uniform() < 0.5
+        rx = r if disc else r * rng.uniform(0.5, 2.0)
+        y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, height)
+        x0, x1 = max(int(cx - rx), 0), min(int(cx + rx) + 1, width)
+        y, x = ys[y0:y1, x0:x1], xs[y0:y1, x0:x1]
+        inside = ((y - cy) ** 2 + (x - cx) ** 2 < r * r) if disc else (
+            (np.abs(y - cy) < r) & (np.abs(x - cx) < rx))
+        patch = img[y0:y1, x0:x1]
+        patch[inside] = 0.6 * colour + 0.4 * patch[inside]
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def write_texture(path: Path, seed: int = TEXTURE_SEED) -> str:
+    """``procedural_texture(seed)`` as a PNG at ``path``; its sha256."""
+    import hashlib
+
+    from PIL import Image as PILImage
+
+    PILImage.fromarray(procedural_texture(seed)).save(path)
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def overfit_slice(dev, photo: Path, iters: int = 2000, n: int = 10_000) -> tuple:
+    """[16a] ``tools/overfit_real.py`` at its defaults on ``photo``:
+    finite losses, the PSNR at the end above the first, every kernel of
+    the packed step launched. Returns (failed checks, launches)."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import overfit_real
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = overfit_real.run(iters, n, photo=photo, device=dev, log=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    first, last = res["reports"][0], res["reports"][-1]
+    log(f"  [16a] {res['iters']} steps of {res['gaussians']} Gaussians (capacity "
+        f"{res['capacity']}) on the {res['width']}x{res['height']} texture: PSNR "
+        f"{first[2]:.4f} -> {last[2]:.4f} dB, pairs {first[3]} -> {last[3]}, "
+        f"{res['ms_per_step']:.3f} ms a step (CUDA events over the loop), peak allocated "
+        f"{mib(res['peak_mib'])}")
+    log(f"  launches: {launches}")
+    failed = []
+    if not (len(res["losses"]) == iters and all(map(math.isfinite, res["losses"]))):
+        failed.append("[16a] a loss is not finite")
+    if not last[2] > first[2]:
+        failed.append(f"[16a] PSNR {first[2]} -> {last[2]} did not rise")
+    never = [k for k in STEP_KERNELS if launches[k] <= 0]
+    if never:
+        failed.append(f"[16a] never launched: {never}")
+    return failed, launches
+
+
+def dense_slice(dev, photo: Path, out: Path) -> tuple:
+    """[16b] ``tools/quality_gate.py``'s fixed recipe on ``photo`` under
+    ``recorded_trainer``: ``check_long_run``'s checks with at least
+    DENSE_MIN_GROWTHS growths, l_max 3, the held-out views out of the train
+    list, the held-out PSNR rising, every kernel of the packed path
+    launched and the Morton site once a density step; then a device
+    profile of DENSE_PROFILE_STEPS more steps on the final state and the
+    host's decode time of a view. Returns (failed checks, launches, the
+    result)."""
+    from types import SimpleNamespace
+
+    import PIL
+
+    from gsplat_tpu_torch.io.images import load_image
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import quality_gate, train_real_plane
+
+    log(f"  images through PIL {PIL.__version__} on disk")
+    with recorded_trainer() as rec:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = quality_gate.run(photo=photo, out=out, device=dev, log=lambda m: log("    " + m))
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    iters = res["recipe"]["num_iters"]
+    density = [SimpleNamespace(**d) for d in res["density"]]
+    cfg = train_real_plane.recipe_config(iters, quality_gate.THRESH_MUL, "", out,
+                                         seed=quality_gate.SEED)
+    log(f"  [16b] {res['recipe']['views']} views at {res['recipe']['width']}x"
+        f"{res['recipe']['height']}, {iters} iterations, uv_grad_threshold "
+        f"{res['recipe']['uv_grad_threshold']}: dataset {res['dataset_seconds']:.3f} s, "
+        f"training {res['wall_s']:.3f} s ({res['iters_per_second']:.3f} it/s); held-out "
+        f"PSNR {res['eval_psnr_db_heldout_init']:.4f} -> {res['eval_psnr_db_heldout']:.4f} dB; "
+        f"{res['initial_gaussians']} -> {res['final_gaussians']} Gaussians (the JAX "
+        f"package's run on the reference photo, another texture: {JAX_DENSE_GAUSSIANS}); "
+        f"capacities {res['capacities']}; l_max {res['l_max']}; peak allocated "
+        f"{mib(res['peak_mib'])}")
+    log(f"  split: {len(res['train_views'])} train / held out {res['test_views']}")
+    log(f"  launches: {launches}")
+    failed, iter_ms = check_long_run(rec, density, iters, cfg, DENSE_MIN_GROWTHS)
+    # Where an iteration's time goes at the final state: a device profile
+    # of more steps on the last camera (launches not counted).
+    state, view, proj, campos, gt, _, it, st = rec["last"]
+    profile_steps(state, [SimpleNamespace(view=view, proj=proj, campos=campos)], [gt], st,
+                  it + 1, iter_ms, steps=DENSE_PROFILE_STEPS,
+                  label=", the recipe's final state", bg=0.0)
+    del state, rec
+    # The trainer's loader decodes one view an iteration on one thread.
+    views = sorted(Path(out).rglob("view_*.png"))[:4]
+    decode = []
+    for path in views:
+        t0 = time.perf_counter()
+        load_image(str(path))
+        decode.append(1e3 * (time.perf_counter() - t0))
+    log(f"  io.images.load_image of {len(views)} views (host, one thread): "
+        f"{statistics.median(decode):.1f} ms a view (median), "
+        f"{statistics.median(p.stat().st_size for p in views):.0f} bytes a PNG")
+    if res["l_max"] != 3:
+        failed.append(f"l_max {res['l_max']}")
+    held_out = len(range(0, quality_gate.VIEWS, cfg.test_split_ratio))  # 4 of 32
+    if set(res["test_views"]) & set(res["train_views"]) or len(res["test_views"]) != held_out:
+        failed.append(f"held-out views {res['test_views']} against the train list")
+    if not res["eval_psnr_db_heldout"] > res["eval_psnr_db_heldout_init"]:
+        failed.append("the held-out PSNR did not rise")
+    never = [k for k in E2E_KERNELS if launches[k] <= 0]
+    if never or launches["radix_sort/morton"] != len(density):
+        failed.append(f"launches {launches}")
+    return ["[16b] " + f for f in failed], launches, res
+
+
+def gate_slice(dev, result: dict) -> list:
+    """[16c] ``quality_gate.gate`` and ``main`` (its ``run`` stood in by
+    ``result``) against priors written into temporary output directories:
+    one of the same texture 1 dB above refuses (exit 1), one 0.1 dB below
+    passes, one of another texture above is ignored. Returns the failed
+    checks."""
+    import io
+    import tempfile
+
+    from gsplat_tpu_torch.tools import quality_gate
+
+    psnr, sha = result["eval_psnr_db_heldout"], result["texture_sha256"]
+    cases = (("same texture, +1 dB", psnr + 1.0, sha, False, 1),
+             ("same texture, -0.1 dB", psnr - 0.1, sha, True, 0),
+             ("another texture, +1 dB", psnr + 1.0, "0" * 64, True, 0))
+    failed = []
+    real_run = quality_gate.run
+    quality_gate.run = lambda *a, **kw: dict(result)
+    try:
+        for label, prior, prior_sha, want_ok, want_rc in cases:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as out:
+                Path(out, "RESULT_QUALITY_r05.json").write_text(json.dumps(
+                    {"eval_psnr_db_heldout": prior, "texture_sha256": prior_sha}))
+                ok, best, src = quality_gate.gate(result, out)
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    rc = quality_gate.main(["--photo", result["texture"]["path"], "--out", out],
+                                           device=dev)
+            log(f"  [16c] prior {label} ({prior:.4f} dB): gate ok {ok}, baseline {best:.4f} "
+                f"({src}), main exit {rc}")
+            if (ok, rc) != (want_ok, want_rc):
+                failed.append(f"[16c] {label}: ok {ok}, exit {rc}")
+    finally:
+        quality_gate.run = real_run
+    return failed
+
+
+def recipes_slice(dev) -> dict:
+    """[16]: a-c above on ``procedural_texture``'s PNG; raises if a check
+    of any part failed. Returns the launches of [16a] and [16b]."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipes_") as tmp:
+        photo = Path(tmp) / "texture.png"
+        t0 = time.perf_counter()
+        sha = write_texture(photo)
+        log(f"  procedural texture {TEXTURE_W}x{TEXTURE_H}, seed {TEXTURE_SEED}, sha256 {sha} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        log("  [16a] tools/overfit_real.py, 2,000 iterations, 10,000 Gaussians")
+        failed, total = overfit_slice(dev, photo)
+        torch.cuda.empty_cache()
+        log("  [16b] tools/quality_gate.py's recipe: layers, 32 views at 1296x840, 7,000 "
+            "iterations, x0.4, seed 0")
+        f, launches, res = dense_slice(dev, photo, Path(tmp) / "out")
+        failed += f
+        add_launches(total, launches)
+        torch.cuda.empty_cache()
+        failed += gate_slice(dev, res)
+    log(f"  [16] launches: {total}")
+    if failed:
+        raise AssertionError(f"[16] failed: {failed}")
+    return total
 
 
 def log_scale_table(scale: dict, at_1m: dict) -> None:
@@ -2696,6 +3026,10 @@ def main() -> int:
     if sys.argv[1:] == ["--scale"]:
         log(SCALE_TITLE)
         scale_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--recipes"]:
+        log(RECIPES_TITLE)
+        recipes_slice(dev)
         return 0
 
     # 2. Build.
@@ -2812,6 +3146,12 @@ def main() -> int:
     scale = scale_slice(dev)
     log_scale_table(scale, {**res, **bwd})
 
+    # 16. The photo recipes on a procedural texture: the single-image
+    # overfit, the dense 7,000-iteration recipe through its capacity
+    # growths, and the quality gate's logic.
+    log(RECIPES_TITLE)
+    at_recipes = recipes_slice(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -2833,7 +3173,8 @@ def main() -> int:
                      launches_per_step=n_launch / TRAIN_STEPS,
                      launches_e2e=e2e[key] - (e2e[key + "/packed"]
                                               if key + "/packed" in e2e else 0),
-                     launches_scale=at_scale[key] - at_scale.get(key + "/packed", 0))
+                     launches_scale=at_scale[key] - at_scale.get(key + "/packed", 0),
+                     launches_recipes=at_recipes[key] - at_recipes.get(key + "/packed", 0))
         # The same kernel at the 4.25M scale point's shapes ([15a]).
         entry["scale"] = {k: scale["kernels"][name + sfx][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -2857,6 +3198,7 @@ def main() -> int:
         replaces=REPLACES["radix_sort"], launches=morton["launches"],
         launches_per_density_step=morton["launches"] / morton["density_steps"], site="morton",
         launches_e2e=e2e["radix_sort/morton"], launches_scale=at_scale["radix_sort/morton"],
+        launches_recipes=at_recipes["radix_sort/morton"],
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     # The tile sort of binning's exact-ordering mode: [14b]'s launches. [15]
@@ -2865,7 +3207,7 @@ def main() -> int:
     kernels.append(dict(
         name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
         replaces=REPLACES["radix_sort"], launches=r["launches"], site="tile",
-        mode="depth_rank", key_bits=r["key_bits"], launches_scale=0,
+        mode="depth_rank", key_bits=r["key_bits"], launches_scale=0, launches_recipes=0,
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     print(json.dumps({"kernels": kernels}))

@@ -4,13 +4,18 @@
 so ``utils/checkpoint.py::config_hash`` gives the same value in both
 packages. ``parse_config`` reads the flat ``key: value`` subset of YAML
 that ``configs/*.yaml`` use (one scalar per line, ``#`` comments, blank
-lines, optional quotes) without PyYAML, and applies the reference's
-coercions: ``1e-3`` is a float, ``true``/``yes``/``on``/``1`` are True.
+lines, optional quotes) without PyYAML. Each plain scalar is resolved by
+YAML 1.1's implicit rules as PyYAML's ``SafeLoader`` resolves it (null,
+bool, int, float, else a string; quoted scalars are strings), and then
+the reference's ``_coerce`` casts it to the field's type: ``1e-3`` (a
+string in YAML 1.1) becomes a float, ``30000.0`` an int, and an int given
+to a ``str`` field stays an int, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Any
 
@@ -102,11 +107,79 @@ _REQUIRED_KEYS = [
 
 _TYPES = {f.name: f.type for f in dataclasses.fields(ConfigParameters)}
 
-_TRUE = ("true", "1", "yes", "on")
+# YAML 1.1's implicit scalar types, in the order PyYAML's Resolver tries
+# them (yaml/resolver.py): bool, float, int, null; timestamps are refused.
+_YAML_BOOL = re.compile(r"""^(?:yes|Yes|YES|no|No|NO
+                    |true|True|TRUE|false|False|FALSE
+                    |on|On|ON|off|Off|OFF)$""", re.X)
+_YAML_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)
+_YAML_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_TIMESTAMP = re.compile(r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+                    |[0-9][0-9][0-9][0-9] -[0-9][0-9]? -[0-9][0-9]?
+                     (?:[Tt]|[ \t]+)[0-9][0-9]?
+                     :[0-9][0-9] :[0-9][0-9] (?:\.[0-9]*)?
+                     (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""", re.X)
+_YAML_BOOLS = {"yes": True, "no": False, "true": True, "false": False, "on": True,
+               "off": False}
 
 
-def _scalar(text: str, path: Path, lineno: int) -> str:
-    """The scalar of one ``key: value`` line, quotes and comment removed."""
+def _sexagesimal(parts: list, zero):
+    value, base = zero, 1
+    for digit in reversed(parts):
+        value += digit * base
+        base *= 60
+    return value
+
+
+def _resolve(text: str, path: Path, lineno: int) -> Any:
+    """A plain scalar as PyYAML's ``SafeLoader`` constructs it."""
+    if _YAML_BOOL.match(text):
+        return _YAML_BOOLS[text.lower()]
+    if _YAML_FLOAT.match(text):
+        value = text.replace("_", "").lower()
+        sign = -1 if value[0] == "-" else 1
+        value = value.lstrip("+-")
+        if value == ".inf":
+            return sign * float("inf")
+        if value == ".nan":
+            return float("nan")
+        if ":" in value:
+            return sign * _sexagesimal([float(p) for p in value.split(":")], 0.0)
+        return sign * float(value)
+    if _YAML_INT.match(text):
+        value = text.replace("_", "")
+        sign = -1 if value[0] == "-" else 1
+        value = value.lstrip("+-")
+        if value == "0":
+            return 0
+        if value.startswith("0b"):
+            return sign * int(value[2:], 2)
+        if value.startswith("0x"):
+            return sign * int(value[2:], 16)
+        if value[0] == "0":
+            return sign * int(value, 8)
+        if ":" in value:
+            return sign * _sexagesimal([int(p) for p in value.split(":")], 0)
+        return sign * int(value)
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_TIMESTAMP.match(text):
+        raise ValueError(f"{path}:{lineno}: a YAML timestamp is not a config value: {text!r}")
+    return text
+
+
+def _scalar(text: str, path: Path, lineno: int) -> Any:
+    """The value of one ``key: value`` line: a quoted scalar as its string,
+    a plain one (its comment removed) resolved as YAML 1.1 resolves it."""
     text = text.strip()
     if text[:1] in ("'", '"'):
         q = text[0]
@@ -117,15 +190,15 @@ def _scalar(text: str, path: Path, lineno: int) -> str:
             raise ValueError(f"{path}:{lineno}: unterminated quote")
         return text[1:end].replace("''", "'") if q == "'" else text[1:end]
     cut = text.find(" #")
-    return (text if cut == -1 else text[:cut]).strip()
+    return _resolve((text if cut == -1 else text[:cut]).strip(), path, lineno)
 
 
-def _read_flat_yaml(path: Path) -> dict[str, str]:
-    """The ``key: value`` pairs of a flat YAML file, values as strings.
+def _read_flat_yaml(path: Path) -> dict[str, Any]:
+    """The ``key: value`` pairs of a flat YAML file, values resolved.
 
     Raises ``ValueError`` on anything outside that subset (indented or list
     lines, a line without ``key:``)."""
-    raw: dict[str, str] = {}
+    raw: dict[str, Any] = {}
     for lineno, line in enumerate(path.read_text().splitlines(), 1):
         stripped = line.strip()
         if not stripped or stripped.startswith("#") or stripped == "---":
@@ -154,12 +227,14 @@ def parse_config(filename: str | Path) -> ConfigParameters:
     return ConfigParameters(**kwargs)
 
 
-def _coerce(key: str, value: str) -> Any:
+def _coerce(key: str, value: Any) -> Any:
+    """The reference's ``_coerce``: a resolved scalar cast to the field's
+    type where the reference casts it."""
     t = str(_TYPES[key])
-    if t == "float":
+    if t == "float" and not isinstance(value, float):
         return float(value)
-    if t == "int":
+    if t == "int" and not isinstance(value, int):
         return int(value)
-    if t == "bool":
-        return value.strip().lower() in _TRUE
+    if t == "bool" and isinstance(value, str):
+        return value.strip().lower() in ("true", "1", "yes", "on")
     return value

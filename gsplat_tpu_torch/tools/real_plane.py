@@ -31,6 +31,9 @@ Usage:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +45,25 @@ from ..io.colmap import (
 )
 
 REFERENCE_PHOTO = str(Path(__file__).resolve().parents[2] / "assets" / "overview.jpg")
+# Views rendered at once by the dataset writers (a 1296x840 view, 2x
+# supersampled, holds several float64 arrays of 4.4M rays while it renders).
+WRITER_THREADS = 8
+
+
+def photo_record(photo_path: str | Path) -> dict:
+    """What identifies a texture in a result: its path, the sha256 and
+    size of its bytes, and its pixel size. Raises ``FileNotFoundError``
+    naming the path when there is no such file."""
+    path = Path(photo_path)
+    if not path.is_file():
+        raise FileNotFoundError(f"photo not found: {path}")
+    data = path.read_bytes()
+    from PIL import Image as PILImage
+
+    with PILImage.open(path) as im:
+        width, height = im.size
+    return dict(path=str(path), sha256=hashlib.sha256(data).hexdigest(), bytes=len(data),
+                width=width, height=height)
 
 
 @dataclasses.dataclass
@@ -287,9 +309,15 @@ def _write_dataset(out_root, name, cameras, images, render, pts_xyz, rgbs,
     sparse.mkdir(parents=True, exist_ok=True)
     img_dir = root / "images"
     img_dir.mkdir(parents=True, exist_ok=True)
-    for im in images.values():
+
+    def write_view(im):
         arr = np.clip(render(im) * 255.0, 0, 255).astype(np.uint8)
         image_io.save_image(img_dir / im.name, arr)
+
+    # One view a thread: numpy and PIL release the GIL in their array and
+    # encoding loops, and each view's ground truth is computed alone.
+    with ThreadPoolExecutor(min(WRITER_THREADS, os.cpu_count() or 1)) as pool:
+        list(pool.map(write_view, images.values()))
     points = {
         i + 1: Point3D(
             id=i + 1, xyz=pts_xyz[i], rgb=rgbs[i], error=0.5,

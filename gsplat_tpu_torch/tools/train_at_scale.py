@@ -113,6 +113,37 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def record_density(trainer) -> tuple[list, list]:
+    """Record each of ``trainer``'s density steps as it trains.
+
+    Returns (capacities, density): the initial capacity, then each one
+    the state grows to, and a ``DensityRecord`` of each step, appended as
+    the steps run. ``del trainer._density_step`` stops the recording."""
+    device = trainer.device
+    capacities = [trainer.state.capacity]
+    density = []
+    real_density = trainer._density_step
+
+    def density_step():
+        before = trainer.state.capacity
+        _synchronize(device)
+        t = time.perf_counter()
+        info = real_density()
+        _synchronize(device)
+        after = trainer.state.capacity
+        if after != before:
+            capacities.append(after)
+        density.append(DensityRecord(
+            iteration=trainer.iter, pruned=info.num_pruned, cloned=info.num_cloned,
+            split=info.num_split, new_total=info.new_total, applied=info.applied,
+            capacity_before=before, capacity_after=after,
+            ms=1e3 * (time.perf_counter() - t)))
+        return info
+
+    trainer._density_step = density_step
+    return capacities, density
+
+
 def run(iters: int = 2000, width: int = 1296, height: int = 840, *, root: str | Path,
         device: torch.device | str = "cuda", n_views: int = 24, n_gaussians: int = 6000,
         n_points: int = 20000, overrides: dict | None = None, verbose: bool = False,
@@ -145,27 +176,7 @@ def run(iters: int = 2000, width: int = 1296, height: int = 840, *, root: str | 
     g = initialize_gaussians(xyz, rgb, cfg)
     trainer = Trainer(cfg, g, images, cameras, device=device)
 
-    capacities = [trainer.state.capacity]
-    density = []
-    real_density = trainer._density_step
-
-    def density_step():
-        before = trainer.state.capacity
-        _synchronize(device)
-        t = time.perf_counter()
-        info = real_density()
-        _synchronize(device)
-        after = trainer.state.capacity
-        if after != before:
-            capacities.append(after)
-        density.append(DensityRecord(
-            iteration=trainer.iter, pruned=info.num_pruned, cloned=info.num_cloned,
-            split=info.num_split, new_total=info.new_total, applied=info.applied,
-            capacity_before=before, capacity_after=after,
-            ms=1e3 * (time.perf_counter() - t)))
-        return info
-
-    trainer._density_step = density_step
+    capacities, density = record_density(trainer)
     p0 = trainer.evaluate(verbose=False)
     log(f"init: {g.num} gaussians, PSNR {p0:.2f} dB, capacity {trainer.state.capacity}")
     try:

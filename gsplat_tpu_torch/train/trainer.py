@@ -376,7 +376,9 @@ class Trainer:
         if self.rank != 0:
             return
         g = to_gaussian_data(self.state, self.l_max)
-        sh = None if g.sh is None else g.sh.reshape(g.num, -1)
+        sh = None
+        if g.sh is not None and g.sh.size:
+            sh = g.sh.reshape(g.num, -1)
         save_ply(filename, g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh)
 
     def save_checkpoint(self, path: str | Path) -> None:

@@ -15,6 +15,7 @@ and checkpoints, against the JAX package.
 """
 
 import dataclasses
+import math
 import shutil
 import struct
 from pathlib import Path
@@ -91,6 +92,51 @@ def test_config_errors_match(tmp_path, module):
         module.parse_config(p)
     with pytest.raises(FileNotFoundError):
         module.parse_config(tmp_path / "nope.yaml")
+
+
+@pytest.mark.parametrize("key,text", [
+    ("num_iters", "30000.0"), ("num_iters", "0x10"), ("base_lr", ".inf"),
+    ("use_split", "1"), ("dataset_path", "12"), ("dataset_path", "~"),
+    ("base_lr", "1e-3"), ("num_iters", "1_000"), ("use_split", "on"), ("use_split", "y"),
+    ("num_iters", "0o17"), ("dataset_path", "0o17"), ("base_lr", "-.inf"),
+    ("base_lr", ".nan"), ("dataset_path", '"12"'), ("num_iters", "010"),
+    ("num_iters", "-0b101"), ("num_iters", "1:30"), ("base_lr", "1:30.5"),
+    ("base_lr", "1.5e3"), ("dataset_path", "1.5e3"), ("dataset_path", "1.5e+3"),
+    ("use_split", "Off"), ("use_split", "NULL"), ("output_dir", "true"),
+    ("output_dir", "'0x10'"), ("max_gaussians", "4_250_000  # a comment"),
+])
+def test_config_scalars_match_parse_config(tmp_path, key, text):
+    """One line of configs/base.yaml changed: the port resolves the scalar
+    as YAML 1.1 does and casts it as the reference does, so the value, its
+    type and ``config_hash`` equal the JAX package's (or both raise the
+    same error)."""
+    path = tmp_path / "c.yaml"
+    lines = [line for line in BASE_YAML.splitlines() if line.split(":")[0] != key]
+    path.write_text("\n".join(lines + [f"{key}: {text}"]) + "\n")
+    try:
+        ref = j_config.parse_config(path)
+    except Exception as e:  # noqa: BLE001 - the port must raise the same
+        with pytest.raises(type(e)):
+            t_config.parse_config(path)
+        return
+    got = t_config.parse_config(path)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        assert type(a) is type(b), (f.name, a, b)
+        if isinstance(b, float) and math.isnan(b):
+            assert math.isnan(a), f.name
+        else:
+            assert a == b, (f.name, a, b)
+    assert t_ckpt.config_hash(got) == j_ckpt.config_hash(ref)
+
+
+def test_config_reader_refuses_timestamps(tmp_path):
+    """A YAML timestamp (a date to PyYAML) is no config value: the port
+    raises where the reference would carry a ``datetime.date``."""
+    p = tmp_path / "cfg.yaml"
+    p.write_text(BASE_YAML.replace("dataset_path: garden", "dataset_path: 2001-12-14"))
+    with pytest.raises(ValueError, match="timestamp"):
+        t_config.parse_config(p)
 
 
 def test_config_reader_rejects_nested_yaml(tmp_path):

@@ -23,6 +23,7 @@ import dataclasses
 import os
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -222,6 +223,33 @@ def test_density_step_matches_jax(trainers, monkeypatch):
         _assert_same_state(port.state, ref.state, 2 * info.num_split)
         n = info.new_total
         assert port.state.alive[:n].all() and not port.state.alive[n:].any()
+
+
+@pytest.mark.parametrize("l_max,alive", [(1, 0), (3, 0), (0, 0), (0, 37), (1, 37)])
+def test_save_to_ply_empty_state_matches_jax(tmp_path, l_max, alive):
+    """``Trainer.save_to_ply`` writes the same bytes in both packages: on a
+    state with no alive row (``element vertex 0``, no ``f_rest_*`` even at
+    ``l_max`` >= 1) and on a live one."""
+    rng = np.random.default_rng(l_max)
+    n = 37
+    gd = j_init.GaussianData(
+        xyz=rng.normal(size=(n, 3)).astype(np.float32),
+        rgb=rng.normal(size=(n, 3)).astype(np.float32),
+        opacity=rng.normal(size=n).astype(np.float32),
+        scale=rng.normal(size=(n, 3)).astype(np.float32),
+        quaternion=rng.normal(size=(n, 4)).astype(np.float32),
+        sh=rng.normal(size=(n, 15, 3)).astype(np.float32))
+    js = j_state.init_state(gd, n_cap=64)
+    js = js._replace(alive=jnp.asarray(np.arange(64) < alive))
+    ps = t_state.state_from_jax(
+        **{f: jax.tree.map(np.asarray, getattr(js, f)) for f in js._fields}, device="cpu")
+    j_trainer.Trainer.save_to_ply(SimpleNamespace(state=js, l_max=l_max), tmp_path / "j.ply")
+    t_trainer.Trainer.save_to_ply(SimpleNamespace(state=ps, l_max=l_max, rank=0),
+                                  tmp_path / "t.ply")
+    got = (tmp_path / "t.ply").read_bytes()
+    assert got == (tmp_path / "j.ply").read_bytes()
+    assert f"element vertex {alive}\n".encode() in got
+    assert (b"f_rest_0" in got) == (alive > 0 and l_max > 0)
 
 
 # ------------------------------------------------------------- the port alone
