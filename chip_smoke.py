@@ -200,6 +200,38 @@ words), and its exact f32 mode where named
     below (passes), of another texture above (ignored). The 30,000
     iterations of ``tools/extended_run.py`` get no run here; its CPU tests
     and (b), which trains through the same ``train_holdout``, hold it.
+17. drives the reference's compiled step: binning at fixed capacities,
+    the on-device monitor, and the step and render as CUDA graphs
+    (``train.step.get_train_step``, ``get_monitored_train_step``,
+    ``get_render_fn``; the trainer's path since [11]). (a) At [9]'s 1M
+    view, caps ``round_pair_cap(req + req >> 4)`` and the row cap alike
+    (req: the frame's requirement, sentinels counted): the capped tables'
+    live part bit-equal to the exact tables, ``splat_gid``'s tail -1, the
+    requirements equal to the exact tables' and the row requirement to
+    ``bench_scale.row_totals``' count; the tile sort of the capped keys
+    (the tail keyed past every pair) beside the exact keys' sort, and
+    binning's time at each sizing. (b) A 20K-Gaussian scene at 320x200
+    binned at caps one bucket short of both requirements, on the card and
+    on the CPU from the same inputs: kept pairs, requirements and tile
+    counts equal, each tile's kept set equal. (c) From one start,
+    GRAPH_STEPS (8) steps of [9]'s views eager at exact sizing, eager at
+    the caps and through the graph, in packed and in exact mode: losses
+    and every tensor of the states bit-identical. (d) The graph's replays
+    run under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in
+    one fails); its run launches every kernel of the mode's path, the
+    tile sort once a step, from one capture. (e) [11]'s run again with the
+    trainer's factories eager: every loss, the caps of every step, the
+    density steps' counts, the state's checksums and the PLY bytes
+    bit-identical to [11]'s graphed run; prints [11]'s captures. (f) [9]'s
+    steps in windows of GRAPH_WINDOW (24) taken in turns (eager at exact
+    sizing, graph, graph, eager): wall and process-CPU ms a step, then a
+    profile of each (device ms, device kernels and the host's launch
+    calls a step) and each path's peak allocated MiB, in each mode.
+    (g) A capture that meets a host read raises, and the state is left as
+    it was (no eager fall-back). [14c] also runs the recipe with eager
+    factories (its rate beside the graph's, the same eval PSNR) and
+    [15a] runs at the JAX script's capacities of each point (from
+    ``SCALE_*.json``), an eager step at exact sizing beside it at 0.97.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -225,6 +257,10 @@ device is present.
     python3 chip_smoke.py --trainer
 
 runs [1] and [11] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --capacity
+
+runs [1], [11] and [17] alone, with their checks (no result line).
 
     python3 chip_smoke.py --parallel
 
@@ -1394,6 +1430,7 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
     from gsplat_tpu_torch.io.ply import load_ply
     from gsplat_tpu_torch.kernels import _build, sort
     from gsplat_tpu_torch.ops.morton import KEY_BITS, morton_codes
+    from gsplat_tpu_torch.train import step as step_mod
     from gsplat_tpu_torch.train import trainer as trainer_mod
     from gsplat_tpu_torch.train.init import initialize_gaussians
     from gsplat_tpu_torch.train.state import num_active
@@ -1409,18 +1446,24 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
     tr = trainer_mod.Trainer(cfg, g, images, cams, device=dev)
     log(f"  {len(images)} views, scene extent {tr.scene_extent:.4f}, capacity "
         f"{tr.state.capacity}, test views {[im.name for im in tr.test_images]}")
-    rec = dict(losses=[], views=[], starts=[], density=[], morton_ms=[], evals=[])
-    real_step, real_sort = trainer_mod.train_step, trainer_mod.morton_sort
+    rec = dict(losses=[], views=[], starts=[], density=[], morton_ms=[], evals=[], caps=[])
+    real_get, real_sort = trainer_mod.get_monitored_train_step, trainer_mod.morton_sort
     real_density, real_eval = tr._density_step, tr.evaluate
 
-    def step(state, view, proj, campos, gt, bg, it, st):
-        torch.cuda.synchronize()
-        rec["starts"].append(time.perf_counter())
-        state, m = real_step(state, view, proj, campos, gt, bg, it, st)
-        rec["losses"].append(float(m.loss))
-        rec["views"].append(next(i for i, im in enumerate(tr.train_images)
-                                 if tr._matrices(im).view is view))
-        return state, m
+    def get_step(st):
+        real_step = real_get(st)
+
+        def step(state, view, proj, campos, gt, bg, it, monitor):
+            torch.cuda.synchronize()
+            rec["starts"].append(time.perf_counter())
+            state, m, monitor = real_step(state, view, proj, campos, gt, bg, it, monitor)
+            rec["losses"].append(float(m.loss))
+            rec["caps"].append((st.pair_cap, st.row_cap))
+            rec["views"].append(next(i for i, im in enumerate(tr.train_images)
+                                     if tr._camera(im)[0] is view))
+            return state, m, monitor
+
+        return step
 
     def morton(state):
         codes = morton_codes(state.params.xyz, state.alive)
@@ -1466,12 +1509,14 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
         return psnr
 
     tr._density_step, tr.evaluate = density, evaluate
-    trainer_mod.train_step, trainer_mod.morton_sort = step, morton
+    trainer_mod.get_monitored_train_step, trainer_mod.morton_sort = get_step, morton
+    captures = step_mod.graph_captures()
     try:
         with ImageStandIns(gts, (height, width, 3)) as io_:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
+            t_train = time.perf_counter()
             tr.train(max_iters=11)  # stops right after the reset at 10
             torch.cuda.synchronize()
             alive = tr.state.alive
@@ -1485,12 +1530,14 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
             tr.train(max_iters=TRAINER_ITERS)
             torch.cuda.synchronize()
             rec["starts"].append(time.perf_counter())
+            wall_s = rec["starts"][-1] - t_train  # the hooks' reads and checks included
             launches = dict(_build.launches)
             peak = torch.cuda.max_memory_allocated() / 2**20
             dumps = list(io_.dumps)
     finally:
-        trainer_mod.train_step, trainer_mod.morton_sort = real_step, real_sort
+        trainer_mod.get_monitored_train_step, trainer_mod.morton_sort = real_get, real_sort
         del tr._density_step, tr.evaluate
+    captures = step_mod.graph_captures() - captures
     losses, views = rec["losses"], rec["views"]
     log("  losses: " + ", ".join(f"{i}:{v}:{x:.5f}" for i, (v, x) in enumerate(zip(views, losses))))
     dens_its = {it for it, _, _ in rec["density"]}
@@ -1512,6 +1559,7 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
         + ", ".join(f"at {it}: PSNR {p:.4f} dB, {ms:.3f} ms a view" for it, p, ms in rec["evals"])
         + f"; peak allocated {peak:.0f} MiB; l_max {tr.l_max}; dumps {len(dumps)}")
     log(f"  launches by site: {launches}")
+    log("  ms an iteration: " + ", ".join(f"{i}:{ms:.1f}" for i, ms in enumerate(iter_ms)))
     infos = [info for _, info, _ in rec["density"]]
     failed = []
     if not all(math.isfinite(x) for x in losses) or len(losses) != TRAINER_ITERS:
@@ -1533,8 +1581,13 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
     ply = Path(tmp) / "trained.ply"
     tr.save_to_ply(ply)
     verts = load_ply(ply)["xyz"].shape[0]
+    graphed = dict(scene=(cams, images, gts, xyz, rgb), losses=losses, caps=rec["caps"],
+                   density=[(it, density_counts(info)) for it, info, _ in rec["density"]],
+                   ply=ply.read_bytes(), checksums=state_checksums(tr.state), wall_s=wall_s,
+                   captures=captures, iter_ms=iter_ms)
     tmpdir.cleanup()
-    log(f"  trained.ply: {verts} vertices, {num_active(tr.state)} alive")
+    log(f"  trained.ply: {verts} vertices, {num_active(tr.state)} alive; {captures} CUDA "
+        f"graph captures; (pair, row) caps by step {rec['caps']}")
     if verts != num_active(tr.state):
         failed.append("PLY vertex count")
     if failed:
@@ -1557,7 +1610,9 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
     device_profile(lambda: trainer_mod.morton_sort(tr.state), "morton_sort")
     device_profile(tr._density_step, "a density step with its Morton sort")
     _build.launches.update(counts)
-    return dict(launches=launches["radix_sort/morton"], density_steps=len(infos), res=res)
+    graphed["trainer"] = tr  # [17e] times more iterations of it
+    return dict(launches=launches["radix_sort/morton"], density_steps=len(infos), res=res,
+                graphed=graphed)
 
 
 def device_profile(fn, label: str, top: int = 8) -> None:
@@ -1648,7 +1703,8 @@ def check_density_against_cpu(dev) -> None:
 def check_checkpoint_round_trip(dev, k: int = 7) -> None:
     """Train a small scene to iteration k, save a checkpoint, go on 2
     iterations (a density step at 8 among them); load the checkpoint into
-    a fresh Trainer and run the same 2: bit-identical parameters."""
+    a fresh Trainer and run the same 2: bit-identical parameters, and the
+    same capacities."""
     import tempfile
 
     from gsplat_tpu_torch.train.init import initialize_gaussians
@@ -1675,9 +1731,11 @@ def check_checkpoint_round_trip(dev, k: int = 7) -> None:
     same = all(np.array_equal(a[f], b[f]) for f in ("alive", "uv_grad_accum", "accum_dur"))
     same &= all(np.array_equal(a[f][n], b[f][n]) for f in ("params", "adam_m", "adam_v")
                 for n in a[f])
+    caps = [(t.pair_cap, t.row_cap) for t in (tr, again)]
     log(f"  checkpoint at {k}, then 2 more iterations: continued and resumed states "
-        f"bit-identical {same} ({int(a['alive'].sum())} alive, capacity {a['alive'].shape[0]})")
-    if not (same and tr.iter == again.iter == k + 2):
+        f"bit-identical {same} ({int(a['alive'].sum())} alive, capacity {a['alive'].shape[0]});"
+        f" (pair, row) caps {caps[0]} continued, {caps[1]} resumed")
+    if not (same and tr.iter == again.iter == k + 2 and caps[0] == caps[1]):
         raise AssertionError("a resumed Trainer differs from the continued one")
 
 
@@ -2352,16 +2410,20 @@ def e2e_slice(dev, iters: int = E2E_ITERS) -> tuple:
     from gsplat_tpu_torch.tools import e2e_synthetic
     from gsplat_tpu_torch.utils.profiling import StageTimers, device_trace
 
+    from gsplat_tpu_torch.train.step import graph_captures
+
     log(f"  images through PIL {PIL.__version__} on disk")
     timers = StageTimers()
     failed = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as tmp:
         torch.cuda.synchronize()
         _build.reset_launches()
+        captures = graph_captures()
         res = e2e_synthetic.run(iters, root=tmp, device=dev, timers=timers,
                                 log=lambda msg: log("  " + msg))
         torch.cuda.synchronize()
         launches = dict(_build.launches)
+        captures = graph_captures() - captures
         log(f"  [14c] eval PSNR {res.psnr_before:.4f} -> {res.psnr_after:.4f} dB "
             f"({res.gain_db:+.4f} dB; the JAX package's recorded run: +11 dB), "
             f"{res.iters} iterations in {res.seconds:.3f} s ({res.iters_per_s:.2f} it/s), "
@@ -2385,6 +2447,17 @@ def e2e_slice(dev, iters: int = E2E_ITERS) -> tuple:
             f"{len(events)} events, {kernels} of them device kernels")
         if not (size > 0 and kernels > 0):
             failed.append("device_trace")
+        # The same recipe with the trainer's factories eager (launches not
+        # counted): the same result, and its rate beside the graph's.
+        counts = dict(_build.launches)
+        with eager_factories(), tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as tmp2:
+            eager = e2e_synthetic.run(iters, root=tmp2, device=dev, log=lambda msg: None)
+        _build.launches.update(counts)
+        log(f"  [14c] graphed: {res.iters_per_s:.2f} it/s, {captures} captures; eager "
+            f"factories: {eager.iters_per_s:.2f} it/s ({eager.seconds:.3f} s); eval PSNR "
+            f"{res.psnr_after:.6f} / {eager.psnr_after:.6f} dB")
+        if eager.psnr_after != res.psnr_after or captures <= 0:
+            failed.append("e2e graphed and eager runs differ, or no capture")
     return failed, launches
 
 
@@ -2454,15 +2527,22 @@ def scale_point(dev, scale_mul: float, ref: dict, total: dict, compare: bool) ->
     from gsplat_tpu_torch.kernels import _build
     from gsplat_tpu_torch.tools import bench_scale
     from gsplat_tpu_torch.train.state import round_capacity
-    from gsplat_tpu_torch.train.step import compute_loss_and_grads, render_image, train_step
+    from gsplat_tpu_torch.train.step import (
+        compute_loss_and_grads, release_graphs, render_image, train_step)
 
     failed = []
     torch.cuda.synchronize()
     _build.reset_launches()
-    res = bench_scale.run(SCALE_N, scale_mul, device=dev, log=lambda m: log("  " + m))
+    # At the JAX script's capacities of this point, through the CUDA graph.
+    res = bench_scale.run(SCALE_N, scale_mul, device=dev, pair_cap=ref["pair_cap"],
+                          row_cap=ref["row_cap"], log=lambda m: log("  " + m))
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     add_launches(total, launches)
+    log(f"  [15a] caps {ref['pair_cap']} pairs, {ref['row_cap']} rows (the JAX script's); "
+        f"requirements at the first step {res.overflow} pairs, {res.row_overflow} rows (JAX "
+        f"package: {ref['overflow_required_cap']}, {ref['row_overflow']}); truncation-free "
+        f"{res.overflow <= ref['pair_cap'] and res.row_overflow <= ref['row_cap']}")
     steps = 1 + res.steps * len(res.step_ms)
     # The JAX package recorded the last step's pairs and tile rows, its rows
     # with a sentinel for every record of the capacity that has none.
@@ -2511,11 +2591,13 @@ def scale_point(dev, scale_mul: float, ref: dict, total: dict, compare: bool) ->
             f" MiB")
     # One exact-mode step from the same state: binning does not depend on
     # the mode, so its pairs are the packed path's on this state.
-    packed_pairs = render_image(state.params, cm.view, cm.proj, cm.campos, 0.0, st)[1].num_pairs
+    packed_pairs = int(render_image(state.params, cm.view, cm.proj, cm.campos, 0.0,
+                                    st)[1].num_pairs)
     _build.reset_launches()
     with mode_context("exact"):
         state, m = train_step(state, cm.view, cm.proj, cm.campos, gt, 0.0, steps, st)
         exact_loss = float(m.loss)
+        m = m._replace(num_pairs=int(m.num_pairs))
     torch.cuda.synchronize()
     exact = dict(_build.launches)
     add_launches(total, exact)
@@ -2527,8 +2609,23 @@ def scale_point(dev, scale_mul: float, ref: dict, total: dict, compare: bool) ->
     if any(exact[k] for k in exact if k.endswith("/packed")) or min(
             exact[k] for k in SCALE_STEP_LAUNCHES if not k.endswith("/packed")) <= 0:
         failed.append(f"scale_mul {scale_mul}: exact step launches {exact}")
+    graph_ms, graph_peak = statistics.median(res.step_ms), res.peak_mib
     del res, state, m
+    release_graphs()
     torch.cuda.empty_cache()
+    if compare:
+        # The eager step at exact sizing from the same start (launches not
+        # counted), beside the graph at the caps.
+        counts = dict(_build.launches)
+        eager = bench_scale.run(SCALE_N, scale_mul, steps=6, reps=2, device=dev, pair_cap=0,
+                                log=lambda m: None)
+        _build.launches.update(counts)
+        log(f"  [15a] eager at exact sizing: {statistics.median(eager.step_ms):.3f} ms a step "
+            f"(reps {', '.join(f'{t:.3f}' for t in eager.step_ms)}), peak allocated "
+            f"{eager.peak_mib:.0f} MiB; the graph at the caps: {graph_ms:.3f} ms, "
+            f"{graph_peak:.0f} MiB")
+        del eager
+        torch.cuda.empty_cache()
     return failed, kernels
 
 
@@ -2544,8 +2641,9 @@ def schedule_its(iters: int, start: int, interval: int, end: int) -> list:
 
 @contextlib.contextmanager
 def recorded_trainer():
-    """For a ``with`` block, the trainer module's ``train_step``,
-    ``reset_opacity`` and ``morton_sort`` replaced by recording ones: a
+    """For a ``with`` block, the trainer module's
+    ``get_monitored_train_step``, ``reset_opacity`` and ``morton_sort``
+    replaced by recording ones (the step's callable wrapped): a
     CUDA event at the start of each iteration and its loss kept on the
     card and its pairs (``events``, ``losses``, ``pairs``); (iteration,
     alive rows, whether every alive opacity equals the reset value) after
@@ -2555,17 +2653,23 @@ def recorded_trainer():
     from gsplat_tpu_torch.train import trainer as trainer_mod
 
     rec = dict(events=[], losses=[], pairs=[], resets=[], prefix=[], last=None)
-    real = trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort
+    real = (trainer_mod.get_monitored_train_step, trainer_mod.reset_opacity,
+            trainer_mod.morton_sort)
 
-    def step(*args):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        rec["events"].append(ev)
-        state, m = real[0](*args)
-        rec["losses"].append(m.loss)
-        rec["pairs"].append(m.num_pairs)
-        rec["last"] = args
-        return state, m
+    def get_step(st):
+        real_step = real[0](st)
+
+        def step(*args):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["events"].append(ev)
+            state, m, monitor = real_step(*args)
+            rec["losses"].append(m.loss)
+            rec["pairs"].append(m.num_pairs)
+            rec["last"] = (*args[:7], st)
+            return state, m, monitor
+
+        return step
 
     def reset(state, value):
         state = real[1](state, value)
@@ -2581,12 +2685,13 @@ def recorded_trainer():
         rec["prefix"].append(bool(alive[:k].all()) and not bool(alive[k:].any()))
         return state
 
-    trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort = (
-        step, reset, morton)
+    (trainer_mod.get_monitored_train_step, trainer_mod.reset_opacity,
+     trainer_mod.morton_sort) = get_step, reset, morton
     try:
         yield rec
     finally:
-        trainer_mod.train_step, trainer_mod.reset_opacity, trainer_mod.morton_sort = real
+        (trainer_mod.get_monitored_train_step, trainer_mod.reset_opacity,
+         trainer_mod.morton_sort) = real
 
 
 def check_long_run(rec: dict, density: list, iters: int, cfg, min_growths: int) -> tuple:
@@ -2602,6 +2707,7 @@ def check_long_run(rec: dict, density: list, iters: int, cfg, min_growths: int) 
     the median ms of an iteration without a density step, eval or dump)."""
     failed = []
     losses = torch.stack(rec["losses"]).cpu()
+    pairs = torch.stack(rec["pairs"]).cpu().tolist()
     events = rec["events"]
     # An iteration's time runs to the next one's start: the last is left out.
     iter_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
@@ -2628,8 +2734,8 @@ def check_long_run(rec: dict, density: list, iters: int, cfg, min_growths: int) 
     finite = bool(torch.isfinite(losses).all())
     log(f"  losses: {losses.numel()} finite {finite}, first {losses[0].item():.6f}, "
         f"last {losses[-1].item():.6f}, mean of the last 100 "
-        f"{losses[-100:].mean().item():.6f}; pairs a step {rec['pairs'][0]} at the first, "
-        f"median of the last 100 {statistics.median(rec['pairs'][-100:])}")
+        f"{losses[-100:].mean().item():.6f}; pairs a step {pairs[0]} at the first, "
+        f"median of the last 100 {statistics.median(pairs[-100:])}")
     if not (finite and losses.numel() == iters):
         failed.append("a loss is not finite")
     if len(grown) < min_growths:
@@ -2972,6 +3078,524 @@ def recipes_slice(dev) -> dict:
     return total
 
 
+
+# [17]: the reference's compiled step: binning at fixed capacities, the
+# on-device monitor and the step and render as CUDA graphs.
+CAPACITY_TITLE = ("[17] fixed capacities and the step as a CUDA graph: capped binning at the "
+                  "1M view, graphed against eager steps, the graphed Trainer against the eager")
+GRAPH_STEPS = 8  # (c): steps of each path from one start, each mode
+GRAPH_WINDOW = 24  # (f): timed steps a window; windows eager, graph, graph, eager
+GRAPH_PROFILE_STEPS = 8  # (f): profiled steps a path and mode
+
+
+def capped_statics(st, pairs: int, rows: int):
+    """``st`` at the caps a trainer would size for this frame's pair and
+    row requirements: each plus a sixteenth, rounded to its bucket."""
+    import dataclasses
+
+    from gsplat_tpu_torch.train.state import round_pair_cap, round_row_cap
+
+    return dataclasses.replace(st, pair_cap=round_pair_cap(pairs + (pairs >> 4)),
+                               row_cap=round_row_cap(rows + (rows >> 4)))
+
+
+def frame_inputs(params, cm, st):
+    """(uv, z, radius, mask) of one view: binning's inputs."""
+    from gsplat_tpu_torch.train.step import _per_gaussian
+
+    dev = params.xyz.device
+    with torch.no_grad():
+        view, proj, campos = (torch.as_tensor(x, device=dev)
+                              for x in (cm.view, cm.proj, cm.campos))
+        uv, _, _, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+    return uv, z, radius, mask
+
+
+def live_part_equal(capped, exact) -> list:
+    """The fields in which capped tables' live part differs from exact
+    tables (the tail of ``splat_gid`` must be -1)."""
+    p = exact.num_pairs
+    bad = [name for name, a, b in (
+        ("splat_gid", capped.splat_gid[:p], exact.splat_gid),
+        ("pair_slot", capped.pair_slot[:p], exact.pair_slot),
+        ("tile_start", capped.tile_start, exact.tile_start),
+        ("tile_count", capped.tile_count, exact.tile_count),
+        ("pair_start", capped.pair_start, exact.pair_start)) if not torch.equal(a, b)]
+    if int(capped.num_pairs) != p:
+        bad.append("num_pairs")
+    if not bool((capped.splat_gid[p:] == -1).all()):
+        bad.append("splat_gid tail")
+    return bad
+
+
+def capped_tables_slice(params, cm, st) -> tuple:
+    """(a) Binning at the 1M view at the caps ``capped_statics`` gives:
+    the live part bit-equal to the exact tables, the requirements equal to
+    the exact tables' and the row requirement to ``bench_scale.row_totals``'
+    count with a sentinel for every record without a row; then the tile
+    sort of the capped keys (the tail keyed past every pair) beside the
+    exact keys' and binning's time at each sizing. Returns (failed, the
+    capped statics, times)."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.kernels.sort import radix_sort
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.tools import bench_scale
+
+    inp = frame_inputs(params, cm, st)
+    grid = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile)
+    counts = dict(_build.launches)  # none of this is a path's run
+    exact = binning.build_tile_tables(*inp, **grid)
+    req, row_req = int(exact.overflow), int(exact.row_overflow)
+    _, _, off, rows = binning.row_expand_inputs(*inp, **grid)
+    rows, with_rows = bench_scale.row_totals(off, rows)
+    jax_rows = rows + params.capacity - with_rows
+    st_c = capped_statics(st, req, row_req)
+    capped = binning.build_tile_tables(*inp, **grid, pair_cap=st_c.pair_cap,
+                                       row_cap=st_c.row_cap)
+    bad = live_part_equal(capped, exact)
+    if (int(capped.overflow), int(capped.row_overflow)) != (req, row_req):
+        bad.append("requirements")
+    if row_req != jax_rows:
+        bad.append("row requirement against bench_scale.row_totals")
+    log(f"  (a) 1M view: {exact.num_pairs} pairs, {rows} tile rows of {with_rows} "
+        f"Gaussians; requirements (sentinels counted) pairs {req}, rows {row_req} "
+        f"(row_totals: {jax_rows}); caps {st_c.pair_cap} pairs, {st_c.row_cap} rows; capped "
+        f"tables: pairs {int(capped.num_pairs)}, overflow {int(capped.overflow)}, "
+        f"row_overflow {int(capped.row_overflow)}; live part bit-equal "
+        f"{'yes' if not bad else bad}")
+    keys, bits = path_inputs(params, cm, st)["sort"]  # the exact tile sort's keys
+    padded = torch.cat([keys, keys.new_full((st_c.pair_cap - keys.shape[0],),
+                                            (1 << bits) - 1)])
+    times = dict(
+        sort_exact=cuda_ms(lambda: radix_sort(keys, bits), 10),
+        sort_capped=cuda_ms(lambda: radix_sort(padded, bits), 10),
+        binning_exact=cuda_ms(lambda: binning.build_tile_tables(*inp, **grid), 10),
+        binning_capped=cuda_ms(lambda: binning.build_tile_tables(
+            *inp, **grid, pair_cap=st_c.pair_cap, row_cap=st_c.row_cap), 10))
+    _build.launches.update(counts)
+    log(f"  tile sort, {bits}-bit keys: {keys.shape[0]} keys {times['sort_exact']:.4f} ms, "
+        f"capped to {st_c.pair_cap} (tail keyed past every pair) "
+        f"{times['sort_capped']:.4f} ms; build_tile_tables exact "
+        f"{times['binning_exact']:.4f} ms (two host reads), capped "
+        f"{times['binning_capped']:.4f} ms (CUDA events, one call each)")
+    return ["(a) " + b for b in bad], st_c, times
+
+
+def capped_overflow_slice(dev) -> list:
+    """(b) A small scene binned at caps one bucket short of its pair and
+    row requirements, on the card and on the CPU from the same inputs:
+    pairs, requirements and tile counts equal, each tile's kept Gaussians
+    the same set and, but where log2 rounds a depth into the next bucket,
+    in the same order."""
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.train.state import round_pair_cap, round_row_cap
+
+    w, h = 320, 200
+    cm = views(w, h)[1]
+    st = statics(cm, w, h)
+    inp = frame_inputs(scene_params(20_000, seed=3, device="cpu"), cm, st)
+    grid = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile)
+    exact = binning.build_tile_tables(*inp, **grid)
+    # Half a bucket: below the 2^19 (pairs) and 2^18 (rows) granularity,
+    # buckets are powers of two, so the bucket just below the requirement's.
+    caps = dict(pair_cap=round_pair_cap(int(exact.overflow), 512) // 2,
+                row_cap=round_row_cap(int(exact.row_overflow), 2048) // 2)
+    cpu = binning.build_tile_tables(*inp, **grid, **caps)
+    card = binning.build_tile_tables(*(x.to(dev) for x in inp), **grid, **caps)
+    bad = [name for name in ("num_pairs", "overflow", "row_overflow")
+           if int(getattr(cpu, name)) != int(getattr(card, name))]
+    if not torch.equal(cpu.tile_count, card.tile_count.cpu()):
+        bad.append("tile_count")
+    gid_c, gid_g = cpu.splat_gid, card.splat_gid.cpu()
+    sets = all(torch.equal(torch.sort(gid_c[s:s + c]).values, torch.sort(gid_g[s:s + c]).values)
+               for s, c in zip(cpu.tile_start.tolist(), cpu.tile_count.tolist()))
+    same = (gid_c == gid_g).double().mean().item()
+    if not sets or same < 0.999:
+        bad.append("kept pairs")
+    row_cap_used, _ = binning.resolve_row_cap(caps["pair_cap"], caps["row_cap"])
+    overflowed = (int(cpu.overflow) > caps["pair_cap"]
+                  and int(cpu.row_overflow) > row_cap_used)
+    if not overflowed:
+        bad.append("the caps did not overflow")
+    log(f"  (b) {w}x{h}, 20000 Gaussians: requirements {int(exact.overflow)} pairs, "
+        f"{int(exact.row_overflow)} rows; caps {caps} (rows resolved {row_cap_used}): "
+        f"kept {int(card.num_pairs)} pairs on the card, {int(cpu.num_pairs)} on the CPU of "
+        f"{exact.num_pairs}; each tile's set equal {sets}, same Gaussian at "
+        f"{100 * same:.4f} % of slots")
+    return ["(b) " + b for b in bad]
+
+
+def camera_tensors(cams, dev) -> list:
+    return [tuple(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                  for x in (cm.view, cm.proj, cm.campos)) for cm in cams]
+
+
+def graph_equality_slice(cams, gts, st, st_c, dev) -> tuple:
+    """(c), (d) From one start, GRAPH_STEPS steps eager at exact sizing,
+    eager at the caps and through ``get_train_step``'s CUDA graph, in each
+    mode: losses and every tensor of the states bit-identical. The graph's
+    replays (its third call on) run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in one fails.
+    The graph's run counts every kernel of the mode's path, the tile sort
+    once a step. Returns (failed, the graph runs' launches by mode)."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.train.state import init_state, params_from_jax
+    from gsplat_tpu_torch.train.step import get_train_step, graph_captures, train_step
+
+    start = scene_arrays(1_000_000, seed=0, perturb_seed=1)
+    cam_t = camera_tensors(cams, dev)
+    failed, launches = [], {}
+    for mode in ("packed", "exact"):
+        runs = {}
+        with mode_context(mode):
+            for path in ("exact", "capped", "graph"):
+                state = init_state(params_from_jax(*start, dev))
+                step = get_train_step(st_c)
+                captures = graph_captures()
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                losses = []
+                for it in range(GRAPH_STEPS):
+                    v = it % len(cams)
+                    args = (state, *cam_t[v], gts[v], BG, it)
+                    if path == "graph" and it >= 2:
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            state, m = step(*args)
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+                    elif path == "graph":
+                        state, m = step(*args)
+                    else:
+                        state, m = train_step(*args, st if path == "exact" else st_c)
+                    losses.append(m.loss)
+                torch.cuda.synchronize()
+                runs[path] = (torch.stack(losses), state)
+                if path == "graph":
+                    launches[mode] = dict(_build.launches)
+                    captures = graph_captures() - captures
+        ref_losses, ref_state = runs["exact"]
+        for path in ("capped", "graph"):
+            losses, state = runs[path]
+            diff = differing(state, ref_state)
+            same = torch.equal(bits_of(losses), bits_of(ref_losses))
+            log(f"  (c) {mode}: {path} vs exact sizing over {GRAPH_STEPS} steps: losses "
+                f"bit-identical {same}, state tensors differing {diff}")
+            if diff or not same:
+                failed.append(f"(c) {mode} {path}")
+        got = launches[mode]
+        packed_keys = [k for k in got if k.endswith("/packed")]
+        want_packed = {k: got[k.split("/")[0]] if mode == "packed" else 0 for k in packed_keys}
+        base = [k for k in got if k != "radix_sort/morton" and k not in packed_keys]
+        log(f"  (d) {mode}: {GRAPH_STEPS - 2} replays under set_sync_debug_mode('error'), "
+            f"{captures} capture; launches of the graph's run {got}")
+        if (min(got[k] for k in base) <= 0 or {k: got[k] for k in packed_keys} != want_packed
+                or got["radix_sort/tile"] != GRAPH_STEPS or captures != 1):
+            failed.append(f"(d) {mode} launches {got}, captures {captures}")
+        del runs, state, ref_state
+    return failed, launches
+
+
+def failed_capture_slice(cams, gts, st_c, dev) -> list:
+    """(g) A capture that meets a host read raises, and the call does not
+    run the step eagerly instead: the step's PSNR replaced by one that
+    reads the host, a fresh StepStatics' second call (its capture) must
+    raise and leave the state as the first call left it."""
+    import dataclasses
+
+    from gsplat_tpu_torch.train import step as step_mod
+    from gsplat_tpu_torch.train.state import init_state
+
+    st_x = dataclasses.replace(st_c, num_iters=st_c.num_iters + 1)  # a StepStatics of its own
+    state = init_state(scene_params(100_000, seed=0, device=dev))
+    cam = camera_tensors(cams[:1], dev)[0]
+    real = step_mod.compute_psnr
+
+    def reads_host(image, gt):
+        value = real(image, gt)
+        float(value)  # a host read
+        return value
+
+    step = step_mod.get_train_step(st_x)
+    step(state, *cam, gts[0], BG, 0)  # the eager first call
+    before = state_checksums(state)
+    step_mod.compute_psnr = reads_host
+    try:
+        step(state, *cam, gts[0], BG, 1)
+        raised = None
+    except Exception as e:  # noqa: BLE001 - any error of the capture is the check
+        raised = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    finally:
+        step_mod.compute_psnr = real
+        step_mod.release_graphs()
+    torch.cuda.synchronize()
+    unchanged = torch.equal(before, state_checksums(state))
+    log(f"  (g) a capture that reads the host raised {raised}; the state unchanged "
+        f"{unchanged}")
+    return [] if raised and unchanged else ["(g) a failed capture did not raise, or ran"]
+
+
+@contextlib.contextmanager
+def eager_factories():
+    """For a ``with`` block: the trainer's step and render factories
+    replaced by eager callables at the same statics (no graph)."""
+    import functools
+
+    from gsplat_tpu_torch.train import step as step_mod
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+
+    def render_fn(st):
+        return lambda params, view, proj, campos, bg: step_mod.render_image(
+            params, view, proj, campos, bg, st)[0]
+
+    real = trainer_mod.get_monitored_train_step, trainer_mod.get_render_fn
+    trainer_mod.get_monitored_train_step = lambda st: functools.partial(
+        step_mod.monitored_train_step, st=st)
+    trainer_mod.get_render_fn = render_fn
+    try:
+        yield
+    finally:
+        trainer_mod.get_monitored_train_step, trainer_mod.get_render_fn = real
+
+
+def trainer_twin_slice(dev, graphed: dict) -> list:
+    """(e) [11]'s run again with the trainer's factories eager: every loss,
+    the capacities of every step, the density steps' counts, the state's
+    checksums and the PLY bytes bit-identical to [11]'s graphed run."""
+    import tempfile
+
+    from gsplat_tpu_torch.train import trainer as trainer_mod
+    from gsplat_tpu_torch.train.init import initialize_gaussians
+
+    cams, images, gts, xyz, rgb = graphed["scene"]
+    rec = dict(losses=[], caps=[], density=[])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_twin_") as tmp:
+        cfg = trainer_config(tmp)
+        tr = trainer_mod.Trainer(cfg, initialize_gaussians(xyz, rgb, cfg), images, cams,
+                                 device=dev)
+        real_density = tr._density_step
+
+        def density():
+            info = real_density()
+            rec["density"].append((tr.iter, density_counts(info)))
+            return info
+
+        tr._density_step = density
+        with eager_factories(), ImageStandIns(gts, (HEIGHT, WIDTH, 3)):
+            real_get = trainer_mod.get_monitored_train_step
+
+            def get_step(st):
+                def step(*args):
+                    torch.cuda.synchronize()  # as [11]'s hook: an iteration apiece
+                    starts.append(time.perf_counter())
+                    state, m, monitor = real_get(st)(*args)
+                    rec["losses"].append(float(m.loss))
+                    rec["caps"].append((st.pair_cap, st.row_cap))
+                    return state, m, monitor
+                return step
+
+            starts = []
+            trainer_mod.get_monitored_train_step = get_step
+            t0 = time.perf_counter()
+            tr.train(max_iters=11)
+            tr.train(max_iters=TRAINER_ITERS)
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            wall = starts[-1] - t0
+        ply = Path(tmp) / "trained.ply"
+        tr.save_to_ply(ply)
+        ply_bytes = ply.read_bytes()
+        sums = state_checksums(tr.state)
+        with eager_factories():
+            steady = {"eager": steady_iteration_ms(tr, gts)}
+        steady["graphed"] = steady_iteration_ms(graphed["trainer"], gts)
+    bad = [name for name, a, b in (
+        ("losses", rec["losses"], graphed["losses"]), ("caps", rec["caps"], graphed["caps"]),
+        ("density", rec["density"], graphed["density"]),
+        ("PLY bytes", ply_bytes, graphed["ply"]))
+        if a != b]
+    if not torch.equal(sums, graphed["checksums"]):
+        bad.append("state checksums")
+    iter_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+    dens = {it for it, _ in rec["density"]}
+    busy = dens | {0, 12}  # eval and dumps at 0 and 12
+    for label, ms in (("graphed [11]", graphed["iter_ms"]), ("eager", iter_ms)):
+        plain = [x for i, x in enumerate(ms) if i not in busy]
+        log(f"  (e) {label}: ms an iteration, median {statistics.median(plain):.3f} without a "
+            f"density step, eval or dump ({statistics.median(plain[-6:]):.3f} over the last "
+            f"6 such), {statistics.median([ms[i] for i in sorted(dens - {12})]):.3f} with a "
+            f"density step; by iteration " + ", ".join(f"{x:.1f}" for x in ms))
+    log(f"  (e) past the schedule's events (iterations {TRAINER_ITERS + 2}-"
+        f"{TRAINER_ITERS + 1 + STEADY_ITERS}, no hook, one sync at each end): "
+        f"{steady['graphed']:.3f} ms an iteration graphed, {steady['eager']:.3f} eager")
+    log(f"  (e) Trainer.train, [11]'s schedule, eager factories: {wall:.3f} s for "
+        f"{TRAINER_ITERS} iterations (graphed in [11]: {graphed['wall_s']:.3f} s, "
+        f"{graphed['captures']} captures); caps by step {sorted(set(rec['caps']))}; "
+        f"bit-identical to the graphed run: {'yes' if not bad else bad}")
+    return ["(e) " + b for b in bad]
+
+
+STEADY_ITERS = 10  # (e): iterations after [11]'s schedule with no event
+
+
+def steady_iteration_ms(tr, gts) -> float:
+    """Wall ms an iteration of ``tr`` over STEADY_ITERS iterations past
+    [11]'s schedule, where no event fires: the trainer as a user runs it,
+    with no hook and the card synchronized only at the ends. Untimed
+    first: iteration TRAINER_ITERS (an eval and a dump) and the next (a
+    graph's first call or capture, where one was freed)."""
+    shape = next(iter(gts.values())).shape
+    with ImageStandIns(gts, shape):
+        tr.train(max_iters=TRAINER_ITERS + 2, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(max_iters=TRAINER_ITERS + 2 + STEADY_ITERS, verbose=False)
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / STEADY_ITERS
+
+
+def density_counts(info) -> tuple:
+    return tuple(int(getattr(info, f)) for f in ("num_pruned", "num_cloned", "num_split",
+                                                 "new_total", "applied"))
+
+
+def path_profile(run, steps: int) -> dict:
+    """torch.profiler over ``run(k)`` for k < steps, twice: device ms and
+    device kernels a step (device activity only), then the host's calls
+    to the CUDA runtime that launch work (kernels, graphs, copies) a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(steps):
+            run(k)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(steps):
+            run(k)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count / steps for e in prof.key_averages()
+             if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                                  "cudaMemsetAsync", "cuLaunchKernel"))}
+    return dict(device_ms=sum(e.device_time_total for e in rows) / 1e3 / steps,
+                kernels=sum(e.count for e in rows) / steps, launch_calls=calls,
+                by_kernel={e.key: (e.device_time_total / 1e3 / steps, e.count / steps)
+                           for e in rows})
+
+
+def graph_timing_slice(cams, gts, st, st_c, dev) -> dict:
+    """(f) [9]'s steps at 1M, the eager step at exact sizing (today's path)
+    and the graph at the caps, in windows of GRAPH_WINDOW steps taken in
+    turns (eager, graph, graph, eager) from one state: wall and process-CPU
+    ms a step (host clocks, the card synchronized at each window's ends);
+    then torch.profiler over GRAPH_PROFILE_STEPS of each path: device ms,
+    kernels and the host's launch calls a step; and each path's peak
+    allocated MiB. In each mode."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.train.state import init_state
+    from gsplat_tpu_torch.train.step import get_train_step, release_graphs, train_step
+
+    cam_t = camera_tensors(cams, dev)
+    out = {}
+    counts = dict(_build.launches)
+    for mode in ("packed", "exact"):
+        state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
+        graph = get_train_step(st_c)
+        it = [0]
+
+        def run(path, _k=None):
+            v = it[0] % len(cams)
+            args = (state, *cam_t[v], gts[v], BG, it[0])
+            if path == "graph":
+                graph(*args)
+            else:
+                train_step(*args, st)
+            it[0] += 1
+
+        with mode_context(mode):
+            peak = {}
+            for path in ("eager", "graph"):  # eager first: no graph holds memory yet
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(4):  # the graph's eager first call, capture, replays
+                    run(path)
+                torch.cuda.synchronize()
+                peak[path] = torch.cuda.max_memory_allocated() / 2**20
+            walls = {"eager": [], "graph": []}
+            for path in ("eager", "graph", "graph", "eager"):
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), time.process_time()
+                for _ in range(GRAPH_WINDOW):
+                    run(path)
+                issued = time.perf_counter()
+                torch.cuda.synchronize()  # spins: the process CPU counts the wait
+                walls[path].append((1e3 * (time.perf_counter() - t0) / GRAPH_WINDOW,
+                                    1e3 * (time.process_time() - c0) / GRAPH_WINDOW,
+                                    1e3 * (issued - t0) / GRAPH_WINDOW))
+            res = {}
+            for path in ("eager", "graph"):
+                res[path] = path_profile(lambda k, p=path: run(p), GRAPH_PROFILE_STEPS)
+                res[path]["peak_mib"] = peak[path]
+                res[path]["wall_ms"] = statistics.mean(w for w, _, _ in walls[path])
+                res[path]["cpu_ms"] = statistics.mean(c for _, c, _ in walls[path])
+                res[path]["issue_ms"] = statistics.mean(i for _, _, i in walls[path])
+                res[path]["windows"] = walls[path]
+        for path in ("eager", "graph"):
+            r = res[path]
+            log(f"  (f) {mode}, {path}: wall {r['wall_ms']:.3f} ms/step, process CPU "
+                f"{r['cpu_ms']:.3f} ms/step, host time to issue a step {r['issue_ms']:.3f} "
+                f"ms (windows wall/CPU/issue "
+                + ", ".join(f"{w:.3f}/{c:.3f}/{i:.3f}" for w, c, i in r["windows"])
+                + f"); device {r['device_ms']:.3f} ms/step, {r['kernels']:.1f} device "
+                f"kernels/step, host launch calls/step {r['launch_calls']}; peak allocated "
+                f"{r['peak_mib']:.0f} MiB")
+        e, g = res["eager"], res["graph"]
+        names = set(e["by_kernel"]) | set(g["by_kernel"])
+        diff = sorted(((g["by_kernel"].get(k, (0, 0))[0] - e["by_kernel"].get(k, (0, 0))[0],
+                        g["by_kernel"].get(k, (0, 0))[1] - e["by_kernel"].get(k, (0, 0))[1], k)
+                       for k in names), key=lambda r: -abs(r[0]))[:PROFILE_TOP]
+        log(f"  (f) {mode}: device ms/step and kernels/step, graph - eager, largest first:")
+        for ms, n, k in diff:
+            log(f"    {ms:+8.4f} ms {n:+6.1f}x  {k[:96]}")
+        log(f"  (f) {mode}: graph - eager: wall {g['wall_ms'] - e['wall_ms']:+.3f} ms/step, "
+            f"process CPU {g['cpu_ms'] - e['cpu_ms']:+.3f}, issue "
+            f"{g['issue_ms'] - e['issue_ms']:+.3f}, device "
+            f"{g['device_ms'] - e['device_ms']:+.3f} (the caps' padding), busy "
+            f"{100 * e['device_ms'] / e['wall_ms']:.1f} % -> "
+            f"{100 * g['device_ms'] / g['wall_ms']:.1f} %")
+        out[mode] = res
+        release_graphs()
+        del state, graph
+        torch.cuda.empty_cache()
+    _build.launches.update(counts)
+    return out
+
+
+def capacity_slice(dev, graphed: dict) -> dict:
+    """[17]: a-g above, on [9]'s scene and views and [11]'s run
+    (``graphed``, from ``trainer_slice``); raises if any check failed."""
+    from gsplat_tpu_torch.train.step import release_graphs, render_image
+
+    cams = views()
+    st = statics(cams[0])
+    failed, st_c, sort_times = capped_tables_slice(scene_params(1_000_000, seed=0, device=dev),
+                                                   cams[0], st)
+    failed += capped_overflow_slice(dev)
+    truth = scene_params(1_000_000, seed=0, device=dev)
+    gts = [render_image(truth, cm.view, cm.proj, cm.campos, BG, st)[0] for cm in cams]
+    del truth
+    f, launches = graph_equality_slice(cams, gts, st, st_c, dev)
+    failed += f
+    release_graphs()
+    failed += trainer_twin_slice(dev, graphed)
+    timing = graph_timing_slice(cams, gts, st, st_c, dev)
+    failed += failed_capture_slice(cams, gts, st_c, dev)
+    if failed:
+        raise AssertionError(f"[17] failed: {failed}")
+    return dict(launches=launches, timing=timing, sort=sort_times, caps=(st_c.pair_cap,
+                                                                         st_c.row_cap))
+
+
 def log_scale_table(scale: dict, at_1m: dict) -> None:
     """Each kernel's time, bound and library time at the 4.25M scale point
     ([15a], scale_mul 0.97) beside the 1M view's ([6], [10])."""
@@ -3013,6 +3637,12 @@ def main() -> int:
     if sys.argv[1:] == ["--trainer"]:
         log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
         trainer_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--capacity"]:
+        log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
+        graphed = trainer_slice(dev)["graphed"]
+        log(CAPACITY_TITLE)
+        capacity_slice(dev, graphed)
         return 0
     if sys.argv[1:] == ["--parallel"]:
         _build.build()
@@ -3151,6 +3781,12 @@ def main() -> int:
     # growths, and the quality gate's logic.
     log(RECIPES_TITLE)
     at_recipes = recipes_slice(dev)
+
+    # 17. The reference's compiled step: capped binning at the 1M view, the
+    # graphed step against the eager ones, the graphed Trainer against the
+    # eager one, eager against graph timings, a failed capture raising.
+    log(CAPACITY_TITLE)
+    capacity_slice(dev, morton["graphed"])
 
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact

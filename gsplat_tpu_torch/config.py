@@ -86,9 +86,10 @@ class ConfigParameters:
     # True keeps the reference binary's schedule and its dead fields dead.
     strict_reference: bool = True
     tile_size: int = 16
-    # The next three are kept so that config_hash matches the JAX
-    # package's; the port sizes its pair stream exactly and trains one
-    # camera a step, so it reads none of them.
+    # chunk_size and cameras_per_step are kept so that config_hash matches
+    # the JAX package's; the kernels pick their own blocking and the port
+    # trains one camera a step, so it reads neither. pair_cap (0 = sized
+    # from the scene) is the trainer's first pair capacity.
     chunk_size: int = 128
     pair_cap: int = 0
     cameras_per_step: int = 1

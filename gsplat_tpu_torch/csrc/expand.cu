@@ -32,6 +32,13 @@
 //   warp to 32 neighbouring addresses. No search over global memory per
 //   slot; one launch per call.
 //
+// A capped call (binning at fixed capacities) has a static output width
+// `width`, and reads its live total from device memory, offsets_ext[R]
+// clamped to `width`: the grid covers R + width items, and the blocks
+// whose share starts past R + live exit at once. Slots in [live, width) are
+// not written. Nothing is read back to the host to size the call, so a
+// CUDA graph can hold it.
+//
 // At the bench point both levels take 0.057 ms of device time (the
 // per-slot search took 0.166), at 8 items a thread; 4 took 0.068 and 12
 // no less (PERF.md). What is left is each block's chain of
@@ -78,13 +85,17 @@ __device__ int merge_path_warp(const int32_t* __restrict__ ends, long long diag,
 __global__ void __launch_bounds__(kThreads)
 segment_expand_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ records,
                       const int32_t* __restrict__ offsets_ext, int num_cols,
-                      int num_records, int total) {
+                      int num_records, int width, int capped) {
   __shared__ int32_t s_ends[kItems];    // the block's run ends
   __shared__ int32_t s_rec[kItems];     // each slot's record, from the block's first
   __shared__ uint32_t s_col[kItems + 1];  // one column of the block's records
   __shared__ int s_split[4];            // (slots, ends) before the share, and after
   const int tid = threadIdx.x, warp = tid >> 5;
   const int32_t* ends = offsets_ext + 1;
+  // The live slots: every slot of the output, or (capped) the total that
+  // the offsets hold, clamped to the output's width.
+  const int total = capped ? max(0, min(offsets_ext[num_records], width)) : width;
+  if ((long long)blockIdx.x * kItems >= (long long)num_records + total) return;
 
   if (warp < 2) {
     const long long diag =
@@ -157,7 +168,7 @@ segment_expand_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ r
       if (k < n_rec) s_col[k] = w[i];
     }
     __syncthreads();
-    uint32_t* dst = out + (int64_t)c * total + a0;
+    uint32_t* dst = out + (int64_t)c * width + a0;
 #pragma unroll
     for (int i = 0; i < kItemsPerThread; ++i) {
       const int k = tid + i * kThreads;
@@ -169,19 +180,22 @@ segment_expand_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ r
 
 }  // namespace
 
-// Expands (num_cols, num_records) 32-bit records into (num_cols, total)
-// slots by offsets_ext (num_records + 1 exclusive offsets, the last =
-// total < 2^31), one block per kItems merged items (records + slots).
+// Expands (num_cols, num_records) 32-bit records into (num_cols, width)
+// slots by offsets_ext (num_records + 1 exclusive offsets, the last the
+// total), one block per kItems merged items (records + slots). Exact
+// (capped = 0): the total is `width` < 2^31. Capped: the live total is
+// min(offsets_ext[num_records], width), read on the device.
 extern "C" int gs_segment_expand(void* out, const void* records,
                                  const void* offsets_ext, int num_cols,
-                                 int num_records, int total, void* stream) {
-  if (num_cols < 0 || num_records < 0 || total < 0) return (int)cudaErrorInvalidValue;
-  if (total > 0 && num_cols > 0) {
-    const long long merged = (long long)num_records + total;
+                                 int num_records, int width, int capped,
+                                 void* stream) {
+  if (num_cols < 0 || num_records < 0 || width < 0) return (int)cudaErrorInvalidValue;
+  if (width > 0 && num_cols > 0) {
+    const long long merged = (long long)num_records + width;
     const int num_blocks = (int)((merged + kItems - 1) / kItems);
     segment_expand_kernel<<<num_blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (uint32_t*)out, (const uint32_t*)records, (const int32_t*)offsets_ext,
-        num_cols, num_records, total);
+        num_cols, num_records, width, capped);
   }
   return (int)cudaGetLastError();
 }

@@ -111,8 +111,8 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
                           const int32_t* __restrict__ tile_count,
                           const float* __restrict__ out,
                           const float* __restrict__ d_tiles,
-                          int num_tiles_x, float bg, float scale_u,
-                          float scale_v) {
+                          int num_tiles_x, const float* __restrict__ bg_ptr,
+                          float scale_u, float scale_v) {
   // A pair's attributes as three float4s [u v c00 c01] [c11 opa r g] [b]:
   // three broadcast loads a pair.
   __shared__ float4 s_attr[3][kBatch];
@@ -124,6 +124,7 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
   const int warp = tid >> 5;
   const int start = tile_start[t];
   const int count = tile_count[t];
+  const float bg = *bg_ptr;  // device memory, as in the forward
 
   // This thread's pixels: kPixPerThread neighbours in a row of the tile,
   // (px + q, py) for q < kPixPerThread; global, or relative to the tile's
@@ -299,7 +300,7 @@ extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
                                      const void* tile_start,
                                      const void* tile_count, const void* out,
                                      const void* d_tiles, int num_tiles,
-                                     int num_tiles_x, float bg, float scale_u,
+                                     int num_tiles_x, const void* bg, float scale_u,
                                      float scale_v, int packed, int pack_grads,
                                      void* stream) {
   if (num_tiles > 0) {
@@ -310,7 +311,7 @@ extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
     kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         grads, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
-        (const float*)out, (const float*)d_tiles, num_tiles_x, bg, scale_u,
+        (const float*)out, (const float*)d_tiles, num_tiles_x, (const float*)bg, scale_u,
         scale_v);
   }
   return (int)cudaGetLastError();

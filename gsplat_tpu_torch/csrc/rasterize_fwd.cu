@@ -95,7 +95,10 @@ rasterize_forward_kernel(float* __restrict__ out,
                          const int32_t* __restrict__ splat_gid,
                          const int32_t* __restrict__ tile_start,
                          const int32_t* __restrict__ tile_count,
-                         int num_tiles_x, float bg) {
+                         int num_tiles_x, const float* __restrict__ bg_ptr) {
+  // The background from device memory: a CUDA graph that replays this
+  // launch sees the value of the replay, not that of the capture.
+  const float bg = *bg_ptr;
   // [buffer][u v c00 2c01 | c11 opa r g | b - - -][pair of the batch]
   __shared__ float4 s_attr[2][3][kBatch];
   const int t = blockIdx.x;
@@ -214,14 +217,14 @@ extern "C" int gs_rasterize_forward(void* out, const void* attrs,
                                     const void* splat_gid,
                                     const void* tile_start,
                                     const void* tile_count, int num_tiles,
-                                    int num_tiles_x, float bg, int packed,
+                                    int num_tiles_x, const void* bg, int packed,
                                     void* stream) {
   if (num_tiles > 0) {
     auto kernel = packed ? rasterize_forward_kernel<true> : rasterize_forward_kernel<false>;
     kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         (float*)out, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count, num_tiles_x,
-        bg);
+        (const float*)bg);
   }
   return (int)cudaGetLastError();
 }

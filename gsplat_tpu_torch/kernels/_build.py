@@ -15,11 +15,14 @@ raises on a non-zero code.
 kernel (never the plain-PyTorch CPU path), the radix sort's also per
 call site of the main path, and the rasterizers' and the segment sum's
 also in packed mode (``name/packed``; the rest ran in exact mode): a run
-can show that the main path went through each kernel.
+can show that the main path went through each kernel. A CUDA graph's
+capture launches nothing: ``recording()`` takes back what the wrappers
+counted while it captured, and each replay adds it (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,17 +45,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: name -> argtypes (every function returns the cudaError_t).
 SIGNATURES = {
-    # out, records, offsets_ext, num_cols, num_records, total, stream
-    "gs_segment_expand": [_P, _P, _P, _I, _I, _I, _P],
+    # out, records, offsets_ext, num_cols, num_records, width, capped, stream
+    "gs_segment_expand": [_P, _P, _P, _I, _I, _I, _I, _P],
     # keys_in, keys_out, vals_out, pairs_tmp, scratch, n, passes, plan
     # (host ints: shift, bits per pass), stream
     "gs_radix_sort": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
-    # num_tiles_x, bg, packed, stream
-    "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    # num_tiles_x, bg (a device float), packed, stream
+    "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     # grads, attrs, splat_gid, tile_start, tile_count, out, d_tiles,
-    # num_tiles, num_tiles_x, bg, scale_u, scale_v, packed, pack_grads, stream
-    "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+    # num_tiles, num_tiles_x, bg (a device float), scale_u, scale_v, packed,
+    # pack_grads, stream
+    "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                               ctypes.c_float, ctypes.c_float, _I, _I, _P],
     # out, rows, pair_slot, pair_start, n, stream
     "gs_segment_sum": [_P, _P, _P, _P, _I, _P],
@@ -77,6 +81,27 @@ build_log: str = ""  # nvcc's output of this process's build (ptxas -v)
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """For a CUDA graph's capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside the block, which are taken back
+    from ``launches`` (a capture launches nothing; a replay launches them
+    all, and adds them with ``add_launches``)."""
+    before = dict(launches)
+    counted: dict[str, int] = {}
+    try:
+        yield counted
+    finally:
+        for name in launches:
+            counted[name] = launches[name] - before[name]
+            launches[name] = before[name]
+
+
+def add_launches(counted: dict) -> None:
+    for name, n in counted.items():
+        launches[name] += n
 
 
 def _nvcc() -> str:

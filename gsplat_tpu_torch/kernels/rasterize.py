@@ -24,6 +24,11 @@ words (``packing.pack_grad_rows``) instead of (P, 9) float32. Either way
 the sums are formed in float32, where the reference's packed TPU kernels
 take bf16 matrix products.
 
+The background ``bg`` is a () float32 tensor (a number is filled into
+one, ``background``): the kernels read it from device memory, so a CUDA
+graph that replays them takes each replay's background, and the plain
+versions take the same tensor.
+
 The plain versions evaluate ``power`` and alpha op by op in the order
 ``csrc/raster_common.cuh`` rounds them, so kernels and plain versions agree
 on which pair-pixels pass the 1/255 cutoff: change both together.
@@ -45,21 +50,32 @@ KERNEL_TILE = 16
 _PLAIN_CHUNK = 64  # pairs per step of the plain version
 
 
+def background(bg, device) -> torch.Tensor:
+    """``bg`` as the () float32 tensor on ``device`` that the rasterizers
+    read: a tensor as it is, a number filled into a new one (a fill, no
+    copy from the host)."""
+    if isinstance(bg, torch.Tensor):
+        return bg.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(bg), dtype=torch.float32, device=device)
+
+
 def _tile_lists(splat_gid, tile_start, tile_count):
-    """(T, L) gid matrix of each tile's pairs in order, plus its mask."""
+    """(T, L) gid matrix of each tile's pairs in order, plus its mask.
+    The pairs are the first ``sum(tile_count)`` of ``splat_gid``: all of
+    them, or the live ones of a capped table."""
     num_tiles = tile_start.shape[0]
     dev = splat_gid.device
     max_len = int(tile_count.max()) if num_tiles else 0
     lists = torch.zeros((num_tiles, max(max_len, 1)), dtype=torch.int64, device=dev)
     valid = torch.zeros_like(lists, dtype=torch.bool)
-    p = splat_gid.shape[0]
+    p = int(tile_count.sum()) if num_tiles else 0
     if p:
         tile_of = torch.repeat_interleave(
             torch.arange(num_tiles, device=dev), tile_count.to(torch.int64),
             output_size=p,
         )
         pos = torch.arange(p, device=dev) - tile_start.to(torch.int64)[tile_of]
-        lists[tile_of, pos] = splat_gid.to(torch.int64)
+        lists[tile_of, pos] = splat_gid[:p].to(torch.int64)
         valid[tile_of, pos] = True
     return lists, valid
 
@@ -111,7 +127,7 @@ def rasterize_forward_plain(
     splat_gid: torch.Tensor,
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
-    bg: float,
+    bg,
     *,
     num_tiles_x: int,
     tile: int = KERNEL_TILE,
@@ -126,6 +142,7 @@ def rasterize_forward_plain(
     """
     num_tiles = tile_start.shape[0]
     dev = attrs.device
+    bg = background(bg, dev)
     pix = tile * tile
     lists, valid = _tile_lists(splat_gid, tile_start, tile_count)
     px, py = _pixel_centres(num_tiles, num_tiles_x, tile, dev, packed)
@@ -168,7 +185,7 @@ def rasterize_forward(
     splat_gid: torch.Tensor,
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
-    bg: float,
+    bg,
     *,
     num_tiles_x: int,
     tile: int = KERNEL_TILE,
@@ -178,7 +195,8 @@ def rasterize_forward(
 
     ``attrs`` (N, 9) f32 per-Gaussian rows; ``splat_gid`` (P,) int32 pair ->
     Gaussian, tile-major and depth-sorted; ``tile_start``/``tile_count``
-    (T,) int32 ranges into it; ``packed`` rounds each pair's attributes as
+    (T,) int32 ranges into it; ``bg`` the () float32 background (or a
+    number, ``background``); ``packed`` rounds each pair's attributes as
     the reference's packed stream does. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel.
     """
@@ -190,7 +208,8 @@ def rasterize_forward(
     name = "rasterize_forward"
     _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
     num_tiles = tile_start.shape[0]
-    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count)
+    bg = background(bg, attrs.device)
+    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, bg)
     lib = _build.build()
     out = torch.empty(
         (num_tiles, OUT_ROWS, tile * tile), dtype=torch.float32, device=attrs.device
@@ -198,7 +217,7 @@ def rasterize_forward(
     err = lib.gs_rasterize_forward(
         out.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, num_tiles_x,
-        float(bg), int(packed), _build.stream_ptr(attrs.device),
+        bg.data_ptr(), int(packed), _build.stream_ptr(attrs.device),
     )
     _build.check(err, name)
     _build.launches[name] += 1
@@ -223,7 +242,7 @@ def rasterize_backward_plain(
     tile_count: torch.Tensor,
     out: torch.Tensor,
     d_tiles: torch.Tensor,
-    bg: float,
+    bg,
     *,
     num_tiles_x: int,
     num_tiles_y: int,
@@ -254,6 +273,7 @@ def _backward_rows_plain(attrs, splat_gid, tile_start, tile_count, out, d_tiles,
                          num_tiles_x, num_tiles_y, tile, grad_scale, packed):
     num_tiles = tile_start.shape[0]
     dev = attrs.device
+    bg = background(bg, dev)
     rows = torch.zeros((splat_gid.shape[0], GRAD_COLS), dtype=attrs.dtype, device=dev)
     if splat_gid.shape[0] == 0:
         return rows
@@ -322,7 +342,7 @@ def rasterize_backward(
     tile_count: torch.Tensor,
     out: torch.Tensor,
     d_tiles: torch.Tensor,
-    bg: float,
+    bg,
     *,
     num_tiles_x: int,
     num_tiles_y: int,
@@ -358,7 +378,8 @@ def rasterize_backward(
     for t, rows_ in ((out, OUT_ROWS), (d_tiles, 3)):
         if t.dtype != torch.float32 or tuple(t.shape) != (num_tiles, rows_, pix):
             raise ValueError(f"{name}: expected ({num_tiles}, {rows_}, {pix}) float32")
-    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, out, d_tiles)
+    bg = background(bg, attrs.device)
+    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg)
     lib = _build.build()
     grads = torch.empty(
         (splat_gid.shape[0], packing.GRAD_WORDS) if pack_grads
@@ -369,7 +390,7 @@ def rasterize_backward(
     err = lib.gs_rasterize_backward(
         grads.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
-        d_tiles.data_ptr(), num_tiles, num_tiles_x, float(bg), scale_u, scale_v,
+        d_tiles.data_ptr(), num_tiles, num_tiles_x, bg.data_ptr(), scale_u, scale_v,
         int(packed), int(pack_grads), _build.stream_ptr(attrs.device),
     )
     _build.check(err, name)

@@ -32,14 +32,16 @@ def segment_sum_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``index_add_`` of the rows (unpacked first if
     packed) in candidate order over each candidate's Gaussian (on the CPU it
-    adds in index order)."""
+    adds in index order). The candidates are the first ``pair_start[n]``
+    (all, or a capped table's live ones)."""
     if rows.dtype == torch.int32:
         rows = packing.unpack_grad_rows(rows)
     counts = (pair_start[1:] - pair_start[:-1]).long()
+    live = int(pair_start[-1])
     gid = torch.repeat_interleave(
-        torch.arange(n, device=rows.device), counts, output_size=pair_slot.shape[0])
+        torch.arange(n, device=rows.device), counts, output_size=live)
     out = torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    return out.index_add_(0, gid, rows[pair_slot.long()])
+    return out.index_add_(0, gid, rows[pair_slot[:live].long()])
 
 
 def segment_sum(
@@ -49,8 +51,8 @@ def segment_sum(
     of (P, 4) int32 packed gradient words (``packing.pack_grad_rows``).
 
     Binning's tables: ``pair_slot`` (P,) int32 maps each candidate to its
-    row; ``pair_start`` (n+1,) int32 is non-decreasing from 0 to P, Gaussian
-    g's candidates being ``[pair_start[g], pair_start[g+1])``. A CPU tensor
+    row; ``pair_start`` (n+1,) int32 is non-decreasing from 0 to at most P,
+    Gaussian g's candidates being ``[pair_start[g], pair_start[g+1])``. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (which takes
     C = 9).
     """

@@ -24,9 +24,16 @@ The reference's ``build_tile_tables``, resized for a GPU:
    inverse of the sort's permutation) gives each candidate's slot in the
    sorted pair list, so ``pair_slot`` over a run ascends too.
 
-Sizing is exact per frame: one host sync of the row total after level 1
-and one of the pair total after level 2, as the original CUDA renderer did.
-There are no capacities, sentinel rows/candidates or overflow reports.
+By default sizing is exact per frame: one host sync of the row total
+after level 1 and one of the pair total after level 2, as the original
+CUDA renderer did. ``pair_cap=`` bins at the reference's fixed capacities
+instead, with no host read (so a CUDA graph can hold the step): both
+expansions write into their capacities and read their live totals on the
+device, what lies past a capacity is dropped as the reference drops it,
+and ``overflow`` / ``row_overflow`` report what the frame needed, counted
+as the reference counts it (one sentinel row for each Gaussian without a
+row, one sentinel candidate for each row without a tile), so that the
+caller grows the capacities. Exact sizing reports the same requirements.
 
 The reference's binning also carries each pair's attributes through its
 sort, rounded to its packed stream by default (``bf16_colors=True``). Here
@@ -57,18 +64,23 @@ class TileTables(NamedTuple):
     """Per-tile ranges of the sorted pair list, and per-Gaussian runs of it.
 
     ``splat_gid[tile_start[t] : tile_start[t] + tile_count[t]]`` are tile
-    t's Gaussian ids, depth-ascending. Exactly ``num_pairs`` long.
-    ``pair_slot[pair_start[g] : pair_start[g + 1]]`` are Gaussian g's slots
-    in that list, ascending.
+    t's Gaussian ids, depth-ascending. Exactly ``num_pairs`` long, or, at
+    fixed capacities, ``pair_cap`` long with a -1 tail past the live
+    ``num_pairs``. ``pair_slot[pair_start[g] : pair_start[g + 1]]`` are
+    Gaussian g's slots in that list, ascending.
     """
 
     splat_gid: torch.Tensor  # (P,) int32
     tile_start: torch.Tensor  # (T,) int32
     tile_count: torch.Tensor  # (T,) int32
     pair_slot: torch.Tensor  # (P,) int32, candidate -> sorted slot
-    pair_start: torch.Tensor  # (N+1,) int32, Gaussian -> first candidate; [N] = P
-    num_pairs: int
+    pair_start: torch.Tensor  # (N+1,) int32, Gaussian -> first candidate; [N] = pairs
+    num_pairs: int | torch.Tensor  # a host int, or a () int32 device count when capped
     bf16_colors: bool  # the rasterizers round pairs to the packed stream
+    # The reference's requirements, () int32 on the device: the pair
+    # capacity and the row capacity the frame needs (sentinels counted).
+    overflow: torch.Tensor | None = None
+    row_overflow: torch.Tensor | None = None
 
 
 class Geometry(NamedTuple):
@@ -98,7 +110,7 @@ def quantize_depth(z: torch.Tensor, qd_bits: int) -> torch.Tensor:
     """z -> int32 log-spaced depth bucket in [0, 2^qd_bits)."""
     levels = float(1 << qd_bits)
     scale = levels / _QD_OCTAVES
-    z0 = torch.tensor(_QD_Z0, dtype=torch.float32, device=z.device)
+    z0 = torch.full((), _QD_Z0, dtype=torch.float32, device=z.device)
     q = torch.floor((torch.log2(torch.maximum(z, z0)) - torch.log2(z0)) * scale)
     return torch.clamp(q, 0.0, levels - 1.0).to(torch.int32)
 
@@ -170,26 +182,23 @@ def _span_y(v, a1y, a2y, s_e, tile_size, nty):
     return ty0, ty1
 
 
+def _offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive offsets of ``counts`` plus their total: (n+1,) int32, on
+    the device."""
+    zero = torch.zeros((1,), dtype=torch.int32, device=counts.device)
+    return torch.cat([zero, torch.cumsum(counts, dim=0, dtype=torch.int32)])
+
+
 def _exclusive_offsets(counts: torch.Tensor):
     """(exclusive offsets + total as an (n+1,) int32 tensor, host total)."""
-    zero = torch.zeros((1,), dtype=torch.int32, device=counts.device)
-    ext = torch.cat([zero, torch.cumsum(counts, dim=0, dtype=torch.int32)])
+    ext = _offsets(counts)
     return ext, int(ext[-1])  # host sync: the exact size of the next level
 
 
-def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size,
-                      row_limit=None, depth_rank=None):
-    """Level-1 records: one run of tile rows per visible Gaussian, rows
-    clipped to ``[0, row_limit)`` (default ``num_tiles_y``). The depth
-    field is ``depth_rank`` where given (0 for Gaussians without a row),
-    else the quantized depth.
-
-    Returns (geometry, records (2, N) int32 [gid, ty0 - offset],
-    offsets_ext (N+1,) int32, total_rows). After expansion, slot s of a
-    Gaussian's run is tile row ``s + records[1]``.
-    """
-    n = uv.shape[0]
-    dev = uv.device
+def _row_counts(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size, row_limit,
+                depth_rank):
+    """Level 1's per-Gaussian inputs: (geometry, first tile row ty0, row
+    counts), every one on the device."""
     ts = float(tile_size)
     u, v = uv[:, 0], uv[:, 1]
     r_major, r_minor = radius[:, 0], radius[:, 1]
@@ -212,21 +221,37 @@ def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_siz
         qd = torch.where(row_counts > 0, depth_rank.to(torch.int32), zero)
     else:
         qd = quantize_depth(z, depth_key_bits(num_tiles_x * num_tiles_y))
-    geom = Geometry(u, v, a1x, a1y, a2x, a2y, s_e, qd)
-    off_ext, total_rows = _exclusive_offsets(row_counts)
-    gid = torch.arange(n, dtype=torch.int32, device=dev)
-    records = torch.stack([gid, ty0 - off_ext[:-1]])
-    return geom, records, off_ext, total_rows
+    return Geometry(u, v, a1x, a1y, a2x, a2y, s_e, qd), ty0, row_counts
 
 
-def pair_expand_inputs(geom: Geometry, rows: torch.Tensor, *, num_tiles_x, tile_size):
-    """Level-2 records: one run of tiles per tile row (exact strip test).
+def row_expand_inputs(uv, z, radius, mask, *, num_tiles_x, num_tiles_y, tile_size,
+                      row_limit=None, depth_rank=None):
+    """Level-1 records: one run of tile rows per visible Gaussian, rows
+    clipped to ``[0, row_limit)`` (default ``num_tiles_y``). The depth
+    field is ``depth_rank`` where given (0 for Gaussians without a row),
+    else the quantized depth.
 
-    ``rows`` is the expanded level-1 (2, R) [gid, base]. Returns
-    (records (2, R) int32 [gid, tile0 - offset], offsets_ext (R+1,) int32,
-    total_pairs). After expansion, slot s of a row's run is tile
-    ``s + records[1]``.
+    Returns (geometry, records (2, N) int32 [gid, ty0 - offset],
+    offsets_ext (N+1,) int32, total_rows). After expansion, slot s of a
+    Gaussian's run is tile row ``s + records[1]``.
     """
+    geom, ty0, row_counts = _row_counts(
+        uv, z, radius, mask, num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y,
+        tile_size=tile_size, row_limit=row_limit, depth_rank=depth_rank)
+    off_ext, total_rows = _exclusive_offsets(row_counts)
+    return geom, _records(ty0, off_ext), off_ext, total_rows
+
+
+def _records(base: torch.Tensor, off_ext: torch.Tensor) -> torch.Tensor:
+    """Level 1's (2, N) int32 records [gid, base - offset]: slot s of
+    Gaussian g's run then has ``s + records[1] = base[g] + (s - offset[g])``."""
+    rid = torch.arange(base.shape[0], dtype=torch.int32, device=base.device)
+    return torch.stack([rid, base - off_ext[:-1]])
+
+
+def _pair_counts(geom: Geometry, rows: torch.Tensor, *, num_tiles_x, tile_size):
+    """Level 2's per-row inputs: (Gaussian id, first tile index of the
+    run, tile count) of each expanded (2, R) [gid, base] row."""
     ts = float(tile_size)
     num_rows = rows.shape[1]
     dev = rows.device
@@ -265,10 +290,21 @@ def pair_expand_inputs(geom: Geometry, rows: torch.Tensor, *, num_tiles_x, tile_
     counts2 = torch.where(
         empty, torch.zeros_like(cx0), torch.clamp(cx1 - cx0 + 1, min=0)
     )
+    return gid_r, row_y * num_tiles_x + cx0, counts2
+
+
+def pair_expand_inputs(geom: Geometry, rows: torch.Tensor, *, num_tiles_x, tile_size):
+    """Level-2 records: one run of tiles per tile row (exact strip test).
+
+    ``rows`` is the expanded level-1 (2, R) [gid, base]. Returns
+    (records (2, R) int32 [gid, tile0 - offset], offsets_ext (R+1,) int32,
+    total_pairs). After expansion, slot s of a row's run is tile
+    ``s + records[1]``.
+    """
+    gid_r, tile0, counts2 = _pair_counts(geom, rows, num_tiles_x=num_tiles_x,
+                                         tile_size=tile_size)
     off_ext, total_pairs = _exclusive_offsets(counts2)
-    tile0 = row_y * num_tiles_x + cx0
-    records = torch.stack([gid_r, tile0 - off_ext[:-1]])
-    return records, off_ext, total_pairs
+    return torch.stack([gid_r, tile0 - off_ext[:-1]]), off_ext, total_pairs
 
 
 def pair_keys(geom: Geometry, pairs: torch.Tensor, qd_bits: int):
@@ -280,15 +316,37 @@ def pair_keys(geom: Geometry, pairs: torch.Tensor, qd_bits: int):
     return (tile_idx << qd_bits) | qd, gid
 
 
-def tile_ranges(sorted_keys: torch.Tensor, num_tiles: int, qd_bits: int):
-    """(tile_start, tile_count) from the qd-aligned key boundaries."""
+def tile_ranges(sorted_keys: torch.Tensor, num_tiles: int, qd_bits: int,
+                live: torch.Tensor | None = None):
+    """(tile_start, tile_count) from the qd-aligned key boundaries; with
+    ``live`` (a device count) only the first ``live`` keys are pairs."""
     bounds = torch.searchsorted(
         sorted_keys,
         torch.arange(num_tiles + 1, dtype=torch.int32, device=sorted_keys.device)
         << qd_bits,
         side="left", out_int32=True,
     )
+    if live is not None:
+        bounds = torch.minimum(bounds, live)
     return bounds[:-1].contiguous(), (bounds[1:] - bounds[:-1]).contiguous()
+
+
+# The reference's smallest row capacity: its expand kernel's window (8192
+# slots + 128 lanes); it rounds every row capacity up to 4096.
+ROW_CAP_FLOOR = 8192 + 128
+
+
+def resolve_row_cap(pair_cap: int, row_cap: int | None) -> tuple[int, bool]:
+    """The row capacity the reference bins at for these caps, and whether
+    it was derived from the pair cap (``row_cap`` None or 0). Derived, the
+    pair requirement also covers twice the rows, so that one cap's growth
+    covers both."""
+    derived = not row_cap
+    if derived:
+        row_cap = max(pair_cap // 2, min(pair_cap, 1 << 19), ROW_CAP_FLOOR)
+    else:
+        row_cap = max(row_cap, ROW_CAP_FLOOR)
+    return ((row_cap + 4095) // 4096) * 4096, derived
 
 
 def build_tile_tables(
@@ -303,8 +361,10 @@ def build_tile_tables(
     row_limit: int | None = None,
     bf16_colors: bool = True,
     depth_rank: torch.Tensor | None = None,
+    pair_cap: int | None = None,
+    row_cap: int | None = None,
 ) -> TileTables:
-    """Exact binning of every frame.
+    """Binning of one frame, sized exactly or at fixed capacities.
 
     Args:
       uv: (N, 2) screen positions. z: (N,) camera depths. radius: (N, 4|5)
@@ -320,10 +380,18 @@ def build_tile_tables(
         mode. The rank replaces the quantized depth in the sort key, so a
         tile's splats are in exact rank order. It needs
         ``bitlen(num_tiles) + bitlen(N - 1) <= 30``, N the capacity.
+      pair_cap, row_cap: None sizes the frame exactly (two host reads).
+        A pair cap bins at the reference's fixed capacities, with no host
+        read: the row cap is resolved as the reference resolves it
+        (``resolve_row_cap``; None derives it from the pair cap), the
+        tables are (pair_cap,) long, ``num_pairs`` is a device count, and
+        the rows and candidates past a capacity are dropped as the
+        reference drops them (``_capped``).
     """
     num_tiles = num_tiles_x * num_tiles_y
+    n = uv.shape[0]
     if depth_rank is not None:
-        qd_bits = max(1, int(uv.shape[0] - 1).bit_length())
+        qd_bits = max(1, int(n - 1).bit_length())
         if int(num_tiles).bit_length() + qd_bits > 30:
             raise ValueError(
                 "exact depth-rank mode needs bitlen(tiles) + bitlen(N-1) "
@@ -331,18 +399,30 @@ def build_tile_tables(
             )
     else:
         qd_bits = depth_key_bits(num_tiles)
-    geom, rec1, off1, total_rows = row_expand_inputs(
+    key_bits = sort_key_bits(num_tiles, qd_bits)
+    geom, ty0, rc = _row_counts(
         uv, z, radius, mask, num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y,
         tile_size=tile_size, row_limit=row_limit, depth_rank=depth_rank,
     )
-    rows = segment_expand(rec1, off1, total_rows)
+    if pair_cap is not None:
+        return _capped(geom, ty0, rc, pair_cap, row_cap, num_tiles=num_tiles,
+                       num_tiles_x=num_tiles_x,
+                       tile_size=tile_size, qd_bits=qd_bits, key_bits=key_bits,
+                       bf16_colors=bf16_colors)
+    off1, total_rows = _exclusive_offsets(rc)
+    rows = segment_expand(_records(ty0, off1), off1, total_rows)
     rec2, off2, total_pairs = pair_expand_inputs(
         geom, rows, num_tiles_x=num_tiles_x, tile_size=tile_size
     )
     pairs = segment_expand(rec2, off2, total_pairs)
     keys, gid = pair_keys(geom, pairs, qd_bits)
-    sorted_keys, perm = radix_sort(keys, sort_key_bits(num_tiles, qd_bits), site="tile")
+    sorted_keys, perm = radix_sort(keys, key_bits, site="tile")
     tile_start, tile_count = tile_ranges(sorted_keys, num_tiles, qd_bits)
+    # The reference's requirement: a sentinel row for each Gaussian without
+    # a row, and a sentinel candidate for each row without a tile and each
+    # sentinel row.
+    counts2 = off2[1:] - off2[:-1]
+    no_row = (rc == 0).sum(dtype=torch.int32)
     return TileTables(
         splat_gid=gid[perm.long()],
         tile_start=tile_start,
@@ -351,4 +431,80 @@ def build_tile_tables(
         pair_start=off2[off1.long()],
         num_pairs=total_pairs,
         bf16_colors=bool(bf16_colors),
+        overflow=torch.clamp(counts2, min=1).sum(dtype=torch.int32) + no_row,
+        row_overflow=torch.clamp(rc, min=1).sum(dtype=torch.int32),
+    )
+
+
+def _capped(geom: Geometry, ty0, rc, pair_cap: int, row_cap: int | None, *, num_tiles,
+            num_tiles_x, tile_size, qd_bits, key_bits, bf16_colors) -> TileTables:
+    """Binning at fixed capacities, as the reference bins.
+
+    The reference gives every Gaussian at least one row (a sentinel for
+    one without) and every row at least one candidate (a sentinel for one
+    without a tile), expands both levels in Gaussian order into its
+    capacities, and drops the rows and candidates whose slot in that order
+    is at or past the capacity. Its slots follow arithmetically from
+    ``max(count, 1)`` offsets, so the port keeps exactly the real rows and
+    candidates whose slot there is below the cap, without expanding a
+    sentinel: a row of Gaussian g, for one, sits behind every sentinel row
+    of a Gaussian before g. ``overflow`` and ``row_overflow`` are the
+    reference's requirements. Both expansions read their live totals on
+    the device (``segment_expand(..., capped=True)``); the tail past the
+    live pairs gets the largest key, so the stable sort leaves it behind
+    every pair and ``tile_ranges`` stops at the live count.
+    """
+    n = rc.shape[0]
+    dev = rc.device
+    # The reference's limits, with its messages.
+    if pair_cap >= (1 << 26) or n >= (1 << 23):
+        raise ValueError("pair_cap must be < 2^26 and N < 2^23")
+    if pair_cap % 512 != 0:
+        raise ValueError("pair_cap must be a multiple of 512")
+    row_cap, derived = resolve_row_cap(pair_cap, row_cap)
+    if row_cap >= (1 << 26):
+        raise ValueError("row_cap must be < 2^26")
+    # Level 1: the reference's row slots, and the real rows below the cap.
+    slot1 = _offsets(torch.clamp(rc, min=1))
+    kept1 = torch.minimum(rc, torch.clamp(row_cap - slot1[:-1], min=0))
+    off1 = _offsets(kept1)
+    rows = segment_expand(_records(ty0, off1), off1, row_cap, capped=True)
+    live_r = torch.arange(row_cap, dtype=torch.int32, device=dev) < off1[-1]
+    rows = torch.where(live_r, rows, 0)  # the tail is not written
+    # Level 2: each live row's first candidate slot in the reference's
+    # order (its rows' candidates before it, plus one sentinel for each
+    # Gaussian without a row before its own), and the tiles below the cap.
+    gid_r, tile0, c2 = _pair_counts(geom, rows, num_tiles_x=num_tiles_x,
+                                    tile_size=tile_size)
+    c2 = torch.where(live_r, c2, 0)
+    need2 = torch.where(live_r, torch.clamp(c2, min=1), 0)
+    slot2 = _offsets(need2)
+    no_row = rc == 0
+    sentinels_before = _offsets(no_row.to(torch.int32))[gid_r.long()]
+    kept2 = torch.minimum(c2, torch.clamp(pair_cap - (slot2[:-1] + sentinels_before), min=0))
+    off2 = _offsets(kept2)
+    pairs = segment_expand(torch.stack([gid_r, tile0 - off2[:-1]]), off2, pair_cap,
+                           capped=True)
+    num_pairs = off2[-1]
+    live_p = torch.arange(pair_cap, dtype=torch.int32, device=dev) < num_pairs
+    pairs = torch.where(live_p, pairs, 0)
+    keys, gid = pair_keys(geom, pairs, qd_bits)
+    keys = torch.where(live_p, keys, (1 << key_bits) - 1)
+    sorted_keys, perm = radix_sort(keys, key_bits, site="tile")
+    tile_start, tile_count = tile_ranges(sorted_keys, num_tiles, qd_bits, live=num_pairs)
+    row_req = slot1[-1]
+    # The sentinel rows that fit under the row cap each hold a candidate.
+    overflow = slot2[-1] + (no_row & (slot1[:-1] < row_cap)).sum(dtype=torch.int32)
+    if derived:
+        overflow = torch.maximum(overflow, 2 * row_req)
+    return TileTables(
+        splat_gid=torch.where(live_p, gid[perm.long()], -1),
+        tile_start=tile_start,
+        tile_count=tile_count,
+        pair_slot=inverse_permutation(perm),
+        pair_start=off2[off1.long()],
+        num_pairs=num_pairs,
+        bf16_colors=bool(bf16_colors),
+        overflow=overflow,
+        row_overflow=row_req,
     )

@@ -18,6 +18,7 @@ reference runs at HIGHEST precision.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,13 @@ def _full_f32_conv():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@functools.lru_cache(maxsize=None)
+def _taps(device: torch.device) -> torch.Tensor:
+    """The taps on ``device``, copied there once: a copy from the host
+    inside a CUDA graph's capture would be a host sync."""
+    return torch.tensor(GAUSS_TAPS, dtype=torch.float32, device=device)
+
+
 def _sep_conv(img: torch.Tensor, pad_mode: str) -> torch.Tensor:
     """11x11 separable Gaussian filter of channel-major (C, H, W) maps.
 
@@ -52,7 +60,7 @@ def _sep_conv(img: torch.Tensor, pad_mode: str) -> torch.Tensor:
     Filters along H first, then along W, as the reference does.
     """
     c = img.shape[0]
-    taps = torch.tensor(GAUSS_TAPS, dtype=torch.float32, device=img.device)
+    taps = _taps(img.device)
     x = img[None]
     if pad_mode == "edge":
         x = F.pad(x, (HALO, HALO, HALO, HALO), mode="replicate")

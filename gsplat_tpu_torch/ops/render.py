@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.rasterize import rasterize_backward, rasterize_forward
+from ..kernels.rasterize import background, rasterize_backward, rasterize_forward
 from ..kernels.segsum import segment_sum
 from .binning import TileTables
 
@@ -125,7 +125,7 @@ def rasterize(
     rgb: torch.Tensor,
     opacity_logit: torch.Tensor,
     tables: TileTables,
-    bg: float,
+    bg,
     *,
     width: int,
     height: int,
@@ -135,6 +135,7 @@ def rasterize(
 ) -> RenderOutput:
     """Render the image from binning's ``tables`` (same uv as binned);
     differentiable with respect to uv, conic, rgb and opacity_logit.
+    ``bg`` is the background, a () float32 tensor or a number.
 
     The pairs are rounded to the packed stream where ``tables.bf16_colors``
     says so; ``bf16_grads`` carries the per-pair gradient rows as packed
@@ -149,8 +150,8 @@ def rasterize(
         0.5 * grad_scale_wh[0], 0.5 * grad_scale_wh[1])
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
-        tables.pair_slot, tables.pair_start, float(bg), num_tiles_x, num_tiles_y, tile,
-        grad_scale, bool(tables.bf16_colors), bool(bf16_grads),
+        tables.pair_slot, tables.pair_start, background(bg, uv.device), num_tiles_x,
+        num_tiles_y, tile, grad_scale, bool(tables.bf16_colors), bool(bf16_grads),
     )
     # Cropping outside the Function: autograd gives the padded pixels zero
     # cotangents, as the reference's tiles_to_image does.

@@ -12,12 +12,17 @@ generator after the Gaussians.
 
 Usage: python -m gsplat_tpu_torch.tools.bench_scale [N] [scale_mul]
 
+The step bins at the script's capacities (``PAIR_CAP`` 31 x 2^19 pairs,
+``ROW_CAP`` 26 x 2^19 tile rows) through ``get_train_step``: a CUDA graph
+on the card. ``run(..., pair_cap=0)`` sizes each frame exactly (eager).
+
 Takes one train step, then ``reps`` repetitions of ``steps`` timed steps
 (CUDA events on the card, the host clock on the CPU), and prints one JSON
 line: the first step's pairs and tile rows (also as the reference counts
-them, with a sentinel row for each record that has none), the last step's
-pairs (the script's ``num_pairs``), ms a step, whether the loss is finite and the
-peak allocated memory. Runs on the card (``main(argv, device="cpu")`` on the
+them, with a sentinel row for each record that has none), its pair and
+row requirements (the script's ``overflow``, and ``row_overflow``), the
+last step's pairs (the script's ``num_pairs``), ms a step, whether the
+loss is finite and the peak allocated memory. Runs on the card (``main(argv, device="cpu")`` on the
 CPU). Writes nothing.
 """
 
@@ -34,6 +39,8 @@ import torch
 
 CEILING = 4_250_000  # configs/base.yaml's max_gaussians
 WIDTH, HEIGHT = 1296, 840
+PAIR_CAP = 31 * (1 << 19)  # the script's default pair capacity
+ROW_CAP = 26 * (1 << 19)  # and its row capacity
 
 
 def scale_gaussians(n: int, scale_mul: float = 1.0, seed: int = 0,
@@ -64,9 +71,11 @@ def scale_camera(width: int = WIDTH, height: int = HEIGHT):
                                  width * 0.8, width * 0.8)
 
 
-def scale_statics(width: int = WIDTH, height: int = HEIGHT):
-    """The script's ``StepStatics``, without its pair and row caps, chunk
-    and interpret flag (``train.step.StepStatics`` has none)."""
+def scale_statics(width: int = WIDTH, height: int = HEIGHT, pair_cap: int = PAIR_CAP,
+                  row_cap: int = ROW_CAP):
+    """The script's ``StepStatics``, without its chunk and interpret flag
+    (``train.step.StepStatics`` has neither); ``pair_cap=0`` sizes binning
+    exactly."""
     from ..train.step import StepStatics
 
     cm = scale_camera(width, height)
@@ -77,7 +86,7 @@ def scale_statics(width: int = WIDTH, height: int = HEIGHT):
         near_thresh=0.3, mh_dist=3.0, cull_padding=100, ssim_frac=0.2,
         base_lr=1e-3, xyz_lr_init=0.16, xyz_lr_final=0.0016,
         quat_lr=1.0, scale_lr=5.0, opacity_lr=25.0, rgb_lr=2.5, sh_lr=0.125,
-        scene_extent=2.0, num_iters=7000,
+        scene_extent=2.0, num_iters=7000, pair_cap=pair_cap, row_cap=row_cap,
     )
 
 
@@ -112,6 +121,8 @@ class ScaleResult:
     width: int
     height: int
     pairs: int  # the first step's
+    overflow: int  # the first step's pair requirement (the reference's count)
+    row_overflow: int  # and its row requirement
     rows: int  # tile rows of the first step's view
     row_gaussians: int  # Gaussians that own one or more of them
     last_pairs: int  # the last step's (the script's ``num_pairs``)
@@ -141,6 +152,8 @@ class ScaleResult:
         return dict(
             n_gaussians=self.n, n_cap=self.capacity, scale_mul=self.scale_mul,
             num_pairs=self.last_pairs, first_pairs=self.pairs, first_tile_rows=self.rows,
+            overflow=self.overflow, row_overflow=self.row_overflow,
+            pair_cap=self.statics.pair_cap, row_cap=self.statics.row_cap,
             first_rows_with_sentinels=self.reference_rows,
             image=[self.width, self.height],
             first_step_s=self.first_s, step_ms=self.step_ms[-1], step_ms_reps=self.step_ms,
@@ -174,12 +187,13 @@ class _Clock:
 
 def run(n: int = CEILING, scale_mul: float = 1.0, *, steps: int = 6, reps: int = 3,
         width: int = WIDTH, height: int = HEIGHT, device: torch.device | str = "cuda",
-        log=print) -> ScaleResult:
+        pair_cap: int = PAIR_CAP, row_cap: int = ROW_CAP, log=print) -> ScaleResult:
     """One train step of the script's scene at capacity
     ``round_capacity(n)``, then ``reps`` x ``steps`` timed steps (each
-    repetition at iterations 1..steps, as the script's)."""
+    repetition at iterations 1..steps, as the script's), at the caps
+    given (default the script's)."""
     from ..train.state import round_capacity, state_from_gaussians
-    from ..train.step import train_step
+    from ..train.step import get_train_step
     from ..train.trainer import require_device
 
     device = require_device(device)
@@ -193,20 +207,24 @@ def run(n: int = CEILING, scale_mul: float = 1.0, *, steps: int = 6, reps: int =
     state = state_from_gaussians(g, device, n_cap=cap)
     del g
     cm = scale_camera(width, height)
-    st = scale_statics(width, height)
+    st = scale_statics(width, height, pair_cap, row_cap)
     gt = torch.from_numpy(rng.uniform(0, 1, (height, width, 3)).astype(np.float32)).to(device)
+    camera = [torch.as_tensor(x, device=device) for x in (cm.view, cm.proj, cm.campos)]
     clock = _Clock(device)
+    train_step = get_train_step(st)
 
     def step(state, it):
-        return train_step(state, cm.view, cm.proj, cm.campos, gt, 0.0, it, st)
+        return train_step(state, *camera, gt, 0.0, it)
 
     rows, row_gaussians = tile_rows(state.params, cm, st)
     clock.start()
     state, m = step(state, 0)
     loss = float(m.loss)
     first_s = clock.stop() / 1e3
-    pairs = m.num_pairs
-    log(f"N={n} cap={cap} first step {first_s:.3f} s, pairs {pairs}, tile rows {rows}, "
+    pairs, overflow, row_overflow = (int(x) for x in (m.num_pairs, m.overflow,
+                                                      m.row_overflow))
+    log(f"N={n} cap={cap} pair_cap={pair_cap} first step {first_s:.3f} s, pairs {pairs}, "
+        f"overflow {overflow}, tile rows {rows}, row_overflow {row_overflow}, "
         f"loss {loss:.6f}")
     times = []
     for _ in range(reps):
@@ -218,10 +236,10 @@ def run(n: int = CEILING, scale_mul: float = 1.0, *, steps: int = 6, reps: int =
         log(f"step: {times[-1]:.3f} ms ({width * height / times[-1] / 1e3:.2f} Mpix/s)")
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if cuda else None
     return ScaleResult(n=n, capacity=cap, scale_mul=scale_mul, width=width, height=height,
-                       pairs=pairs, rows=rows, row_gaussians=row_gaussians,
-                       last_pairs=m.num_pairs, first_s=first_s, steps=steps, step_ms=times,
-                       loss=loss,
-                       peak_mib=peak, state=state, camera=cm, target=gt, statics=st)
+                       pairs=pairs, overflow=overflow, row_overflow=row_overflow,
+                       rows=rows, row_gaussians=row_gaussians, last_pairs=int(m.num_pairs),
+                       first_s=first_s, steps=steps, step_ms=times, loss=loss, peak_mib=peak,
+                       state=state, camera=cm, target=gt, statics=st)
 
 
 def main(argv=None, device: torch.device | str = "cuda") -> int:

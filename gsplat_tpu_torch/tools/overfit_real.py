@@ -3,7 +3,8 @@
 One camera looks at the photo itself: N Gaussians (10,000 by default)
 seeded on a plane in front of it, coloured by the photo, SH degree 3
 active from the start, no density control, a fixed camera, and
-``train_step`` on the photo as the target. Overfitting one photo
+the train step on the photo as the target (``get_train_step`` at the
+script's pair cap: a CUDA graph on the card). Overfitting one photo
 exercises real image statistics (texture, edges, exposure) that a
 self-rendered synthetic target cannot. Reports the PSNR every 200
 iterations and at the end, the pairs, and ms a step.
@@ -11,8 +12,9 @@ iterations and at the end, the pairs, and ms a step.
 Usage: python -m gsplat_tpu_torch.tools.overfit_real [iters] [n_gaussians]
            [--photo PATH] [--out DIR]
 
-The script's ``StepStatics`` without ``pair_cap`` and ``chunk`` (the port
-sizes the pair stream exactly each frame and picks its own blocking).
+The script's ``StepStatics`` (its pair cap ``round_pair_cap(30 N)``, the
+row cap derived from it) without ``chunk`` (the port picks its own
+blocking).
 Runs on the card (``main(argv, device="cpu")`` on the CPU). Writes
 ``RESULT_OVERFIT.json`` under ``--out`` when it is given, else nothing.
 """
@@ -35,6 +37,7 @@ def overfit_setup(gt_np: np.ndarray, n: int, iters: int):
     matrices, StepStatics), its numpy draws in its order (seed 0)."""
     from ..ops.camera import build_camera_matrices
     from ..train.init import GaussianData
+    from ..train.state import round_pair_cap
     from ..train.step import StepStatics
 
     H, W = gt_np.shape[:2]
@@ -73,7 +76,7 @@ def overfit_setup(gt_np: np.ndarray, n: int, iters: int):
         near_thresh=0.3, mh_dist=3.0, cull_padding=100, ssim_frac=0.2,
         base_lr=1e-3, xyz_lr_init=0.16, xyz_lr_final=0.0016,
         quat_lr=1.0, scale_lr=5.0, opacity_lr=25.0, rgb_lr=2.5, sh_lr=0.125,
-        scene_extent=1.0, num_iters=max(iters, 1),
+        scene_extent=1.0, num_iters=max(iters, 1), pair_cap=round_pair_cap(30 * N),
     )
     return g, cm, st
 
@@ -87,7 +90,7 @@ def run(iters: int = 2000, n: int = 10_000, *, photo: str | Path,
     allocated MiB (None on the CPU) and the texture's record."""
     from ..io.images import load_image
     from ..train.state import round_capacity, state_from_gaussians
-    from ..train.step import train_step
+    from ..train.step import get_train_step
     from ..train.trainer import require_device
     from .real_plane import photo_record
 
@@ -99,6 +102,9 @@ def run(iters: int = 2000, n: int = 10_000, *, photo: str | Path,
     g, cm, st = overfit_setup(gt_np, n, iters)
     state = state_from_gaussians(g, device, n_cap=round_capacity(n))
     gt = torch.as_tensor(gt_np, device=device)
+    view, proj, campos = (torch.as_tensor(x, device=device)
+                          for x in (cm.view, cm.proj, cm.campos))
+    step = get_train_step(st)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -108,12 +114,14 @@ def run(iters: int = 2000, n: int = 10_000, *, photo: str | Path,
     t0 = time.perf_counter()
     losses, reports = [], []
     for i in range(iters):
-        state, m = train_step(state, cm.view, cm.proj, cm.campos, gt, 0.0, i, st)
+        state, m = step(state, view, proj, campos, gt, 0.0, i)
         losses.append(m.loss)
         if i % REPORT_EVERY == 0 or i == iters - 1:
             reports.append((i, float(m.loss), float(m.psnr), int(m.num_pairs)))
             log(f"iter {i:5d} loss {reports[-1][1]:.4f} PSNR {reports[-1][2]:6.2f} pairs "
                 f"{reports[-1][3]} ({time.perf_counter() - t0:.0f}s)")
+            if int(m.overflow) > st.pair_cap:
+                log("  (pair overflow: results undercount)")
     if cuda:
         end.record()
         end.synchronize()

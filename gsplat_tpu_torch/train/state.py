@@ -39,6 +39,32 @@ def round_capacity(n: int, minimum: int = 4096) -> int:
     return cap
 
 
+def round_pair_cap(n: int, minimum: int = 1 << 20) -> int:
+    """Pair capacity bucket (the reference's rule): ceil to a 2^19
+    multiple; below that granularity, the next power of two from
+    max(minimum, 512)."""
+    g = 1 << 19
+    if max(n, minimum) >= g:
+        return max(minimum, ((n + g - 1) // g) * g)
+    cap = max(minimum, 512)
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def round_row_cap(n: int, minimum: int = 2048) -> int:
+    """Tile-row capacity bucket (the reference's rule): ceil to a 2^18
+    multiple; below that granularity, the next power of two from
+    max(minimum, 2048)."""
+    g = 1 << 18
+    if max(n, minimum) >= g:
+        return max(minimum, ((n + g - 1) // g) * g)
+    cap = max(minimum, 2048)
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 def _param_shape(name: str, n: int) -> tuple[int, ...]:
     dim = PARAM_DIMS[name]
     if dim == 0:

@@ -19,14 +19,22 @@ cameras are bucketed by (W, H, fx, fy) and every batch draws within one
 bucket (``_dp_bucket_choice``), rank r taking draw r of each batch; under
 tp every rank draws the same image.
 
-Differences by design. Binning sizes every frame exactly, so the
-reference's pair and row capacities, their growth and its overflow monitor
-have no counterpart; what stays of the monitor is the non-finite loss
-check: a flag on the device collects every step's loss, and one host read
-at each print or density boundary raises ``FloatingPointError`` for the
-window (under dp and tp the loss is the ranks' reduced one, so every rank
-raises at the same boundary). The split
-noise comes from ``density.split_noise`` (a ``torch.Generator`` seeded by
+Alone, the trainer runs the reference's capacity-bounded, monitored
+step (``step.get_monitored_train_step``): binning at a pair and a row
+capacity (``_auto_pair_cap`` or ``config.pair_cap``, the row cap half the
+pair cap), a CUDA graph a StepStatics on the card, and an on-device
+monitor of the window's largest pair and row requirements and of its
+losses' finiteness, read once at each print or density boundary: the
+capacities grow as the reference grows them (``_grow_caps``), and a
+non-finite loss raises ``FloatingPointError`` for the window. A new
+StepStatics (a grown capacity, an SH band) or a grown state gets a new
+graph, and the old ones are freed. The density step, the Morton re-sort
+and the opacity reset write the state in place, so a graph stays valid
+across them. Eval renders and image dumps go through
+``step.get_render_fn``. Under dp and tp the steps stay eager and sized
+exactly; the monitor then only collects the ranks' reduced loss, so every
+rank raises at the same boundary. The split noise comes from
+``density.split_noise`` (a ``torch.Generator`` seeded by
 ``seed * 1_000_003 + iteration``) instead of threefry.
 """
 
@@ -58,9 +66,19 @@ from .density import (
 from .init import GaussianData
 from .progress import ProgressBar
 from .state import (
-    grow_state, num_active, round_capacity, state_from_gaussians, to_gaussian_data,
+    grow_state, num_active, round_capacity, round_pair_cap, round_row_cap,
+    state_from_gaussians, to_gaussian_data,
 )
-from .step import StepStatics, render_image, train_step
+from .step import (
+    StepStatics, fresh_monitor, get_monitored_train_step, get_render_fn, release_graphs,
+)
+
+
+def _auto_pair_cap(n_gaussians: int, width: int, height: int, tile: int = 16) -> int:
+    """The reference's first pair capacity: ~8 tiles a Gaussian, never
+    past every Gaussian in every tile (toy scenes stay toy-sized)."""
+    n_tiles = ((width + tile - 1) // tile) * ((height + tile - 1) // tile)
+    return round_pair_cap(min(8 * n_gaussians, n_gaussians * n_tiles), minimum=512)
 
 
 def require_device(device: torch.device | str) -> torch.device:
@@ -108,7 +126,24 @@ class Trainer:
         self.scene_extent = 1.1 * compute_max_diagonal(images)
         self.train_images: list[Image] = []
         self.test_images: list[Image] = []
+        # The reference's capacities: the pair cap from the config or the
+        # scene's size, its floor for growth (bounded by the scene's hard
+        # maximum of pairs), and the row cap, grown apart from it.
+        self.pair_cap = config.pair_cap or _auto_pair_cap(
+            gaussians.num,
+            max((c.width for c in cameras.values()), default=1024),
+            max((c.height for c in cameras.values()), default=1024),
+        )
+        n_tiles_max = max(
+            (((c.width + 15) // 16) * ((c.height + 15) // 16) for c in cameras.values()),
+            default=1 << 12,
+        )
+        self.pair_cap_minimum = min(
+            1 << 20, round_pair_cap(config.max_gaussians * n_tiles_max, minimum=2048))
+        self.row_cap = max(self.pair_cap // 2, 2048)
+        self._graph_key = None  # what the live graphs were captured for
         self._cam_cache: dict[int, CameraMatrices] = {}
+        self._cam_tensors: dict[int, tuple] = {}
         self.test_train_split()
 
     # ------------------------------------------------------------------
@@ -129,8 +164,19 @@ class Trainer:
             )
         return self._cam_cache[img.id]
 
+    def _camera(self, img: Image) -> tuple:
+        """(view, proj, campos) of ``img`` on the device, copied there once,
+        so that a step reads no host memory."""
+        if img.id not in self._cam_tensors:
+            cm = self._matrices(img)
+            self._cam_tensors[img.id] = tuple(
+                torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                for x in (cm.view, cm.proj, cm.campos))
+        return self._cam_tensors[img.id]
+
     def _statics(self, cm: CameraMatrices) -> StepStatics:
         c = self.config
+        alone = not (self.dp or self.tp)  # dp and tp bin exactly
         return StepStatics(
             width=cm.width, height=cm.height, tile=c.tile_size, l_max=self.l_max,
             focal_x=cm.focal_x, focal_y=cm.focal_y,
@@ -145,6 +191,8 @@ class Trainer:
             sh_lr=c.sh_lr_multiplier,
             scene_extent=float(self.scene_extent),
             num_iters=c.num_iters,
+            pair_cap=self.pair_cap if alone else 0,
+            row_cap=self.row_cap if alone else 0,
         )
 
     def _density_statics(self) -> DensityStatics:
@@ -215,14 +263,34 @@ class Trainer:
             for bi, bucket in enumerate(buckets)
         ]
 
-    def _step(self, cm: CameraMatrices, gt: torch.Tensor):
-        args = (self.state, cm.view, cm.proj, cm.campos, gt, self._bg(self.iter), self.iter,
-                self._statics(cm))
-        if self.dp:
-            return dp_train_step(*args)
-        if self.tp:
-            return tp_train_step(*args)
-        return train_step(*args)
+    def _step(self, img: Image, gt: torch.Tensor, monitor: torch.Tensor):
+        """One step on ``img``: (state, metrics, monitor)."""
+        cm = self._matrices(img)
+        st = self._statics(cm)
+        if self.dp or self.tp:
+            step = dp_train_step if self.dp else tp_train_step
+            state, m = step(self.state, cm.view, cm.proj, cm.campos, gt,
+                            self._bg(self.iter), self.iter, st)
+            finite = torch.isfinite(m.loss).to(torch.float32)
+            return state, m, torch.cat([monitor[:2], torch.minimum(monitor[2:], finite[None])])
+        key = (self.pair_cap, self.row_cap, self.l_max, self.state.capacity)
+        if key != self._graph_key:  # the old graphs' statics are gone
+            release_graphs()
+            self._graph_key = key
+        return get_monitored_train_step(st)(
+            self.state, *self._camera(img), gt, self._bg(self.iter), self.iter, monitor)
+
+    def _grow_caps(self, overflow: int, row_overflow: int) -> None:
+        """The reference's growth at a boundary: a capacity the window's
+        requirement passed grows to it plus a quarter while densifying (the
+        pair count climbs, and each growth captures a new graph), a
+        sixteenth after (every pair-wide kernel pays for the cap)."""
+        shift = 2 if self.iter < self.config.adaptive_control_end else 4
+        if overflow > self.pair_cap:
+            self.pair_cap = round_pair_cap(overflow + (overflow >> shift),
+                                           minimum=self.pair_cap_minimum)
+        if row_overflow > self.row_cap:
+            self.row_cap = round_row_cap(row_overflow + (row_overflow >> shift))
 
     def _maybe_add_sh_band(self, iteration: int) -> None:
         c = self.config
@@ -246,7 +314,7 @@ class Trainer:
         bar = ProgressBar(num_iters) if verbose and lead else None
         out_dir = Path(c.output_dir)
         eval_interval = 3000 if c.strict_reference else max(c.test_eval_interval, 1)
-        nonfinite = torch.zeros((), dtype=torch.bool, device=self.device)
+        monitor = fresh_monitor(self.device)
         window_start = self.iter
         try:
             while self.iter < num_iters:
@@ -254,16 +322,20 @@ class Trainer:
                 bi = (self._dp_bucket_choice(self.iter, buckets)
                       if self.dp and len(buckets) > 1 else 0)
                 idx, gt = loaders[bi].next()
-                cm = self._matrices(self.train_images[buckets[bi][idx]])
-                self.state, metrics = self._step(cm, gt)
-                nonfinite |= ~torch.isfinite(metrics.loss)
+                img = self.train_images[buckets[bi][idx]]
+                self.state, metrics, monitor = self._step(img, gt, monitor)
                 densify = (
                     self.iter > c.adaptive_control_start
                     and self.iter % c.adaptive_control_interval == 0
                     and self.iter < c.adaptive_control_end
                 )
                 if self.iter % c.print_interval == 0 or densify:
-                    if bool(nonfinite):  # one host read covers the window
+                    # One host read covers every step of the window.
+                    mon = monitor.cpu().tolist()
+                    monitor = fresh_monitor(self.device)
+                    if not (self.dp or self.tp):
+                        self._grow_caps(int(mon[0]), int(mon[1]))
+                    if not mon[2] > 0.0:
                         raise FloatingPointError(
                             f"non-finite loss in iterations [{window_start}, {self.iter}]"
                         )
@@ -272,7 +344,7 @@ class Trainer:
                         bar.update(self.iter, float(metrics.loss), num_active(self.state))
 
                 if self.iter % c.print_interval == 0 and lead:
-                    self._dump_image(cm, out_dir)
+                    self._dump_image(img, out_dir)
 
                 if self.iter % eval_interval == 0 and lead:
                     self.evaluate(verbose=verbose)
@@ -313,16 +385,21 @@ class Trainer:
         return info
 
     # ------------------------------------------------------------------
-    def _dump_image(self, cm: CameraMatrices, out_dir: Path) -> None:
+    def _dump_image(self, img: Image, out_dir: Path) -> None:
         out_dir.mkdir(parents=True, exist_ok=True)
-        img = self.render(cm, bg=self._bg(self.iter))
-        arr = np.clip(img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        pred = self._render(img, bg=self._bg(self.iter))
+        arr = np.clip(pred.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
         image_io.save_image(out_dir / f"rendered_image_{self.iter}.png", arr)
 
     def render(self, cm: CameraMatrices, bg: float = 0.0) -> torch.Tensor:
         """(H, W, 3) image of the current Gaussians from one camera."""
-        return render_image(self.state.params, cm.view, cm.proj, cm.campos, bg,
-                            self._statics(cm))[0]
+        return get_render_fn(self._statics(cm))(self.state.params, cm.view, cm.proj,
+                                                cm.campos, bg)
+
+    def _render(self, img: Image, bg: float) -> torch.Tensor:
+        """``render`` of a dataset image, its camera taken on the device."""
+        return get_render_fn(self._statics(self._matrices(img)))(
+            self.state.params, *self._camera(img), bg)
 
     def evaluate(self, verbose: bool = True) -> float | None:
         """Render every test image (black background); mean PSNR.
@@ -354,7 +431,7 @@ class Trainer:
             if err is not None:
                 skipped.append(f"{img.name}: {err}")
                 continue
-            pred = self.render(self._matrices(img), bg=0.0)
+            pred = self._render(img, bg=0.0)
             psnrs.append(compute_psnr(pred, torch.from_numpy(gt).to(self.device)))
         thread.join()
         if skipped:
@@ -382,11 +459,13 @@ class Trainer:
         save_ply(filename, g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh)
 
     def save_checkpoint(self, path: str | Path) -> None:
-        """Write the state, iteration and SH band (rank 0 only)."""
+        """Write the state, iteration, SH band and capacities (rank 0
+        only)."""
         if self.rank != 0:
             return
         checkpoint.save_checkpoint(path, self.state, self.iter, self.l_max,
-                                   cfg_hash=checkpoint.config_hash(self.config))
+                                   cfg_hash=checkpoint.config_hash(self.config),
+                                   pair_cap=self.pair_cap, row_cap=self.row_cap)
 
     def load_checkpoint(self, path: str | Path) -> None:
         ck = checkpoint.load_checkpoint(path, self.device)
@@ -398,3 +477,7 @@ class Trainer:
                 stacklevel=2,
             )
         self.state, self.iter, self.l_max = ck.state, ck.iteration, ck.l_max
+        if ck.pair_cap:
+            self.pair_cap = ck.pair_cap
+        # 0: a checkpoint from before the row cap, sized as the reference does
+        self.row_cap = ck.row_cap or max(self.pair_cap // 2, 2048)

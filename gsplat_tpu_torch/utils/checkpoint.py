@@ -3,10 +3,10 @@
 One ``.npz`` with the reference's keys: ``params.<name>``,
 ``adam_m.<name>``, ``adam_v.<name>``, ``alive``, ``uv_grad_accum``,
 ``accum_dur``, ``_iter``, ``_l_max``, ``_pair_cap``, ``_row_cap`` and
-``_config_hash``, so each package resumes the other's checkpoints. The
-port sizes its pair stream exactly, so it writes ``_pair_cap`` and
-``_row_cap`` as 0, which the reference reads as "unknown", and ignores
-them on load. ``config_hash`` is the reference's, over the same fields.
+``_config_hash``, so each package resumes the other's checkpoints, with
+the trainer's pair and row capacities (0 = unknown, as the reference
+writes and reads them). ``config_hash`` is the reference's, over the same
+fields.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ class Checkpoint(NamedTuple):
     iteration: int
     l_max: int
     config_hash: str  # "" = unknown
+    pair_cap: int = 0  # 0 = unknown
+    row_cap: int = 0  # 0 = unknown
 
 
 def config_hash(config) -> str:
@@ -42,13 +44,13 @@ def config_hash(config) -> str:
 
 
 def save_checkpoint(path, state: TrainState, iteration: int, l_max: int,
-                    cfg_hash: str = "") -> None:
+                    cfg_hash: str = "", pair_cap: int = 0, row_cap: int = 0) -> None:
     host = state_to_numpy(state)
     arrays = {
         "_iter": np.int64(iteration),
         "_l_max": np.int64(l_max),
-        "_pair_cap": np.int64(0),
-        "_row_cap": np.int64(0),
+        "_pair_cap": np.int64(pair_cap),
+        "_row_cap": np.int64(row_cap),
         "_config_hash": np.bytes_(cfg_hash.encode()),
     }
     for group in ("params", "adam_m", "adam_v"):
@@ -75,4 +77,5 @@ def load_checkpoint(path, device: torch.device | str) -> Checkpoint:
             accum_dur=data["accum_dur"], device=device,
         )
         cfg = bytes(data["_config_hash"]).decode() if "_config_hash" in data.files else ""
-        return Checkpoint(state, int(data["_iter"]), int(data["_l_max"]), cfg)
+        caps = (int(data[k]) if k in data.files else 0 for k in ("_pair_cap", "_row_cap"))
+        return Checkpoint(state, int(data["_iter"]), int(data["_l_max"]), cfg, *caps)

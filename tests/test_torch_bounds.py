@@ -66,12 +66,15 @@ class _SortLib:
     Likewise csrc/expand.cu's: the expanded columns land in out."""
 
     def gs_segment_expand(self, out, records, offsets_ext, num_cols, num_records,
-                          total, stream):
+                          width, capped, stream):
         rec = np.frombuffer(ctypes.string_at(records, 4 * num_cols * num_records),
                             np.int32).reshape(num_cols, num_records)
         off = np.frombuffer(ctypes.string_at(offsets_ext, 4 * (num_records + 1)), np.int32)
-        got = np.ascontiguousarray(np.repeat(rec, np.diff(off), axis=1))
-        ctypes.memmove(out, got.ctypes.data, got.nbytes)
+        got = np.repeat(rec, np.diff(off), axis=1)
+        live = min(int(off[-1]), width) if capped else width
+        for c in range(num_cols):  # rows of `width` words; the tail unwritten
+            row = np.ascontiguousarray(got[c, :live])
+            ctypes.memmove(out + 4 * c * width, row.ctypes.data, row.nbytes)
         return 0
 
     def gs_radix_sort(self, keys_in, keys_out, vals_out, pairs_tmp, scratch, n,
@@ -131,9 +134,29 @@ def test_expand_returns_the_buffer_the_kernel_wrote(stand_in_lib, r, total):
     np.add.at(counts, np.random.default_rng(r).integers(0, r, total), 1)
     off = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
     rec = torch.arange(2 * r, dtype=torch.int32).view(2, r)
-    got = expand._launch(rec, off, total)
+    got = expand._launch(rec, off, total, False)
     assert got.shape == (2, total)
     assert torch.equal(got, expand.segment_expand_plain(rec, off, total))
+    assert stand_in_lib["segment_expand"] == 1
+
+
+@pytest.mark.parametrize("r,total,width", [
+    (1, 5, 2048), (3000, 5192, 8192), (3000, 5193, 4096), (5, 0, 512), (2047, 2, 2)])
+def test_capped_expand_contract(stand_in_lib, r, total, width):
+    # A capped call's output is (C, width); its live slots, the offsets'
+    # total clamped to the width, are the plain version's, which zeroes
+    # the tail that the kernel leaves unwritten.
+    counts = np.zeros(r, np.int64)
+    np.add.at(counts, np.random.default_rng(r).integers(0, r, total), 1)
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    rec = torch.arange(2 * r, dtype=torch.int32).view(2, r)
+    got = expand._launch(rec, off, width, True)
+    plain = expand.segment_expand_plain(rec, off, width, capped=True)
+    live = min(total, width)
+    assert got.shape == plain.shape == (2, width)
+    assert torch.equal(got[:, :live], plain[:, :live])
+    assert torch.equal(plain[:, :live], expand.segment_expand_plain(rec, off, total)[:, :live])
+    assert not plain[:, live:].any()
     assert stand_in_lib["segment_expand"] == 1
 
 

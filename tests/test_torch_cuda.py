@@ -582,3 +582,107 @@ def test_density_step_and_morton_sort_on_card_equal_cpu(dev):
     for f in ("params", "adam_m", "adam_v"):
         for k in s_c[f]:
             np.testing.assert_array_equal(sorted_[1][f][k], sorted_[0][f][k])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_rasterizers_read_bg_from_device_memory(dev, packed):
+    """K1 and K2 read the background from device memory: launched from a
+    CUDA graph captured at one background and replayed after the tensor
+    was refilled, each is bit-equal to a launch at the new background, and
+    close to its plain version at it (the bounds of the tests above)."""
+    args, out, d_tiles, ntx, nty = _backward_inputs(np.random.default_rng(9), 3000, 160, 88)
+    kw = dict(num_tiles_x=ntx, packed=packed)
+    dev_in = [t.to(dev) for t in args]
+    out_d, d_d = out.to(dev), d_tiles.to(dev)
+    bg = torch.full((), 0.3, dtype=torch.float32, device=dev)
+    rasterize_forward(*dev_in, bg, **kw)  # built and warm outside the capture
+    rasterize_backward(*dev_in, out_d, d_d, bg, num_tiles_y=nty, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fwd = rasterize_forward(*dev_in, bg, **kw)
+        bwd = rasterize_backward(*dev_in, out_d, d_d, bg, num_tiles_y=nty, **kw)
+    bg.fill_(0.75)
+    graph.replay()
+    new_bg = torch.full((), 0.75, dtype=torch.float32, device=dev)
+    fwd_ref = rasterize_forward(*dev_in, new_bg, **kw)
+    bwd_ref = rasterize_backward(*dev_in, out_d, d_d, new_bg, num_tiles_y=nty, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, fwd_ref) and torch.equal(bwd, bwd_ref)
+    assert not torch.equal(fwd_ref, rasterize_forward(*dev_in, 0.3, **kw))
+    plain = rasterize_forward_plain(*args, new_bg.cpu(), **kw)
+    torch.testing.assert_close(fwd.cpu()[:, :3], plain[:, :3], rtol=0, atol=1e-4)
+    rows = rasterize_backward_plain(*args, out, d_tiles, new_bg.cpu(), num_tiles_y=nty, **kw)
+    scale = rows.abs().amax(dim=1, keepdim=True)
+    assert ((bwd.cpu() - rows).abs() <= 1e-3 * scale + 1e-6).all()
+
+
+def test_graph_replay_bit_equal_to_eager_capped_step(dev):
+    """``get_train_step`` at a pair cap (a CUDA graph: an eager first call,
+    a capture, replays) against ``train_step`` at the same cap, eagerly,
+    from the same start over five steps and two cameras: losses, metrics
+    and every tensor of the state bit-identical; the replays read no host
+    memory and count the graph's launches."""
+    import dataclasses
+
+    from gsplat_tpu_torch.ops.camera import build_camera_matrices
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    w, h, n = 96, 56, 2000
+    rng = np.random.default_rng(5)
+    params = dict(
+        xyz=rng.normal(size=(n, 3)) * [1.0, 0.7, 0.6] + [0, 0, 4.0],
+        rgb=rng.normal(size=(n, 3)), opacity=rng.uniform(-1.0, 2.0, n),
+        scale=np.log(rng.uniform(0.02, 0.1, (n, 3))),
+        quat=np.concatenate([np.ones((n, 1)), 0.3 * rng.normal(size=(n, 3))], axis=1),
+        sh=0.1 * rng.normal(size=(n, 15, 3)),
+    )
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    alive = np.ones(n, bool)
+    cams = [build_camera_matrices(np.array(q), np.zeros(3), w, h, w * 0.85, w * 0.85)
+            for q in ([1.0, 0, 0, 0], [0.999, 0.02, -0.03, 0.01])]
+    st = t_step.StepStatics(
+        width=w, height=h, tile=16, l_max=3, focal_x=cams[0].focal_x,
+        focal_y=cams[0].focal_y, tan_fovx=cams[0].tan_fovx, tan_fovy=cams[0].tan_fovy,
+        near_thresh=0.3, mh_dist=3.0, cull_padding=100, ssim_frac=0.2, base_lr=1e-3,
+        xyz_lr_init=0.16, xyz_lr_final=0.0016, quat_lr=1.0, scale_lr=5.0, opacity_lr=25.0,
+        rgb_lr=2.5, sh_lr=0.125, scene_extent=4.0, num_iters=7000, pair_cap=1 << 16,
+    )
+    gt = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to(dev)
+    cam_t = [tuple(torch.as_tensor(x, device=dev) for x in (c.view, c.proj, c.campos))
+             for c in cams]
+    runs = []
+    for graphed in (False, True):
+        state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+        step = t_step.get_train_step(dataclasses.replace(st, num_iters=7001))
+        _build.reset_launches()
+        out = []
+        for it in range(5):
+            args = (state, *cam_t[it % 2], gt, 0.1 * it, it)
+            if not graphed:
+                state, m = t_step.train_step(*args, dataclasses.replace(st, num_iters=7001))
+            elif it >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, m = step(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                state, m = step(*args)
+            out.append(torch.stack([m.loss, m.psnr, m.num_visible.float(),
+                                    m.num_pairs.float(), m.overflow.float(),
+                                    m.row_overflow.float()]))
+        torch.cuda.synchronize()
+        runs.append((torch.stack(out).cpu(), t_state.state_to_numpy(state),
+                     dict(_build.launches)))
+        t_step.release_graphs()
+    (m_e, s_e, l_e), (m_g, s_g, l_g) = runs
+    assert torch.equal(m_e.view(torch.int32), m_g.view(torch.int32))
+    for group in ("params", "adam_m", "adam_v"):
+        for name in s_e[group]:
+            np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
+    for name in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(s_g[name], s_e[name])
+    assert l_g == l_e and l_g["radix_sort/tile"] == 5 and min(
+        l_g[k] for k in l_g if k != "radix_sort/morton" and not k.endswith("/packed")) > 0

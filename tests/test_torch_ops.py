@@ -183,7 +183,7 @@ def test_params_from_jax_roundtrip():
 
 
 def test_step_statics_fields_match_jax():
-    dropped = {"pair_cap", "row_cap", "chunk", "interpret"}
+    dropped = {"chunk", "interpret"}
     j_fields = {f.name for f in dataclasses.fields(j_step.StepStatics)}
     t_fields = {f.name for f in dataclasses.fields(t_step.StepStatics)}
     assert t_fields == j_fields - dropped

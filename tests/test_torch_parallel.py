@@ -157,7 +157,7 @@ def test_apply_adam_batch_accumulators_match_jax(l_max):
     dur = rng.integers(0, 9, n).astype(np.int32)
     group = lambda k: {name: pick[name][k] for name in NAMES}  # noqa: E731
     st = dataclasses.replace(_statics(), l_max=l_max)
-    j_st = j_step.StepStatics(chunk=128, pair_cap=2048, **dataclasses.asdict(st))
+    j_st = j_step.StepStatics(chunk=128, **dict(dataclasses.asdict(st), pair_cap=2048))
     to_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
     ref = j_step.apply_adam(
         j_state.TrainState(to_j(group("p")), to_j(group("m")), to_j(group("v")),
@@ -372,7 +372,7 @@ def test_dp_matches_jax_dp_train_step(monkeypatch):
     outs = _run(_rank_dp_two_cameras, 2, params, alive, gts)
     monkeypatch.setattr(j_dp, "compute_loss_and_grads", _jax_exact_loss_and_grads)
     st = _statics()
-    j_st = j_step.StepStatics(chunk=128, pair_cap=2048, **dataclasses.asdict(st))
+    j_st = j_step.StepStatics(chunk=128, **dict(dataclasses.asdict(st), pair_cap=2048))
     zeros = {k: jnp.zeros_like(jnp.asarray(v)) for k, v in params.items()}
     state = j_state.TrainState({k: jnp.asarray(v) for k, v in params.items()}, zeros, zeros,
                                jnp.asarray(alive), jnp.zeros(N_CAP, jnp.float32),
@@ -559,11 +559,10 @@ def _rank_trainer(rank, cfg_path, root, mode, out_base, num_iters=None, record=F
         events["reset"].append(tr.iter)
         return real_reset(state, value)
 
-    def draw(cm, gt):  # record the camera and image, skip the step
-        name = next(im.name for im in tr.train_images if tr._matrices(im) is cm)
-        events["draws"].append((Path(name).name, gt.numpy().copy()))
+    def draw(img, gt, monitor):  # record the image drawn, skip the step
+        events["draws"].append((Path(img.name).name, gt.numpy().copy()))
         zero = torch.zeros(())
-        return tr.state, t_step.StepMetrics(zero, zero, zero, 0)
+        return tr.state, t_step.StepMetrics(zero, zero, zero, 0), monitor
 
     tr._density_step, t_trainer.reset_opacity = density, reset
     if record:

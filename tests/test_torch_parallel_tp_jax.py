@@ -46,7 +46,7 @@ def test_tp_matches_jax_tp_train_step(monkeypatch):
                         functools.partial(j_tp.build_tile_tables, bf16_colors=False))
     monkeypatch.setattr(j_tp, "rasterize", functools.partial(j_tp.rasterize, bf16_grads=False))
     st = _statics(height=height)
-    j_st = j_step.StepStatics(chunk=128, pair_cap=2048, **dataclasses.asdict(st))
+    j_st = j_step.StepStatics(chunk=128, **dict(dataclasses.asdict(st), pair_cap=2048))
     zeros = {k: jnp.zeros_like(jnp.asarray(v)) for k, v in params.items()}
     state = j_state.TrainState({k: jnp.asarray(v) for k, v in params.items()}, zeros, zeros,
                                jnp.asarray(alive), jnp.zeros(N_CAP, jnp.float32),

@@ -157,8 +157,8 @@ def test_overfit_start_and_statics_equal_script():
         np.testing.assert_array_equal(getattr(g, f), getattr(ns["g"], f), err_msg=f)
     for f in ("view", "proj", "campos"):
         np.testing.assert_array_equal(getattr(cm, f), getattr(ns["cm"], f))
-    want = {k: v for k, v in ns["st"].items() if k not in ("pair_cap", "chunk")}
-    assert dataclasses.asdict(st) == want
+    want = {k: v for k, v in ns["st"].items() if k != "chunk"}
+    assert dataclasses.asdict(st) == dict(want, row_cap=0)
 
 
 def test_holdout_matches_jax_trainer(photo, tmp_path):
@@ -225,18 +225,23 @@ def recorded(monkeypatch):
     """Every train step's loss and the iteration of each opacity reset of
     the port's ``Trainer``."""
     rec = dict(losses=[], resets=[])
-    real_step, real_reset = t_trainer.train_step, t_trainer.reset_opacity
+    real_get, real_reset = t_trainer.get_monitored_train_step, t_trainer.reset_opacity
 
-    def step(*args):
-        state, m = real_step(*args)
-        rec["losses"].append(float(m.loss))
-        return state, m
+    def get_step(st):
+        real_step = real_get(st)
+
+        def step(*args):
+            state, m, monitor = real_step(*args)
+            rec["losses"].append(float(m.loss))
+            return state, m, monitor
+
+        return step
 
     def reset(state, value):
         rec["resets"].append(len(rec["losses"]) - 1)
         return real_reset(state, value)
 
-    monkeypatch.setattr(t_trainer, "train_step", step)
+    monkeypatch.setattr(t_trainer, "get_monitored_train_step", get_step)
     monkeypatch.setattr(t_trainer, "reset_opacity", reset)
     return rec
 

@@ -120,7 +120,7 @@ def test_train_step_capacity_6144_equals_8192(two_threads):
     same Gaussians at 6,144 (2^12 + 2^11) and at 8,192 train bit-equal."""
     g = bench_scale.scale_gaussians(5000, 0.5, seed=4)
     g.sh = 0.1 * np.random.default_rng(5).normal(size=(5000, 15, 3)).astype(np.float32)
-    st = bench_scale.scale_statics(64, 40)
+    st = bench_scale.scale_statics(64, 40, pair_cap=0, row_cap=0)  # sized exactly
     cm = bench_scale.scale_camera(64, 40)
     gt = torch.from_numpy(np.random.default_rng(6).uniform(size=(40, 64, 3)).astype(np.float32))
     runs = []
@@ -184,10 +184,10 @@ def test_scale_statics_equal_script():
     ns = _run_statements([_assigned(tree, "cm")],
                          dict(np=np, W=w, H=h, build_camera_matrices=j_build_camera))
     call = _assigned(tree, "st").value
-    ns.update(PAIR_CAP=0)
+    ns.update(PAIR_CAP=31 * (1 << 19))  # the script's default
     want = {k.arg: eval(compile(ast.Expression(k.value), "<script>", "eval"), ns)
             for k in call.keywords}
-    for dropped in ("pair_cap", "row_cap", "chunk", "interpret"):
+    for dropped in ("chunk", "interpret"):
         want.pop(dropped)
     assert dataclasses.asdict(bench_scale.scale_statics(w, h)) == want
     cm = bench_scale.scale_camera(w, h)
@@ -238,7 +238,7 @@ def test_reference_row_count_equal_jax():
 
 def test_bench_scale_run_small(two_threads):
     res = bench_scale.run(3000, 0.97, steps=1, reps=2, width=64, height=40, device="cpu",
-                          log=lambda *a: None)
+                          pair_cap=16384, row_cap=12288, log=lambda *a: None)
     assert res.capacity == 4096 and res.state.capacity == 4096
     assert res.loss_finite and res.pairs > 0 and res.rows > 0 and len(res.step_ms) == 2
     assert res.peak_mib is None
@@ -246,6 +246,8 @@ def test_bench_scale_run_small(two_threads):
     summary = res.summary()
     assert summary["n_cap"] == 4096 and summary["num_pairs"] == res.last_pairs > 0
     assert summary["first_pairs"] == res.pairs
+    # the reference's requirements, sentinels counted, within the caps
+    assert res.pairs < res.overflow <= 16384 and res.row_overflow == res.reference_rows
 
 
 def test_train_at_scale_shrunk_raises_psnr(tmp_path, monkeypatch, two_threads):
