@@ -96,22 +96,30 @@ words), and its exact f32 mode where named
     to iteration 7, saves a checkpoint, goes on 2 iterations, and resumes
     a fresh ``Trainer`` from the checkpoint for the same 2: bit-identical;
 13. spawns two ranks on the card, joined over gloo (``parallel_rank``),
-    each with the 1M scene of [9] and its 4 views. Data parallel: the same
-    camera on both ranks is bit-identical to one ``train_step``, the
-    accumulators exactly twice its; views 0 and 1 give reduced gradients
-    within rtol 1e-5 of the mean of the two single-camera gradients; 4
-    steps keep finite losses and bit-identical replicas (checksums of
-    every tensor's bytes, gathered). Tile parallel, in exact mode, at
-    1296x832 (26 tile rows a strip): image, loss and pairs equal the single
-    step's, the parameters after one step within 2e-5; at 1296x840 (R10)
-    the loss equals and the uv gradient's v column is the single step's x
-    840/848 within rtol 1e-5. ``Trainer(dp=2)`` and ``Trainer(tp=2)`` on [11]'s
-    cameras with a 100K-point cloud, 12 iterations (a density step at 5,
-    an opacity reset at 10): replicas bit-identical. Every kernel must
-    launch on every rank on this path. Prints ms a step of the single
-    step (rank 0 alone), the dp step and the tp step, with the
-    collectives' host ms: two ranks sharing one card, not a scaling
-    figure.
+    each with the 1M scene of [9] and its 4 views; every step bins at the
+    caps ``frame_caps`` sizes for the start's frames (each requirement plus
+    a sixteenth), through the parallel factories, which run eagerly over
+    gloo. Data parallel: the same camera on both ranks for 3 steps is
+    bit-identical to the graphed single step at the caps (loss, pair
+    count, requirements, state), the accumulators exactly twice its;
+    views 0 and 1 give reduced gradients within rtol 1e-5 of the mean of
+    the two single-camera gradients; 4 monitored steps keep finite losses,
+    bit-identical replicas (checksums of every tensor's bytes, gathered)
+    and the same monitor on both ranks.
+    Tile parallel, in exact mode, at 1296x832 (26 tile rows a strip):
+    image, loss and pairs equal the single step's, the parameters after
+    one step within 2e-5; at 1296x840 (R10) the loss equals and the uv
+    gradient's v column is the single step's x 840/848 within rtol 1e-5;
+    3 monitored steps, replicas and monitors the same on both ranks.
+    ``Trainer(dp=2)`` and ``Trainer(tp=2)`` on [11]'s cameras with a
+    100K-point cloud, 12 iterations (a density step at 5, an opacity
+    reset at 10), from a pair cap of the state's capacity, which the
+    first window outgrows: replicas bit-identical, every boundary's caps
+    grown by the reference's rule (``grows_by_rule``) and equal on both
+    ranks. Every kernel must launch on every rank on this path. Prints ms
+    a step of the graphed single step (rank 0 alone), the dp step and the
+    tp step, with the collectives' host ms: two ranks sharing one card,
+    not a scaling figure.
 14. runs the modules ported last. (a) The C++ host runtime
     (``io/native.py``, built by g++ at first use into
     ``gsplat_tpu_torch/_build/``) on a cloud of [11]'s kind at
@@ -232,6 +240,21 @@ words), and its exact f32 mode where named
     factories (its rate beside the graph's, the same eval PSNR) and
     [15a] runs at the JAX script's capacities of each point (from
     ``SCALE_*.json``), an eager step at exact sizing beside it at 0.97.
+18. opens a one-rank NCCL group on the card (``initialize_multihost``
+    with one process; NCCL refuses two ranks on one device) and, at
+    [17]'s caps on [9]'s 1M scene and views, for dp and then tp
+    (``nccl_graph_slice``): (a) NCCL_STEPS (8) steps eager
+    (``dp_train_step`` / ``tp_train_step``, the monitor folded) and
+    through ``get_monitored_dp_train_step`` / ``get_monitored_tp_train_step``,
+    whose graph holds the whole step, collectives included: losses,
+    counts, monitors and states bit-identical, one capture; the eager
+    steps after the first (which makes the communicator) and the replays
+    under ``torch.cuda.set_sync_debug_mode("error")``; (b) every kernel of
+    the packed path counted at the replays, the tile sort once a step; (c)
+    eager and graph in windows taken in turns as [17f]: wall, process CPU,
+    issue and device ms a step, busy share, launch calls (one
+    ``cudaGraphLaunch`` a step), peak MiB. A failed group or capture
+    raises.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -247,7 +270,8 @@ x (time - bound). Prints one JSON line of kernels (the rasterizers and the
 segment sum once a mode, ``"mode"``; launches from [9]'s run of that
 mode, ``launches_e2e`` from [14c]'s, ``launches_scale`` from every run
 of [15] (its exact steps give the exact entries; no run of [15] takes
-``depth_rank``), ``launches_recipes`` from [16a] and [16b], ``scale``
+``depth_rank``), ``launches_recipes`` from [16a] and [16b],
+``launches_nccl_graph`` from [18]'s graphed runs (dp and tp), ``scale``
 the kernel's times at the 4.25M point; the
 radix sort also in [14b]'s ``depth_rank`` mode), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
@@ -265,6 +289,10 @@ runs [1], [11] and [17] alone, with their checks (no result line).
     python3 chip_smoke.py --parallel
 
 runs [1] and [13] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --nccl
+
+runs [1] and [18] alone, with its checks (no result line).
 
     python3 chip_smoke.py --e2e
 
@@ -358,8 +386,8 @@ NATIVE_POINTS = 1_000_000  # [14a]: the cloud of [11]'s size
 E2E_ITERS = 600  # [14c]: tools/e2e_synthetic.py's recipe at its full length
 REMAINING_TITLE = ("[14] native host runtime, depth_rank binning, the e2e recipe and "
                    "profiling")
-PARALLEL_TITLE = ("[13] dp and tp steps and Trainer(dp=2)/(tp=2), two ranks on one card "
-                  "over gloo, 1M Gaussians at 1296x840 and 1296x832")
+PARALLEL_TITLE = ("[13] dp and tp steps and Trainer(dp=2)/(tp=2) at the caps, two ranks on one "
+                  "card over gloo, 1M Gaussians at 1296x840 and 1296x832")
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes/s and FP32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1841,28 +1869,64 @@ class Stopwatch:
         return out
 
 
+def frame_caps(params, cams, st):
+    """``capped_statics`` for the largest pair and row requirements of the
+    frames of ``cams`` (exact tables), so that none of them drops a pair."""
+    from gsplat_tpu_torch.ops.binning import build_tile_tables
+
+    reqs = []
+    for cm in cams:
+        uv, z, radius, mask = frame_inputs(params, cm, st)
+        t = build_tile_tables(uv, z, radius, mask, num_tiles_x=st.num_tiles_x,
+                              num_tiles_y=st.num_tiles_y, tile_size=st.tile)
+        reqs.append((int(t.overflow), int(t.row_overflow)))
+    return capped_statics(st, max(p for p, _ in reqs), max(r for _, r in reqs))
+
+
+def grows_by_rule(grows: list, cfg, minimum: int) -> bool:
+    """Whether each boundary's (iteration, pair and row requirements, caps
+    before, caps after) follows the reference's growth rule."""
+    from gsplat_tpu_torch.train.state import round_pair_cap, round_row_cap
+
+    for it, ov, rov, (pair_cap, row_cap), after in grows:
+        shift = 2 if it < cfg.adaptive_control_end else 4
+        if ov > pair_cap:
+            pair_cap = round_pair_cap(ov + (ov >> shift), minimum=minimum)
+        if rov > row_cap:
+            row_cap = round_row_cap(rov + (rov >> shift))
+        if after != (pair_cap, row_cap):
+            return False
+    return True
+
+
 def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
                   even_height: int, trainer_n: int, trainer_iters: int) -> dict:
     """[13] on one rank of a two-rank gloo group, every rank on ``device``.
 
-    ``height`` pads to the tile grid (R10), ``even_height`` is a whole
-    number of tile rows a strip. Returns this rank's log lines, failed
-    checks, times and the launches of its main-path runs (the dp and tp
-    steps and the trainers; the single-device steps they are held against
-    do not count)."""
+    Every step bins at the caps ``frame_caps`` gives for the frames of the
+    start state (the factories run eagerly: gloo's collectives stage
+    through the host). ``height`` pads to the tile grid (R10),
+    ``even_height`` is a whole number of tile rows a strip. Returns this
+    rank's log lines, failed checks, times and the launches of its
+    main-path runs (the dp and tp steps and the trainers; the
+    single-device steps they are held against do not count)."""
     import dataclasses
     import tempfile
 
     import torch.distributed as dist
 
     from gsplat_tpu_torch.kernels import _build
-    from gsplat_tpu_torch.parallel.data_parallel import dp_loss_and_grads, dp_train_step
-    from gsplat_tpu_torch.parallel.tile_parallel import tp_loss_and_grads, tp_train_step
+    from gsplat_tpu_torch.parallel import comm
+    from gsplat_tpu_torch.parallel.data_parallel import (
+        dp_loss_and_grads, get_dp_train_step, get_monitored_dp_train_step)
+    from gsplat_tpu_torch.parallel.tile_parallel import (
+        get_monitored_tp_train_step, get_tp_train_step, tp_loss_and_grads)
     from gsplat_tpu_torch.train import trainer as trainer_mod
     from gsplat_tpu_torch.train.init import initialize_gaussians
-    from gsplat_tpu_torch.train.state import init_state, params_from_jax
+    from gsplat_tpu_torch.train.state import init_state, params_from_jax, round_capacity
     from gsplat_tpu_torch.train.step import (
-        compute_loss_and_grads, render_image, train_step)
+        compute_loss_and_grads, fresh_monitor, get_train_step, release_graphs, render_image,
+        train_step)
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -1883,7 +1947,12 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
         if not ok:
             failed.append(what)
 
+    def same_on_ranks(t: torch.Tensor) -> bool:
+        got = comm.all_gather_rows(t.reshape(1, -1))
+        return bool((got == got[0]).all())
+
     cams = views(width, height)
+    cam_t = camera_tensors(cams, dev)
     st = statics(cams[0], width, height)
     st_even = statics(cams[0], width, even_height)
     start = scene_arrays(n, seed=0, perturb_seed=1)
@@ -1895,31 +1964,46 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
                            st_even)[0]
     del truth
     cm = cams[0]
+    state = fresh()
+    st_c = frame_caps(state.params, cams, st)
+    st_even_c = frame_caps(state.params, [cm_even], st_even)
+    del state
+    say(f"caps: {st_c.pair_cap} pairs, {st_c.row_cap} rows ({width}x{height}); "
+        f"{st_even_c.pair_cap}, {st_even_c.row_cap} ({width}x{even_height})")
 
-    # dp, the same camera on both ranks: bit-equal to one train_step.
+    # dp, the same camera on both ranks, 3 steps: bit-equal to the graphed
+    # single step at the same caps (its eager first call, capture, replay).
     single, dp = fresh(), fresh()
-    train_step(single, cm.view, cm.proj, cm.campos, gts[0], BG, 0, st)
-    on_path(lambda: dp_train_step(dp, cm.view, cm.proj, cm.campos, gts[0], BG, 0, st))
+    graph, dp_step = get_train_step(st_c), get_dp_train_step(st_c)
+    metrics_equal = True
+    for k in range(3):
+        _, m1 = graph(single, *cam_t[0], gts[0], BG, k)
+        _, m2 = on_path(lambda k=k: dp_step(dp, *cam_t[0], gts[0], BG, k))
+        metrics_equal &= all(torch.equal(getattr(m1, f), getattr(m2, f)) for f in (
+            "loss", "num_pairs", "overflow", "row_overflow"))
     diff = differing(single, dp)
     twice = (torch.equal(dp.accum_dur, 2 * single.accum_dur)
              and torch.equal(dp.uv_grad_accum, 2 * single.uv_grad_accum))
-    say(f"dp, one camera on both ranks: differs from one train_step in "
+    say(f"dp at the caps, one camera on both ranks, 3 steps: loss and counts equal to the "
+        f"graphed single step's {metrics_equal}; state differs in "
         f"{[k for k in diff if k not in ('accum_dur', 'uv_grad_accum')]}; accumulators "
         f"exactly 2x the step's {twice}")
-    check(set(diff) <= {"accum_dur", "uv_grad_accum"} and twice, "dp identical cameras")
-    del single, dp
+    check(set(diff) <= {"accum_dur", "uv_grad_accum"} and twice and metrics_equal,
+          "dp identical cameras vs the graphed single step")
+    release_graphs()
+    del single, dp, graph
 
     # dp, views 0 and 1: the reduced gradients are the mean of the two
     # single-camera gradients.
     state = fresh()
-    one = [compute_loss_and_grads(state.params, c.view, c.proj, c.campos, g, BG, st)
+    one = [compute_loss_and_grads(state.params, c.view, c.proj, c.campos, g, BG, st_c)
            for c, g in zip(cams[:2], gts[:2])]
     mean = {k: (one[0][4][k] + one[1][4][k]) / 2 for k in one[0][4]}
     mean["g_uv"] = (one[0][5] + one[1][5]) / 2
     del one
     c = cams[rank]
     r = on_path(lambda: dp_loss_and_grads(state.params, c.view, c.proj, c.campos, gts[rank],
-                                          BG, st))
+                                          BG, st_c))
     worst = {}
     for k, ref in mean.items():
         ok, worst[k], _ = rel_close(r.g_uv if k == "g_uv" else r.grads[k], ref, 1e-5)
@@ -1927,19 +2011,23 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
     say("dp, views 0 and 1: reduced gradients vs the mean of two single-camera "
         "gradients, worst relative error " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     del mean, r
-    losses, watch = [], Stopwatch(dev)
+    losses, watch, monitor = [], Stopwatch(dev), fresh_monitor(dev)
+    step = get_monitored_dp_train_step(st_c)
     with CollectiveClock() as clock:
         for k in range(4):
             v = (2 * k + rank) % len(cams)
-            _, m = on_path(lambda v=v, k=k: watch(lambda: dp_train_step(
-                state, cams[v].view, cams[v].proj, cams[v].campos, gts[v], BG, k, st)))
+            state, m, monitor = on_path(lambda v=v, k=k, mon=monitor: watch(lambda: step(
+                state, *cam_t[v], gts[v], BG, k, mon)))
             losses.append(float(m.loss))
     same = replicas_identical(state)
+    mon_same = same_on_ranks(monitor)
     times["dp"] = watch.ms
     times["dp_comm_ms"] = 1e3 * clock.seconds / 4
-    say(f"dp, 4 steps over views (2k + rank) % 4: losses {losses}, replicas identical "
-        f"{same}; {clock.bytes / 4 / 2**20:.1f} MiB reduced a step")
-    check(all(math.isfinite(x) for x in losses) and same, "dp steps")
+    say(f"dp, 4 monitored steps over views (2k + rank) % 4: losses {losses}, replicas "
+        f"identical {same}; monitor {monitor.tolist()}, the same on both ranks {mon_same}; "
+        f"{clock.bytes / 4 / 2**20:.1f} MiB reduced a step")
+    check(all(math.isfinite(x) for x in losses) and same and mon_same
+          and monitor[2].item() == 1.0, "dp steps")
     del state
 
     # tp at a whole number of tile rows a strip: the single step's image,
@@ -1949,18 +2037,21 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
     single, tp = fresh(), fresh()
     with mode_context("exact"):
         loss_s, img_s, _, tab_s, _, _ = compute_loss_and_grads(
-            single.params, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, st_even)
+            single.params, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, st_even_c)
         r = on_path(lambda: tp_loss_and_grads(tp.params, cm_even.view, cm_even.proj,
-                                              cm_even.campos, gt_even, BG, st_even))
+                                              cm_even.campos, gt_even, BG, st_even_c))
         img_err = (r.image - img_s).abs().max().item()
         say(f"tp at {width}x{even_height}: loss {float(r.loss)!r} vs single {float(loss_s)!r}, "
-            f"image max |diff| {img_err!r}, pairs {r.num_pairs} vs {tab_s.num_pairs}")
+            f"image max |diff| {img_err!r}, pairs {int(r.num_pairs)} vs "
+            f"{int(tab_s.num_pairs)}, requirements {int(r.overflow)}, {int(r.row_overflow)} "
+            f"(the larger strip's)")
         check(float(r.loss) == float(loss_s) and img_err == 0.0
-              and r.num_pairs == tab_s.num_pairs, "tp image, loss and pairs")
+              and int(r.num_pairs) == int(tab_s.num_pairs), "tp image, loss and pairs")
         del r, img_s
-        train_step(single, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, 0, st_even)
-        on_path(lambda: tp_train_step(tp, cm_even.view, cm_even.proj, cm_even.campos, gt_even,
-                                      BG, 0, st_even))
+        train_step(single, cm_even.view, cm_even.proj, cm_even.campos, gt_even, BG, 0,
+                   st_even_c)
+        on_path(lambda: get_tp_train_step(st_even_c)(tp, cm_even.view, cm_even.proj,
+                                                     cm_even.campos, gt_even, BG, 0))
         a, b = state_tensors(single), state_tensors(tp)
         err = max((a[k] - b[k]).abs().nan_to_num(0.0).max().item() for k in a
                   if k.startswith("params."))
@@ -1972,9 +2063,9 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
         # column scaled by H / H_pad.
         state = fresh()
         loss_s, _, _, _, _, uv_s = compute_loss_and_grads(state.params, cm.view, cm.proj,
-                                                          cm.campos, gts[0], BG, st)
+                                                          cm.campos, gts[0], BG, st_c)
         r = on_path(lambda: tp_loss_and_grads(state.params, cm.view, cm.proj, cm.campos, gts[0],
-                                              BG, st))
+                                              BG, st_c))
         # The strips' sums run in another order: a Gaussian whose rows cancel
         # gets 1e-6 of the column's largest |value| besides rtol 1e-5.
         ratio = height / (st.num_tiles_y * TILE)
@@ -1985,42 +2076,66 @@ def parallel_rank(rank: int, device: str, n: int, width: int, height: int,
             f"{rel_v:.3g}, / the column's max {top_v:.3g}; u column {rel_u:.3g}, {top_u:.3g}")
         check(float(r.loss) == float(loss_s) and ok_v and ok_u, "tp R10")
     del r, uv_s
-    watch_tp, watch_1 = Stopwatch(dev), Stopwatch(dev)
+    watch_tp, watch_1, monitor = Stopwatch(dev), Stopwatch(dev), fresh_monitor(dev)
+    step = get_monitored_tp_train_step(st_c)
     with CollectiveClock() as clock:
         for k in range(3):
-            on_path(lambda k=k: watch_tp(lambda: tp_train_step(
-                state, cm.view, cm.proj, cm.campos, gts[0], BG, k, st)))
+            state, m, monitor = on_path(lambda k=k, mon=monitor: watch_tp(lambda: step(
+                state, *cam_t[0], gts[0], BG, k, mon)))
     times["tp"] = watch_tp.ms
     times["tp_comm_ms"] = 1e3 * clock.seconds / 3
-    say(f"tp, 3 steps: {clock.bytes / 3 / 2**20:.1f} MiB reduced or gathered a step")
-    check(replicas_identical(state), "tp replicas")
-    # The single-device step alone on the card: rank 1 waits.
+    mon_same = same_on_ranks(monitor)
+    say(f"tp, 3 monitored steps: monitor {monitor.tolist()}, the same on both ranks "
+        f"{mon_same}; {clock.bytes / 3 / 2**20:.1f} MiB reduced or gathered a step")
+    check(replicas_identical(state) and mon_same and monitor[2].item() == 1.0, "tp replicas")
+    # The single-device step alone on the card, graphed at the caps: rank 1
+    # waits.
     dist.barrier()
     if rank == 0:
-        for k in range(3):
-            watch_1(lambda k=k: train_step(state, cm.view, cm.proj, cm.campos, gts[0], BG,
-                                           3 + k, st))
+        graph = get_train_step(st_c)
+        for k in range(4):
+            watch_1(lambda k=k: graph(state, *cam_t[0], gts[0], BG, 3 + k))
+        release_graphs()
     dist.barrier()
     times["single"] = watch_1.ms
     del state
 
-    # Trainer(dp=2) and Trainer(tp=2) on [11]'s scene and cameras.
+    # Trainer(dp=2) and Trainer(tp=2) on [11]'s scene and cameras, from a
+    # pair cap the first window outgrows: the state's capacity (the
+    # requirement counts a slot for every record at least).
     tcams, images, tgts, xyz, rgb = trainer_scene(trainer_n, 0, dev, width, height)
+    first_cap = round_capacity(trainer_n)
     for mode in ("dp", "tp"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
             cfg = dataclasses.replace(
                 trainer_config(tmp), num_iters=trainer_iters, adaptive_control_start=3,
-                adaptive_control_interval=5, adaptive_control_end=9)
+                adaptive_control_interval=5, adaptive_control_end=9, pair_cap=first_cap)
             g = initialize_gaussians(xyz, rgb, cfg)
             with ImageStandIns(tgts, (height, width, 3)):
                 tr = trainer_mod.Trainer(cfg, g, images, tcams, device=dev, **{mode: 2})
+                grows, real_grow = [], tr._grow_caps
+
+                def grow(overflow, row_overflow, tr=tr, real_grow=real_grow, grows=grows):
+                    before = (tr.pair_cap, tr.row_cap)
+                    real_grow(overflow, row_overflow)
+                    grows.append((tr.iter, overflow, row_overflow, before,
+                                  (tr.pair_cap, tr.row_cap)))
+
+                tr._grow_caps = grow
                 watch = Stopwatch(dev)
                 on_path(lambda: watch(lambda: tr.train(verbose=False)))
         same = replicas_identical(tr.state)
+        caps = torch.tensor([tr.pair_cap, tr.row_cap], device=dev)
+        by_rule = grows_by_rule(grows, cfg, tr.pair_cap_minimum)
+        grew = tr.pair_cap > first_cap
         say(f"Trainer({mode}=2), {trainer_n} points, {trainer_iters} iterations: "
             f"{watch.ms[0]:.1f} ms, {int(tr.state.alive.sum())} alive, capacity "
-            f"{tr.state.capacity}, l_max {tr.l_max}, replicas identical {same}")
-        check(same and tr.iter == trainer_iters, f"Trainer({mode}=2)")
+            f"{tr.state.capacity}, l_max {tr.l_max}, replicas identical {same}; caps by "
+            f"boundary (iteration, requirements, before -> after) {grows}: by the rule "
+            f"{by_rule}, the same on both ranks {same_on_ranks(caps)}")
+        check(same and tr.iter == trainer_iters and by_rule and grew and same_on_ranks(caps),
+              f"Trainer({mode}=2)")
+        release_graphs()
         del tr
     return dict(rank=rank, logs=logs, failed=failed, times=times, launches=main)
 
@@ -2046,9 +2161,11 @@ def parallel_slice(dev, n: int = 1_000_000, width: int = WIDTH, height: int = HE
             failed.append(f"rank {o['rank']}: a kernel never launched")
     t = outs[0]["times"]
     med = lambda xs: statistics.median(xs[1:] if len(xs) > 1 else xs)  # noqa: E731
-    log(f"  ms a step, two ranks sharing one card (not a scaling figure): single-device "
-        f"train_step {med(t['single']):.3f} ({', '.join(f'{x:.1f}' for x in t['single'])}); "
-        f"dp {med(t['dp']):.3f} ({', '.join(f'{x:.1f}' for x in t['dp'])}), collectives "
+    log(f"  ms a step at the caps, two ranks sharing one card over gloo (not a scaling "
+        f"figure): the single-device step graphed, rank 0 alone {med(t['single']):.3f} "
+        f"({', '.join(f'{x:.1f}' for x in t['single'])}: eager first call, capture, "
+        f"replays); dp {med(t['dp']):.3f} ({', '.join(f'{x:.1f}' for x in t['dp'])}), "
+        f"collectives "
         f"{t['dp_comm_ms']:.3f} a step; tp {med(t['tp']):.3f} "
         f"({', '.join(f'{x:.1f}' for x in t['tp'])}), collectives {t['tp_comm_ms']:.3f} a step")
     if failed:
@@ -3483,14 +3600,79 @@ def path_profile(run, steps: int) -> dict:
                            for e in rows})
 
 
+def paths_in_turns(run) -> dict:
+    """``run(path)`` makes one step of a path, "eager" or "graph", from the
+    same state. Each path's peak allocated MiB over its first 4 calls (the
+    graph's eager first call, capture and replays; eager first, while no
+    graph holds memory), then windows of GRAPH_WINDOW steps taken in turns
+    (eager, graph, graph, eager): wall, process-CPU and the host's issue ms
+    a step (host clocks, the card synchronized at each window's ends); then
+    ``path_profile`` over GRAPH_PROFILE_STEPS of each. Returns the numbers
+    by path."""
+    peak = {}
+    for path in ("eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(4):
+            run(path)
+        torch.cuda.synchronize()
+        peak[path] = torch.cuda.max_memory_allocated() / 2**20
+    walls = {"eager": [], "graph": []}
+    for path in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(GRAPH_WINDOW):
+            run(path)
+        issued = time.perf_counter()
+        torch.cuda.synchronize()  # spins: the process CPU counts the wait
+        walls[path].append((1e3 * (time.perf_counter() - t0) / GRAPH_WINDOW,
+                            1e3 * (time.process_time() - c0) / GRAPH_WINDOW,
+                            1e3 * (issued - t0) / GRAPH_WINDOW))
+    res = {}
+    for path in ("eager", "graph"):
+        res[path] = path_profile(lambda k, p=path: run(p), GRAPH_PROFILE_STEPS)
+        res[path]["peak_mib"] = peak[path]
+        res[path]["wall_ms"] = statistics.mean(w for w, _, _ in walls[path])
+        res[path]["cpu_ms"] = statistics.mean(c for _, c, _ in walls[path])
+        res[path]["issue_ms"] = statistics.mean(i for _, _, i in walls[path])
+        res[path]["windows"] = walls[path]
+    return res
+
+
+def log_paths(label: str, res: dict, padding: str) -> None:
+    """``paths_in_turns``' numbers of each path, the kernels whose device
+    time differs most between them, and graph - eager (``padding`` says
+    what the device difference is)."""
+    for path in ("eager", "graph"):
+        r = res[path]
+        log(f"  {label}, {path}: wall {r['wall_ms']:.3f} ms/step, process CPU "
+            f"{r['cpu_ms']:.3f} ms/step, host time to issue a step {r['issue_ms']:.3f} "
+            f"ms (windows wall/CPU/issue "
+            + ", ".join(f"{w:.3f}/{c:.3f}/{i:.3f}" for w, c, i in r["windows"])
+            + f"); device {r['device_ms']:.3f} ms/step, {r['kernels']:.1f} device "
+            f"kernels/step, host launch calls/step {r['launch_calls']}; peak allocated "
+            f"{r['peak_mib']:.0f} MiB")
+    e, g = res["eager"], res["graph"]
+    names = set(e["by_kernel"]) | set(g["by_kernel"])
+    diff = sorted(((g["by_kernel"].get(k, (0, 0))[0] - e["by_kernel"].get(k, (0, 0))[0],
+                    g["by_kernel"].get(k, (0, 0))[1] - e["by_kernel"].get(k, (0, 0))[1], k)
+                   for k in names), key=lambda r: -abs(r[0]))[:PROFILE_TOP]
+    log(f"  {label}: device ms/step and kernels/step, graph - eager, largest first:")
+    for ms, n, k in diff:
+        log(f"    {ms:+8.4f} ms {n:+6.1f}x  {k[:96]}")
+    log(f"  {label}: graph - eager: wall {g['wall_ms'] - e['wall_ms']:+.3f} ms/step, "
+        f"process CPU {g['cpu_ms'] - e['cpu_ms']:+.3f}, issue "
+        f"{g['issue_ms'] - e['issue_ms']:+.3f}, device "
+        f"{g['device_ms'] - e['device_ms']:+.3f} ({padding}), busy "
+        f"{100 * e['device_ms'] / e['wall_ms']:.1f} % -> "
+        f"{100 * g['device_ms'] / g['wall_ms']:.1f} %")
+
+
 def graph_timing_slice(cams, gts, st, st_c, dev) -> dict:
     """(f) [9]'s steps at 1M, the eager step at exact sizing (today's path)
-    and the graph at the caps, in windows of GRAPH_WINDOW steps taken in
-    turns (eager, graph, graph, eager) from one state: wall and process-CPU
-    ms a step (host clocks, the card synchronized at each window's ends);
-    then torch.profiler over GRAPH_PROFILE_STEPS of each path: device ms,
-    kernels and the host's launch calls a step; and each path's peak
-    allocated MiB. In each mode."""
+    and the graph at the caps, in turns from one state (``paths_in_turns``:
+    wall, process-CPU and issue ms a step; device ms, kernels and the
+    host's launch calls a step; peak allocated MiB), in each mode."""
     from gsplat_tpu_torch.kernels import _build
     from gsplat_tpu_torch.train.state import init_state
     from gsplat_tpu_torch.train.step import get_train_step, release_graphs, train_step
@@ -3503,7 +3685,7 @@ def graph_timing_slice(cams, gts, st, st_c, dev) -> dict:
         graph = get_train_step(st_c)
         it = [0]
 
-        def run(path, _k=None):
+        def run(path):
             v = it[0] % len(cams)
             args = (state, *cam_t[v], gts[v], BG, it[0])
             if path == "graph":
@@ -3513,56 +3695,8 @@ def graph_timing_slice(cams, gts, st, st_c, dev) -> dict:
             it[0] += 1
 
         with mode_context(mode):
-            peak = {}
-            for path in ("eager", "graph"):  # eager first: no graph holds memory yet
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                for _ in range(4):  # the graph's eager first call, capture, replays
-                    run(path)
-                torch.cuda.synchronize()
-                peak[path] = torch.cuda.max_memory_allocated() / 2**20
-            walls = {"eager": [], "graph": []}
-            for path in ("eager", "graph", "graph", "eager"):
-                torch.cuda.synchronize()
-                t0, c0 = time.perf_counter(), time.process_time()
-                for _ in range(GRAPH_WINDOW):
-                    run(path)
-                issued = time.perf_counter()
-                torch.cuda.synchronize()  # spins: the process CPU counts the wait
-                walls[path].append((1e3 * (time.perf_counter() - t0) / GRAPH_WINDOW,
-                                    1e3 * (time.process_time() - c0) / GRAPH_WINDOW,
-                                    1e3 * (issued - t0) / GRAPH_WINDOW))
-            res = {}
-            for path in ("eager", "graph"):
-                res[path] = path_profile(lambda k, p=path: run(p), GRAPH_PROFILE_STEPS)
-                res[path]["peak_mib"] = peak[path]
-                res[path]["wall_ms"] = statistics.mean(w for w, _, _ in walls[path])
-                res[path]["cpu_ms"] = statistics.mean(c for _, c, _ in walls[path])
-                res[path]["issue_ms"] = statistics.mean(i for _, _, i in walls[path])
-                res[path]["windows"] = walls[path]
-        for path in ("eager", "graph"):
-            r = res[path]
-            log(f"  (f) {mode}, {path}: wall {r['wall_ms']:.3f} ms/step, process CPU "
-                f"{r['cpu_ms']:.3f} ms/step, host time to issue a step {r['issue_ms']:.3f} "
-                f"ms (windows wall/CPU/issue "
-                + ", ".join(f"{w:.3f}/{c:.3f}/{i:.3f}" for w, c, i in r["windows"])
-                + f"); device {r['device_ms']:.3f} ms/step, {r['kernels']:.1f} device "
-                f"kernels/step, host launch calls/step {r['launch_calls']}; peak allocated "
-                f"{r['peak_mib']:.0f} MiB")
-        e, g = res["eager"], res["graph"]
-        names = set(e["by_kernel"]) | set(g["by_kernel"])
-        diff = sorted(((g["by_kernel"].get(k, (0, 0))[0] - e["by_kernel"].get(k, (0, 0))[0],
-                        g["by_kernel"].get(k, (0, 0))[1] - e["by_kernel"].get(k, (0, 0))[1], k)
-                       for k in names), key=lambda r: -abs(r[0]))[:PROFILE_TOP]
-        log(f"  (f) {mode}: device ms/step and kernels/step, graph - eager, largest first:")
-        for ms, n, k in diff:
-            log(f"    {ms:+8.4f} ms {n:+6.1f}x  {k[:96]}")
-        log(f"  (f) {mode}: graph - eager: wall {g['wall_ms'] - e['wall_ms']:+.3f} ms/step, "
-            f"process CPU {g['cpu_ms'] - e['cpu_ms']:+.3f}, issue "
-            f"{g['issue_ms'] - e['issue_ms']:+.3f}, device "
-            f"{g['device_ms'] - e['device_ms']:+.3f} (the caps' padding), busy "
-            f"{100 * e['device_ms'] / e['wall_ms']:.1f} % -> "
-            f"{100 * g['device_ms'] / g['wall_ms']:.1f} %")
+            res = paths_in_turns(run)
+        log_paths(f"(f) {mode}", res, "the caps' padding")
         out[mode] = res
         release_graphs()
         del state, graph
@@ -3594,6 +3728,135 @@ def capacity_slice(dev, graphed: dict) -> dict:
         raise AssertionError(f"[17] failed: {failed}")
     return dict(launches=launches, timing=timing, sort=sort_times, caps=(st_c.pair_cap,
                                                                          st_c.row_cap))
+
+
+# [18]: the dp and tp steps as CUDA graphs over a one-rank NCCL group (the
+# card's host has one card, and NCCL refuses two ranks on one device).
+NCCL_TITLE = ("[18] the dp and tp steps captured over a one-rank NCCL group at [17]'s caps: "
+              "graph vs eager, no host sync, one graph launch a step")
+NCCL_STEPS = 8  # (a): steps of each path from one start, each kind
+
+
+def nccl_graph_slice(dev, n: int = 1_000_000) -> dict:
+    """[18] On a one-rank NCCL group on ``dev``, at the caps [17] sizes for
+    [9]'s view 0 of the 1M scene (``frame_caps``), for dp and then tp:
+    (a) from one start, NCCL_STEPS steps of [9]'s views eager
+    (``dp_train_step`` / ``tp_train_step`` and ``fold_monitor``) and
+    through ``get_monitored_dp_train_step`` / ``get_monitored_tp_train_step``
+    (its eager first call, its capture, replays): losses, metrics, monitors
+    and every tensor of the states bit-identical; the eager steps after the
+    first (which makes the NCCL communicator) and the replays run under
+    ``torch.cuda.set_sync_debug_mode("error")``; one capture; (b) the
+    replays' launches, counted at replay (``_build.recording``): every
+    kernel of the packed path, the tile sort once a step; (c)
+    ``paths_in_turns`` of the eager step and the graph: wall, issue,
+    device ms, busy share, launch calls (one ``cudaGraphLaunch`` a step).
+    Raises if a check failed; a failed group or capture raises as it is.
+    Returns the launches of the graphs' runs and the timings by kind."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.parallel import (
+        get_monitored_dp_train_step, get_monitored_tp_train_step, initialize_multihost)
+    from gsplat_tpu_torch.parallel.data_parallel import dp_train_step
+    from gsplat_tpu_torch.parallel.launch import free_port
+    from gsplat_tpu_torch.parallel.tile_parallel import tp_train_step
+    from gsplat_tpu_torch.train.state import init_state, params_from_jax
+    from gsplat_tpu_torch.train.step import (
+        fold_monitor, fresh_monitor, graph_captures, release_graphs, render_image)
+
+    cams = views()
+    st = statics(cams[0])
+    truth = scene_params(n, seed=0, device=dev)
+    st_c = frame_caps(truth, cams[:1], st)
+    gts = [render_image(truth, cm.view, cm.proj, cm.campos, BG, st)[0] for cm in cams]
+    del truth
+    cam_t = camera_tensors(cams, dev)
+    start = scene_arrays(n, seed=0, perturb_seed=1)
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    failed, launches, timing = [], {}, {}
+    try:
+        log(f"  one-rank group, backend {dist.get_backend()}; caps {st_c.pair_cap} pairs, "
+            f"{st_c.row_cap} rows")
+        for kind, eager_step, get in (("dp", dp_train_step, get_monitored_dp_train_step),
+                                      ("tp", tp_train_step, get_monitored_tp_train_step)):
+            runs = {}
+            for path in ("eager", "graph"):
+                state, monitor = init_state(params_from_jax(*start, dev)), fresh_monitor(dev)
+                graph = get(st_c)
+                captures = graph_captures()
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                steps = []
+                for it in range(NCCL_STEPS):
+                    v = it % len(cams)
+                    args = (state, *cam_t[v], gts[v], BG, it)
+                    if it == 2 and path == "graph":
+                        _build.reset_launches()  # the replays' launches from here
+                    if it >= (2 if path == "graph" else 1):  # a capture synchronizes
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        if path == "eager":
+                            state, m = eager_step(*args, st_c)
+                            monitor = fold_monitor(monitor, m)
+                        else:
+                            state, m, monitor = graph(*args, monitor)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    steps.append(torch.stack([m.loss] + [
+                        getattr(m, f).to(torch.float32)
+                        for f in ("num_pairs", "overflow", "row_overflow")]))
+                torch.cuda.synchronize()
+                runs[path] = (torch.stack(steps), monitor.clone(), state)
+                if path == "graph":
+                    launches[kind] = dict(_build.launches)
+                    captures = graph_captures() - captures
+                release_graphs()
+            (e_steps, e_mon, e_state), (g_steps, g_mon, g_state) = runs["eager"], runs["graph"]
+            diff = differing(g_state, e_state)
+            same = torch.equal(bits_of(g_steps), bits_of(e_steps)) and torch.equal(
+                bits_of(g_mon), bits_of(e_mon))
+            got = launches[kind]
+            want = [k for k in got if k != "radix_sort/morton"]  # the packed path's
+            log(f"  (a) {kind}: graph vs eager at the caps over {NCCL_STEPS} steps: losses, "
+                f"counts and monitor bit-identical {same}, state tensors differing {diff}; "
+                f"{captures} capture; monitor {g_mon.tolist()}; pairs a step "
+                f"{[int(x) for x in g_steps[:, 1].tolist()]}")
+            log(f"  (b) {kind}: launches of the {NCCL_STEPS - 2} replays {got}")
+            if diff or not same or captures != 1:
+                failed.append(f"(a) {kind}")
+            if min(got[k] for k in want) <= 0 or got["radix_sort/tile"] != NCCL_STEPS - 2:
+                failed.append(f"(b) {kind} launches {got}")
+            del runs, e_state, g_state
+            state, box = init_state(params_from_jax(*start, dev)), [fresh_monitor(dev)]
+            graph, it = get(st_c), [0]
+
+            def run(path):
+                v = it[0] % len(cams)
+                args = (state, *cam_t[v], gts[v], BG, it[0])
+                if path == "graph":
+                    box[0] = graph(*args, box[0])[2]
+                else:
+                    box[0] = fold_monitor(box[0], eager_step(*args, st_c)[1])
+                it[0] += 1
+
+            res = paths_in_turns(run)
+            log_paths(f"(c) {kind}", res, "the same kernels")
+            calls = sum(v for k, v in res["graph"]["launch_calls"].items()
+                        if k.startswith("cudaGraphLaunch"))
+            if calls != 1.0:
+                failed.append(f"(c) {kind}: {calls} graph launches a step")
+            timing[kind] = res
+            release_graphs()
+            del state, graph
+            torch.cuda.empty_cache()
+    finally:
+        release_graphs()
+        dist.destroy_process_group()
+    if failed:
+        raise AssertionError(f"[18] failed: {failed}")
+    total = {k: launches["dp"][k] + launches["tp"][k] for k in launches["dp"]}
+    return dict(launches=total, timing=timing, caps=(st_c.pair_cap, st_c.row_cap))
 
 
 def log_scale_table(scale: dict, at_1m: dict) -> None:
@@ -3648,6 +3911,11 @@ def main() -> int:
         _build.build()
         log(PARALLEL_TITLE)
         parallel_slice(dev)
+        return 0
+    if sys.argv[1:] == ["--nccl"]:
+        _build.build()
+        log(NCCL_TITLE)
+        nccl_graph_slice(dev)
         return 0
     if sys.argv[1:] == ["--e2e"]:
         log(REMAINING_TITLE)
@@ -3788,6 +4056,11 @@ def main() -> int:
     log(CAPACITY_TITLE)
     capacity_slice(dev, morton["graphed"])
 
+    # 18. The dp and tp steps as CUDA graphs, collectives included, over a
+    # one-rank NCCL group: graph against eager, no host sync.
+    log(NCCL_TITLE)
+    nccl = nccl_graph_slice(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -3799,7 +4072,7 @@ def main() -> int:
     for name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
         table += [(name, "/packed", None, pk[f"{name}/packed"]),
                   (name, "", None, ex[name] - ex[f"{name}/packed"])]
-    e2e, at_scale = rest["e2e_launches"], scale["launches"]
+    e2e, at_scale, at_nccl = rest["e2e_launches"], scale["launches"], nccl["launches"]
     kernels, gaps = [], []
     for name, sfx, site, n_launch in table:
         r = both[name + sfx]
@@ -3810,7 +4083,8 @@ def main() -> int:
                      launches_e2e=e2e[key] - (e2e[key + "/packed"]
                                               if key + "/packed" in e2e else 0),
                      launches_scale=at_scale[key] - at_scale.get(key + "/packed", 0),
-                     launches_recipes=at_recipes[key] - at_recipes.get(key + "/packed", 0))
+                     launches_recipes=at_recipes[key] - at_recipes.get(key + "/packed", 0),
+                     launches_nccl_graph=at_nccl[key] - at_nccl.get(key + "/packed", 0))
         # The same kernel at the 4.25M scale point's shapes ([15a]).
         entry["scale"] = {k: scale["kernels"][name + sfx][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3835,6 +4109,7 @@ def main() -> int:
         launches_per_density_step=morton["launches"] / morton["density_steps"], site="morton",
         launches_e2e=e2e["radix_sort/morton"], launches_scale=at_scale["radix_sort/morton"],
         launches_recipes=at_recipes["radix_sort/morton"],
+        launches_nccl_graph=at_nccl["radix_sort/morton"],
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     # The tile sort of binning's exact-ordering mode: [14b]'s launches. [15]
@@ -3844,6 +4119,7 @@ def main() -> int:
         name="radix_sort", route="cuda", source=SOURCES["radix_sort"],
         replaces=REPLACES["radix_sort"], launches=r["launches"], site="tile",
         mode="depth_rank", key_bits=r["key_bits"], launches_scale=0, launches_recipes=0,
+        launches_nccl_graph=0,
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
     print(json.dumps({"kernels": kernels}))

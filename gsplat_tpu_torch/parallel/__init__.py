@@ -11,7 +11,10 @@ state whole (replicated) and updates them identically. Two modes:
 with one process and no coordinator it is a no-op. ``launch.spawn`` starts
 local ranks (the CLI's ``--dp``/``--tp``). A step's ``group`` argument, a
 process group (None: the default one), takes the place of the reference's
-device mesh.
+device mesh. The factories (``get_dp_train_step``,
+``get_monitored_dp_train_step`` and their tp twins) are the reference's:
+on the card, at a pair cap and over NCCL, each captures its whole step,
+collectives included, into one CUDA graph; over gloo they run eagerly.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ import datetime
 import torch
 import torch.distributed as dist
 
-from .data_parallel import dp_train_step
-from .tile_parallel import tp_train_step
+from .data_parallel import dp_train_step, get_dp_train_step, get_monitored_dp_train_step
+from .tile_parallel import get_monitored_tp_train_step, get_tp_train_step, tp_train_step
 
-__all__ = ["dp_train_step", "tp_train_step", "initialize_multihost", "require_world"]
+__all__ = ["dp_train_step", "tp_train_step", "get_dp_train_step",
+           "get_monitored_dp_train_step", "get_tp_train_step", "get_monitored_tp_train_step",
+           "initialize_multihost", "require_world"]
 
 BACKENDS = ("nccl", "gloo")
 DEFAULT_TIMEOUT_S = 600.0

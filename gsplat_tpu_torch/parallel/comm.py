@@ -3,16 +3,18 @@
 Each step reduces as few buffers as it can: ``sum_over_ranks`` packs every
 per-Gaussian float (the six parameter gradients and the extra columns a
 step needs) and one slot per rank for each scalar metric into one float32
-buffer, the visibility mask and one slot per rank for the pair count into
-one int32 buffer, and SUM-reduces each once. A rank's scalar lands in its
-own slot, so the reduced slots hold every rank's value: a mean, a max or
-rank 0's value follows on every rank without another collective, and every
-rank reads the same bits.
+buffer, the visibility mask and one slot per rank for each integer metric
+(the pair count, binning's pair and row requirements) into one int32
+buffer, and SUM-reduces each once. A rank's scalar lands in its own slot,
+so the reduced slots hold every rank's value: a mean, a sum, a max or rank
+0's value follows on every rank, on the device, without another
+collective or a host read, and every rank reads the same bits.
 
 The gloo backend reduces host memory; where a rank's tensor is on a CUDA
 device (ranks that share one card), the gloo branch here copies it to the
-host, runs the collective there and copies the result back. NCCL takes
-the device tensor as it is.
+host, runs the collective there and copies the result back: a host sync,
+so a gloo step is never captured into a CUDA graph. NCCL takes the device
+tensor as it is, and its collectives are captured with the step.
 """
 
 from __future__ import annotations
@@ -26,6 +28,13 @@ from ..train.state import PARAM_DIMS
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether ``t`` goes through host memory: a CUDA tensor under gloo."""
     return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def capturable(group=None) -> bool:
+    """Whether the group's collectives can be captured into a CUDA graph
+    with the step: NCCL's run on the device; gloo's stage through the
+    host."""
+    return dist.get_backend(group) == dist.Backend.NCCL
 
 
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -52,15 +61,18 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def sum_over_ranks(grads: dict, columns: list, scalars: list, mask: torch.Tensor,
-                   num_pairs: int, group=None):
+                   counts: list, group=None):
     """Sum per-Gaussian tensors over ranks in one float and one int buffer.
 
     ``grads`` maps each parameter name to its gradient, ``columns`` are
     more (N_cap, ...) float tensors, ``scalars`` are this rank's float
-    scalars (0-d tensors), ``mask`` (N_cap,) bool. Returns (summed grads
-    as views of the reduced buffer, summed columns, ``(len(scalars),
-    world)`` every rank's scalars, visible_count (N_cap,) int32, every
-    rank's pair count as a host list).
+    scalars (0-d tensors), ``mask`` (N_cap,) bool, ``counts`` this rank's
+    integer scalars (0-d int32 tensors or ints: the pair count and the
+    binning's requirements). Returns (summed grads as views of the reduced
+    buffer, summed columns, ``(len(scalars), world)`` every rank's
+    scalars, visible_count (N_cap,) int32, ``(len(counts), world)`` every
+    rank's counts), all on the device: nothing here reads the host, and
+    only the gloo branch's staging copies through it.
     """
     n = mask.shape[0]
     dev = mask.device
@@ -71,9 +83,10 @@ def sum_over_ranks(grads: dict, columns: list, scalars: list, mask: torch.Tensor
     for i, s in enumerate(scalars):
         slots[i, r] = s
     flat = torch.cat([p.reshape(-1) for p in parts] + [slots.reshape(-1)])
-    ints = torch.zeros((n + b,), dtype=torch.int32, device=dev)
+    ints = torch.zeros((n + len(counts) * b,), dtype=torch.int32, device=dev)
     ints[:n] = mask.to(torch.int32)
-    ints[n + r] = num_pairs
+    for i, c in enumerate(counts):
+        ints[n + i * b + r] = c
     all_reduce_sum_(flat, group)
     all_reduce_sum_(ints, group)
     out, off = [], 0
@@ -82,4 +95,4 @@ def sum_over_ranks(grads: dict, columns: list, scalars: list, mask: torch.Tensor
         off += p.numel()
     summed = dict(zip(names, out[:len(names)]))
     return (summed, out[len(names):], flat[off:].view(len(scalars), b), ints[:n],
-            ints[n:].tolist())
+            ints[n:].view(len(counts), b))

@@ -4,10 +4,12 @@ of ``gsplat_tpu/parallel/tile_parallel.py``).
 Rank d of D renders strip d: ``strip_rows`` whole tile rows starting at
 row ``d * strip_rows``, the last strip padded past the image. Every rank
 runs the per-Gaussian forward on the replicated parameters, shifts uv into
-the strip's coordinates, and bins and rasterizes only its strip; binning's
-``row_limit`` keeps the last strip's padding rows out, so the strips' pair
-sets together are the whole frame's. The strips are all-gathered (without
-autograd) and every rank computes the fused loss on the whole image.
+the strip's coordinates, and bins and rasterizes only its strip, at the
+StepStatics' pair and row caps as the reference bins each strip (or sized
+exactly at ``pair_cap=0``); binning's ``row_limit`` keeps the last strip's
+padding rows out, so the strips' pair sets together are the whole
+frame's. The strips are all-gathered (without autograd) and every rank
+computes the fused loss on the whole image.
 
 The gradient is the single-camera step's: every rank takes d(loss)/d(image)
 on the whole image, back-propagates its own rows of it through its strip's
@@ -24,6 +26,7 @@ gradient differs from the single-camera step's by W / W_pad and H / H_pad
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -33,13 +36,24 @@ from ..ops.binning import build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
 from ..train.state import PARAM_DIMS, GaussianParams, TrainState
-from ..train.step import StepMetrics, StepStatics, _as_f32, _per_gaussian, apply_adam
+from ..train.step import (
+    StepMetrics, StepStatics, _as_f32, _per_gaussian, apply_adam, factory_callable)
 from . import comm
 
 
 def strip_rows(st: StepStatics, n_ranks: int) -> int:
     """Tile rows of each strip."""
     return (st.num_tiles_y + n_ranks - 1) // n_ranks
+
+
+@functools.lru_cache(maxsize=None)
+def _strip_shift(device: torch.device, y_off: float) -> torch.Tensor:
+    """(2,) float32 [0, y_off] on ``device``, made once by fills: the uv
+    shift into a strip's coordinates, which a captured step reads and
+    does not build from host values."""
+    shift = torch.zeros(2, dtype=torch.float32, device=device)
+    shift[1] = y_off
+    return shift
 
 
 class StripGrads(NamedTuple):
@@ -51,13 +65,16 @@ class StripGrads(NamedTuple):
     grads: dict  # name -> gradient
     g_uv: torch.Tensor  # (N_cap, 2)
     mask: torch.Tensor  # (N_cap,) bool: visible on any rank
-    num_pairs: int  # summed over the strips
+    num_pairs: torch.Tensor  # () int32, summed over the strips
+    overflow: torch.Tensor  # () int32, max over the strips: the pair requirement
+    row_overflow: torch.Tensor  # () int32, max over the strips: the row requirement
 
 
 def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torch.Tensor,
-                      bg: float, st: StepStatics, group=None) -> StripGrads:
+                      bg, st: StepStatics, group=None) -> StripGrads:
     """This rank's strip forward, the whole image's loss, this rank's strip
-    backward, then the sums over the strips."""
+    backward, then the sums over the strips. ``bg`` is a number or a ()
+    float32 device tensor."""
     d, n_ranks = dist.get_rank(group), dist.get_world_size(group)
     rows_local = strip_rows(st, n_ranks)
     h_local = rows_local * st.tile
@@ -70,11 +87,12 @@ def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torc
                                requires_grad=True)
         uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
         uv = uv + uv_probe
-        uv_l = uv - torch.tensor([0.0, float(d * h_local)], dtype=torch.float32, device=dev)
+        uv_l = uv - _strip_shift(dev, float(d * h_local))
         tables = build_tile_tables(
             uv_l.detach(), z.detach(), radius, mask,
             num_tiles_x=st.num_tiles_x, num_tiles_y=rows_local, tile_size=st.tile,
             row_limit=min(max(st.num_tiles_y - d * rows_local, 0), rows_local),
+            pair_cap=st.pair_cap or None, row_cap=st.row_cap or None,
         )
         strip = rasterize(
             uv_l, conic, rgb, params.opacity, tables, bg,
@@ -92,24 +110,52 @@ def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torc
     grads = {name: torch.zeros_like(leaf) if g is None else g
              for name, leaf, g in zip(names, leaves, got)}
     image = image.detach()
-    summed, (g_uv,), scalars, visible_count, pairs = comm.sum_over_ranks(
+    summed, (g_uv,), scalars, visible_count, counts = comm.sum_over_ranks(
         grads, [got[-1]], [loss.detach(), compute_psnr(image, gt_image)], mask,
-        tables.num_pairs, group)
+        [tables.num_pairs, tables.overflow, tables.row_overflow], group)
     # Every rank computed the same loss; rank 0's slot is the one all read.
+    overflow, row_overflow = counts[1:].amax(dim=1)
     return StripGrads(loss=scalars[0, 0], psnr=scalars[1, 0], image=image, grads=summed,
-                      g_uv=g_uv, mask=visible_count > 0, num_pairs=sum(pairs))
+                      g_uv=g_uv, mask=visible_count > 0, num_pairs=counts[0].sum(),
+                      overflow=overflow, row_overflow=row_overflow)
 
 
 def tp_train_step(
-    state: TrainState, view, proj, campos, gt_image: torch.Tensor, bg: float,
-    iteration: int, st: StepStatics, group=None,
+    state: TrainState, view, proj, campos, gt_image: torch.Tensor, bg,
+    iteration, st: StepStatics, group=None,
 ) -> tuple[TrainState, StepMetrics]:
     """One optimizer step on one camera, its tile rows sharded over the
-    group's ranks; updates ``state`` in place. Metrics: loss and PSNR of
-    the whole image, the Gaussians any strip sees, the strips' pairs."""
+    group's ranks; updates ``state`` in place. ``bg`` and ``iteration`` are
+    numbers or () device tensors. Metrics, as the reference's: loss and
+    PSNR of the whole image, the Gaussians any strip sees, the strips'
+    pairs summed and the largest strip's pair and row requirements, all on
+    the device."""
     r = tp_loss_and_grads(state.params, view, proj, campos, gt_image, bg, st, group)
     apply_adam(state, r.grads, r.g_uv, r.mask, iteration, st)
     return state, StepMetrics(loss=r.loss, psnr=r.psnr,
                               num_visible=torch.sum(r.mask.to(torch.int32)),
-                              num_pairs=r.num_pairs)
+                              num_pairs=r.num_pairs, overflow=r.overflow,
+                              row_overflow=r.row_overflow)
+
+
+def get_tp_train_step(st: StepStatics, group=None):
+    """``tp_train_step`` for one StepStatics and process group (the
+    reference's factory, the group in the place of its mesh): ``fn(state,
+    view, proj, campos, gt_image, bg, iteration) -> (state, metrics)``. On
+    the card, at a pair cap and over NCCL, the whole step (the strip's
+    forward, the all-gather and the loss, the backward, the all-reduces,
+    Adam) runs as one CUDA graph, as ``data_parallel.get_dp_train_step``'s;
+    else eagerly."""
+    return factory_callable(("tp", st, group),
+                            capturable=functools.partial(comm.capturable, group),
+                            step=functools.partial(tp_train_step, group=group))
+
+
+def get_monitored_tp_train_step(st: StepStatics, group=None):
+    """``get_tp_train_step`` with the trainer's on-device monitor, as the
+    reference's: ``fn(state, view, proj, campos, gt_image, bg, iteration,
+    monitor) -> (state, metrics, monitor)``."""
+    return factory_callable(("tp_monitored", st, group), monitored=True,
+                            capturable=functools.partial(comm.capturable, group),
+                            step=functools.partial(tp_train_step, group=group))
 

@@ -27,7 +27,10 @@ the first call for a StepStatics and a state runs eagerly (that run is
 the step, and PyTorch's warm-up before a capture), the second captures
 and replays, later calls copy their inputs into the graph's static
 buffers and replay; nothing in a replay reads the host. A capture that
-fails raises. On the CPU, or with ``pair_cap=0``, they run eagerly.
+fails raises. On the CPU, or with ``pair_cap=0``, they run eagerly. The
+dp and tp factories of ``parallel`` are callables of the same kind
+(``factory_callable``), captured only where their process group's
+collectives can be (NCCL).
 
 The uv-gradient statistic of densification comes from a zero probe added
 to uv before rasterization: its gradient is exactly the reference's
@@ -331,12 +334,18 @@ def monitored_train_step(
     so one host read at a boundary covers every step since the last
     ``fresh_monitor``. Returns (state, metrics, new monitor)."""
     state, m = train_step(state, view, proj, campos, gt_image, bg, iteration, st)
-    new_monitor = torch.stack([
+    return state, m, fold_monitor(monitor, m)
+
+
+def fold_monitor(monitor: torch.Tensor, m: StepMetrics) -> torch.Tensor:
+    """The (3,) monitor with one step's metrics folded in, on the device:
+    the larger pair and row requirements, and whether every loss so far is
+    finite."""
+    return torch.stack([
         torch.maximum(monitor[0], m.overflow.to(torch.float32)),
         torch.maximum(monitor[1], m.row_overflow.to(torch.float32)),
         torch.minimum(monitor[2], torch.isfinite(m.loss).to(torch.float32)),
     ])
-    return state, m, new_monitor
 
 
 def fresh_monitor(device: torch.device | str = "cuda") -> torch.Tensor:
@@ -439,22 +448,35 @@ class _Graphed:
         return self.outputs
 
 
-# The factories' callables by (kind, StepStatics): each holds its graph.
+# The factories' callables by key, (kind, StepStatics[, process group]):
+# each holds its graph.
 _CALLABLES: dict[tuple, "_Factory"] = {}
 
 
 class _Factory:
-    """A factory's callable for one StepStatics: eager on the CPU and at
-    ``pair_cap=0``, else through its ``_Graphed``."""
+    """A factory's callable for one StepStatics: eager on the CPU, at
+    ``pair_cap=0`` and where ``capturable()`` is false, else through its
+    ``_Graphed``. ``step(state, view, proj, campos, gt_image, bg,
+    iteration, st) -> (state, metrics)`` is the step it runs
+    (``train_step``, or a parallel step bound to its process group), and
+    ``monitored`` folds the metrics into the monitor; with no ``step`` it
+    is the render."""
 
-    def __init__(self, kind: str, st: StepStatics):
-        self.kind, self.st, self.graphed = kind, st, _Graphed()
+    def __init__(self, st: StepStatics, step=None, monitored: bool = False,
+                 capturable=None):
+        self.st, self.step, self.monitored = st, step, monitored
+        self.capturable = capturable
+        self.graphed = _Graphed()
+
+    def _graphs(self, device: torch.device) -> bool:
+        return (device.type == "cuda" and bool(self.st.pair_cap)
+                and (self.capturable is None or self.capturable()))
 
     def __call__(self, *args):
         st = self.st
-        if self.kind == "render":
+        if self.step is None:
             params, view, proj, campos, bg = args
-            if params.xyz.device.type != "cuda" or not st.pair_cap:
+            if not self._graphs(params.xyz.device):
                 return render_image(params, view, proj, campos, bg, st)[0]
             dev = params.xyz.device
 
@@ -466,19 +488,17 @@ class _Factory:
                           bg=bg)
             # The image lives in the graph's pool: the caller gets its own.
             return self.graphed.run(tensors, render, inputs).clone()
-        monitored = self.kind == "monitored"
         state, view, proj, campos, gt_image, bg, iteration = args[:7]
-        if state.params.xyz.device.type != "cuda" or not st.pair_cap:
-            if monitored:
-                return monitored_train_step(*args, st)
-            return train_step(*args, st)
+        if not self._graphs(state.params.xyz.device):
+            state, m = self.step(*args[:7], st)
+            return (state, m, fold_monitor(args[7], m)) if self.monitored else (state, m)
         dev = state.params.xyz.device
 
         def step(view, proj, campos, gt_image, bg, iteration, monitor=None):
-            if not monitored:
-                return train_step(state, view, proj, campos, gt_image, bg, iteration, st)[1]
-            _, m, new_monitor = monitored_train_step(state, view, proj, campos, gt_image,
-                                                     bg, iteration, monitor, st)
+            m = self.step(state, view, proj, campos, gt_image, bg, iteration, st)[1]
+            if monitor is None:
+                return m
+            new_monitor = fold_monitor(monitor, m)
             if torch.cuda.is_current_stream_capturing():
                 monitor.copy_(new_monitor)  # the buffer accumulates over replays
                 new_monitor = monitor
@@ -486,14 +506,14 @@ class _Factory:
 
         inputs = dict(view=_on(view, dev), proj=_on(proj, dev), campos=_on(campos, dev),
                       gt_image=gt_image, bg=bg, iteration=iteration)
-        if monitored:
+        if self.monitored:
             inputs["monitor"] = args[7]
         out = self.graphed.run(_state_tensors(state), step, inputs)
-        m, new_monitor = out if monitored else (out, None)
+        m, new_monitor = out if self.monitored else (out, None)
         # The metrics are the graph's output buffers: the caller gets its
         # own copies, as the reference's step returns new arrays.
         m = StepMetrics(*(x.clone() if isinstance(x, torch.Tensor) else x for x in m))
-        return (state, m, new_monitor) if monitored else (state, m)
+        return (state, m, new_monitor) if self.monitored else (state, m)
 
 
 def _on(x, device):
@@ -504,10 +524,13 @@ def _on(x, device):
     return _as_f32(x, device)
 
 
-def _factory(kind: str, st: StepStatics) -> _Factory:
-    if (kind, st) not in _CALLABLES:
-        _CALLABLES[(kind, st)] = _Factory(kind, st)
-    return _CALLABLES[(kind, st)]
+def factory_callable(key: tuple, **kw) -> _Factory:
+    """The factories' callable for ``key`` (its kind, its StepStatics and
+    whatever else tells two apart), made once from ``kw`` (``_Factory``'s
+    arguments) and kept until ``release_graphs``."""
+    if key not in _CALLABLES:
+        _CALLABLES[key] = _Factory(key[1], **kw)
+    return _CALLABLES[key]
 
 
 def get_train_step(st: StepStatics):
@@ -517,7 +540,7 @@ def get_train_step(st: StepStatics):
     it. ``view``, ``proj``, ``campos`` and ``gt_image`` are best device
     tensors, ``bg`` and ``iteration`` numbers or device tensors: then a
     call reads no host memory."""
-    return _factory("train", st)
+    return factory_callable(("train", st), step=train_step)
 
 
 def get_monitored_train_step(st: StepStatics):
@@ -526,14 +549,14 @@ def get_monitored_train_step(st: StepStatics):
     monitor)``. As ``get_train_step``; through a graph the returned
     monitor is the graph's buffer, which the next call takes back as it
     is (a fresh monitor is copied into it)."""
-    return _factory("monitored", st)
+    return factory_callable(("monitored", st), step=train_step, monitored=True)
 
 
 def get_render_fn(st: StepStatics):
     """``render_image``'s image for one StepStatics: ``fn(params, view,
     proj, campos, bg) -> (H, W, 3)``; on the card at a pair cap through a
     CUDA graph, the image copied out of it."""
-    return _factory("render", st)
+    return factory_callable(("render", st))
 
 
 def release_graphs() -> None:

@@ -19,21 +19,25 @@ cameras are bucketed by (W, H, fx, fy) and every batch draws within one
 bucket (``_dp_bucket_choice``), rank r taking draw r of each batch; under
 tp every rank draws the same image.
 
-Alone, the trainer runs the reference's capacity-bounded, monitored
-step (``step.get_monitored_train_step``): binning at a pair and a row
-capacity (``_auto_pair_cap`` or ``config.pair_cap``, the row cap half the
-pair cap), a CUDA graph a StepStatics on the card, and an on-device
-monitor of the window's largest pair and row requirements and of its
-losses' finiteness, read once at each print or density boundary: the
-capacities grow as the reference grows them (``_grow_caps``), and a
-non-finite loss raises ``FloatingPointError`` for the window. A new
-StepStatics (a grown capacity, an SH band) or a grown state gets a new
-graph, and the old ones are freed. The density step, the Morton re-sort
-and the opacity reset write the state in place, so a graph stays valid
-across them. Eval renders and image dumps go through
-``step.get_render_fn``. Under dp and tp the steps stay eager and sized
-exactly; the monitor then only collects the ranks' reduced loss, so every
-rank raises at the same boundary. The split noise comes from
+In every mode the trainer runs the reference's capacity-bounded,
+monitored step: ``step.get_monitored_train_step`` alone,
+``parallel.get_monitored_dp_train_step`` under dp and
+``parallel.get_monitored_tp_train_step`` under tp. Each bins at a pair
+and a row capacity (``_auto_pair_cap`` or ``config.pair_cap``, the row cap
+half the pair cap) and keeps an on-device monitor of the window's largest
+pair and row requirements and of its losses' finiteness, read once at
+each print or density boundary: the capacities grow as the reference
+grows them (``_grow_caps``), and a non-finite loss raises
+``FloatingPointError`` for the window. Under dp and tp the monitor folds
+the metrics reduced over the ranks, so every rank reads the same monitor,
+grows the same caps at the same boundary and raises at the same one. On
+the card the step is one CUDA graph a StepStatics (alone, and under dp and
+tp over NCCL, collectives included); over gloo the dp and tp steps run
+eagerly at the caps. A new StepStatics (a grown capacity, an SH band) or
+a grown state gets a new graph, and the old ones are freed. The density
+step, the Morton re-sort and the opacity reset write the state in place,
+so a graph stays valid across them. Eval renders and image dumps go
+through ``step.get_render_fn``. The split noise comes from
 ``density.split_noise`` (a ``torch.Generator`` seeded by
 ``seed * 1_000_003 + iteration``) instead of threefry.
 """
@@ -56,8 +60,8 @@ from ..io.ply import save_ply
 from ..ops.camera import CameraMatrices, build_camera_matrices
 from ..ops.loss import compute_psnr
 from ..parallel import require_world
-from ..parallel.data_parallel import dp_train_step
-from ..parallel.tile_parallel import tp_train_step
+from ..parallel.data_parallel import get_monitored_dp_train_step
+from ..parallel.tile_parallel import get_monitored_tp_train_step
 from ..utils import checkpoint
 from .density import (
     DensityInfo, DensityStatics, adaptive_density_step, morton_sort, reset_opacity,
@@ -176,7 +180,6 @@ class Trainer:
 
     def _statics(self, cm: CameraMatrices) -> StepStatics:
         c = self.config
-        alone = not (self.dp or self.tp)  # dp and tp bin exactly
         return StepStatics(
             width=cm.width, height=cm.height, tile=c.tile_size, l_max=self.l_max,
             focal_x=cm.focal_x, focal_y=cm.focal_y,
@@ -191,8 +194,8 @@ class Trainer:
             sh_lr=c.sh_lr_multiplier,
             scene_extent=float(self.scene_extent),
             num_iters=c.num_iters,
-            pair_cap=self.pair_cap if alone else 0,
-            row_cap=self.row_cap if alone else 0,
+            pair_cap=self.pair_cap,
+            row_cap=self.row_cap,
         )
 
     def _density_statics(self) -> DensityStatics:
@@ -265,19 +268,18 @@ class Trainer:
 
     def _step(self, img: Image, gt: torch.Tensor, monitor: torch.Tensor):
         """One step on ``img``: (state, metrics, monitor)."""
-        cm = self._matrices(img)
-        st = self._statics(cm)
-        if self.dp or self.tp:
-            step = dp_train_step if self.dp else tp_train_step
-            state, m = step(self.state, cm.view, cm.proj, cm.campos, gt,
-                            self._bg(self.iter), self.iter, st)
-            finite = torch.isfinite(m.loss).to(torch.float32)
-            return state, m, torch.cat([monitor[:2], torch.minimum(monitor[2:], finite[None])])
+        st = self._statics(self._matrices(img))
         key = (self.pair_cap, self.row_cap, self.l_max, self.state.capacity)
         if key != self._graph_key:  # the old graphs' statics are gone
             release_graphs()
             self._graph_key = key
-        return get_monitored_train_step(st)(
+        if self.dp:
+            step = get_monitored_dp_train_step(st)
+        elif self.tp:
+            step = get_monitored_tp_train_step(st)
+        else:
+            step = get_monitored_train_step(st)
+        return step(
             self.state, *self._camera(img), gt, self._bg(self.iter), self.iter, monitor)
 
     def _grow_caps(self, overflow: int, row_overflow: int) -> None:
@@ -333,8 +335,7 @@ class Trainer:
                     # One host read covers every step of the window.
                     mon = monitor.cpu().tolist()
                     monitor = fresh_monitor(self.device)
-                    if not (self.dp or self.tp):
-                        self._grow_caps(int(mon[0]), int(mon[1]))
+                    self._grow_caps(int(mon[0]), int(mon[1]))
                     if not mon[2] > 0.0:
                         raise FloatingPointError(
                             f"non-finite loss in iterations [{window_start}, {self.iter}]"

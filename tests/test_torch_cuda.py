@@ -617,16 +617,10 @@ def test_rasterizers_read_bg_from_device_memory(dev, packed):
     assert ((bwd.cpu() - rows).abs() <= 1e-3 * scale + 1e-6).all()
 
 
-def test_graph_replay_bit_equal_to_eager_capped_step(dev):
-    """``get_train_step`` at a pair cap (a CUDA graph: an eager first call,
-    a capture, replays) against ``train_step`` at the same cap, eagerly,
-    from the same start over five steps and two cameras: losses, metrics
-    and every tensor of the state bit-identical; the replays read no host
-    memory and count the graph's launches."""
-    import dataclasses
-
+def _capped_scene(dev):
+    """A 2,000-Gaussian scene at 96x56, two cameras on the card, statics at
+    pair cap 2^16, and a target: (params, alive, camera tensors, st, gt)."""
     from gsplat_tpu_torch.ops.camera import build_camera_matrices
-    from gsplat_tpu_torch.train import state as t_state
     from gsplat_tpu_torch.train import step as t_step
 
     w, h, n = 96, 56, 2000
@@ -652,6 +646,21 @@ def test_graph_replay_bit_equal_to_eager_capped_step(dev):
     gt = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to(dev)
     cam_t = [tuple(torch.as_tensor(x, device=dev) for x in (c.view, c.proj, c.campos))
              for c in cams]
+    return params, alive, cam_t, st, gt
+
+
+def test_graph_replay_bit_equal_to_eager_capped_step(dev):
+    """``get_train_step`` at a pair cap (a CUDA graph: an eager first call,
+    a capture, replays) against ``train_step`` at the same cap, eagerly,
+    from the same start over five steps and two cameras: losses, metrics
+    and every tensor of the state bit-identical; the replays read no host
+    memory and count the graph's launches."""
+    import dataclasses
+
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
     runs = []
     for graphed in (False, True):
         state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
@@ -686,3 +695,61 @@ def test_graph_replay_bit_equal_to_eager_capped_step(dev):
         np.testing.assert_array_equal(s_g[name], s_e[name])
     assert l_g == l_e and l_g["radix_sort/tile"] == 5 and min(
         l_g[k] for k in l_g if k != "radix_sort/morton" and not k.endswith("/packed")) > 0
+
+
+@pytest.mark.parametrize("kind", ["dp", "tp"])
+def test_nccl_one_rank_graph_bit_equal_to_eager(dev, kind):
+    """On a one-rank NCCL group, ``get_monitored_dp_train_step`` /
+    ``get_monitored_tp_train_step`` at a pair cap (one CUDA graph, its
+    collectives included) against ``dp_train_step`` / ``tp_train_step``
+    eagerly with the monitor folded, from the same start over five steps:
+    metrics, monitors and every tensor of the state bit-identical, one
+    capture, the replays read no host memory."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch import parallel
+    from gsplat_tpu_torch.parallel.launch import free_port
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    st = dataclasses.replace(st, num_iters=7002)
+    eager_step = getattr(parallel, f"{kind}_train_step")
+    get = getattr(parallel, f"get_monitored_{kind}_train_step")
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        runs, captures = [], t_step.graph_captures()
+        for graphed in (False, True):
+            state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+            monitor, step, out = t_step.fresh_monitor(dev), get(st), []
+            for it in range(5):
+                args = (state, *cam_t[it % 2], gt, 0.1 * it, it)
+                if not graphed:
+                    state, m = eager_step(*args, st)
+                    monitor = t_step.fold_monitor(monitor, m)
+                else:
+                    if it >= 2:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        state, m, monitor = step(*args, monitor)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                out.append(torch.cat([torch.stack([
+                    m.loss, m.psnr, m.num_visible.float(), m.num_pairs.float(),
+                    m.overflow.float(), m.row_overflow.float()]), monitor]))
+            torch.cuda.synchronize()
+            runs.append((torch.stack(out).cpu(), t_state.state_to_numpy(state)))
+            t_step.release_graphs()
+        assert t_step.graph_captures() == captures + 1
+    finally:
+        t_step.release_graphs()
+        dist.destroy_process_group()
+    (m_e, s_e), (m_g, s_g) = runs
+    assert torch.equal(m_e.view(torch.int32), m_g.view(torch.int32))
+    for group in ("params", "adam_m", "adam_v"):
+        for name in s_e[group]:
+            np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
+    for name in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(s_g[name], s_e[name])

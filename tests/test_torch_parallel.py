@@ -288,7 +288,7 @@ def _rank_dp_identical(rank, params, alive, gt):
     _, m1 = t_step.train_step(single, cm.view, cm.proj, cm.campos, gt, BG, 3, st)
     _, m2 = dp_train_step(dp, cm.view, cm.proj, cm.campos, gt, BG, 3, st)
     return (t_state.state_to_numpy(single), t_state.state_to_numpy(dp),
-            (float(m1.loss), float(m2.loss)), (m1.num_pairs, m2.num_pairs))
+            (float(m1.loss), float(m2.loss)), (m1.num_pairs, int(m2.num_pairs)))
 
 
 def test_dp_identical_cameras_bit_equal_to_single_step():
@@ -447,7 +447,7 @@ def _rank_tp(rank, params, alive, gt, height):
         _, m2 = tp_train_step(tp, cm.view, cm.proj, cm.campos, gt, BG, 0, st)
     return dict(single=t_state.state_to_numpy(single), tp=t_state.state_to_numpy(tp),
                 loss=(float(m1.loss), float(m2.loss), float(r.loss)),
-                pairs=(m1.num_pairs, m2.num_pairs), g_uv=(g_uv.numpy(), r.g_uv.numpy()),
+                pairs=(m1.num_pairs, int(m2.num_pairs)), g_uv=(g_uv.numpy(), r.g_uv.numpy()),
                 image=float((r.image - image).abs().max()))
 
 
