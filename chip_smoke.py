@@ -24,8 +24,7 @@ words), and its exact f32 mode where named
 3. compares each kernel with its plain PyTorch version on the card, at the
    shapes of one view of the bench scene at 100K Gaussians (segment expand
    at both binning levels, each level's records, slots, time and bound
-   printed; radix sort and the inverse permutation that makes binning's
-   ``pair_slot`` bit-equal; the forward rasterizer in exact and in packed
+   printed; the radix sort bit-equal; the forward rasterizer in exact and in packed
    mode, image PSNR >= 60 dB, n_splats equal on >= 99.9 % of pixels, a
    rerun bit-identical);
 4. checks a small scene rendered on the card against the port's CPU path
@@ -43,9 +42,12 @@ words), and its exact f32 mode where named
    bit-equal to ``packing.pack_grad_rows`` of its own float32 rows on the
    same inputs, bit-identical on a rerun, and unpacked within that bound
    plus one rounding step of the word format of the plain version's words;
-   segment sum of the rows or the words at rtol 1e-5 and bit-identical on
-   a rerun; whether it is bit-equal to the plain version on the CPU is
-   printed);
+   rows and words stored at binning's ``pair_cand``; segment sum of the
+   rows or the words, as stored, at rtol 1e-5 and bit-identical on a
+   rerun, whether it is bit-equal to the plain version on the CPU printed;
+   and the segment sum bit-equal to its plain version on adversarial runs,
+   ``segsum_edge_runs``: Gaussians without pairs, one run longer than a
+   block's share of rows, a capped tail of NaN rows past ``pair_start[N]``);
 8. runs one ``train_step`` of a small scene (20K Gaussians, 320x200) on the
    card and on the port's CPU path, in each mode: loss, gradients, moments
    and accumulators must agree;
@@ -258,11 +260,10 @@ words), and its exact f32 mode where named
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
-``repeat_interleave``, ``torch.sort(stable=True)``, ``argsort``,
-``index_add_``; none for the rasterizers and the packed segment sum; the
-segment sum also with the
-``pair_slot`` scatter that feeds it; the radix sort at both call sites,
-the tile sort and the density step's Morton re-sort), and the least time an H100 could take
+``repeat_interleave``, ``torch.sort(stable=True)``, ``index_add_``; none
+for the rasterizers and the packed segment sum; the radix sort at both
+call sites, the tile sort and the density step's Morton re-sort), and the
+least time an H100 could take
 for the work (``kernel_bound``; for the rasterizers from the pair-pixels
 these inputs need and those of them past the 1/255 cutoff,
 ``pair_pixel_counts``), then orders the kernels by launches per train step
@@ -329,12 +330,21 @@ checkout from before the packed mode times its one (exact) mode. Run in
 several processes of two checkouts taken in turns, it says whether a
 change moved the host's cost of a step.
 
-    python3 -P chip_smoke.py --exact-bits
+    python3 -P chip_smoke.py --scale-profile
 
-runs [1] and prints the sha256 of [9]'s first exact-mode gradient call
-(target, image, loss and gradients at 1M Gaussians), with the
+runs [1] and [15a]'s step at scale_mul 0.97 alone, without checks: the
+4.25M-Gaussian step through ``tools/bench_scale.run`` at the JAX script's
+caps, then a device profile of SCALE_AB_STEPS more steps in the default
+mode, with the ``gsplat_tpu_torch`` that the import path finds first, as
+above.
+
+    python3 -P chip_smoke.py --bits
+
+runs [1] and prints, in packed and in exact mode, the sha256 of one
+gradient call's segment-sum output and of its target, image, loss and
+gradients, at [9]'s 1M start and at [15a]'s 4.25M scene, with the
 ``gsplat_tpu_torch`` that the import path finds first, as above: equal
-digests of two checkouts show exact mode bit for bit unchanged.
+digests of two checkouts show a mode bit for bit unchanged.
 """
 
 from __future__ import annotations
@@ -361,9 +371,6 @@ REPLACES = {
     "rasterize_forward": "gsplat_tpu/kernels/rasterize.py:486",
     "rasterize_backward": "gsplat_tpu/kernels/rasterize.py:815",
     "segment_sum": "gsplat_tpu/kernels/segsum.py:139",
-    # The reference orders the pairs by Gaussian with its sample sort (the
-    # regroup call site); here the inverse of the tile sort's permutation.
-    "inverse_permutation": "gsplat_tpu/kernels/sort.py:514",
 }
 SOURCES = {
     "segment_expand": "gsplat_tpu_torch/csrc/expand.cu",
@@ -371,7 +378,6 @@ SOURCES = {
     "rasterize_forward": "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
     "rasterize_backward": "gsplat_tpu_torch/csrc/rasterize_bwd.cu",
     "segment_sum": "gsplat_tpu_torch/csrc/segsum.cu",
-    "inverse_permutation": "gsplat_tpu_torch/csrc/segsum.cu",
 }
 TRAIN_STEPS = 8
 TRAINER_VIEWS = 8  # [11]: cameras at distinct centres
@@ -433,10 +439,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     ``expand`` [(cols, records, total)] (segment_expand), ``keys``
     (radix_sort), ``gaussians``, ``pairs``, ``tiles``, ``pair_pixels``,
     ``passing``, ``reached`` (rasterizers; segment_sum takes gaussians and
-    pairs, inverse_permutation pairs). ``packed``: the packed mode's
-    rasterizers also round each pair up to every tile's deepest n_splats
-    (``reached``), K2 writes 16-byte word rows and packs those it reaches,
-    K4 reads and unpacks every row.
+    pairs). ``packed``: the packed mode's rasterizers also round each pair
+    up to every tile's deepest n_splats (``reached``), K2 writes 16-byte
+    word rows and packs those it reaches, K4 reads and unpacks every row.
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -445,8 +450,6 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
         ops = 0
     elif name == "radix_sort":  # keys in; sorted keys and permutation out
         nbytes, ops = 12 * work["keys"], 0
-    elif name == "inverse_permutation":  # permutation in, its inverse out
-        nbytes, ops = 8 * work["pairs"], 0
     elif name in ("rasterize_forward", "rasterize_backward"):
         g, p, t = work["gaussians"], work["pairs"], work["tiles"]
         # attribute rows, splat_gid, tile_start and tile_count; 5 output rows
@@ -456,17 +459,17 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
             ops += PACK_ATTR_OPS * work["reached"]
         if name == "rasterize_forward":
             ops += K1_PASS_OPS * work["passing"]
-        else:  # + the image cotangent in, one row (9 floats or 4 words) per pair out
-            nbytes += 4 * 3 * pix * t + (16 if packed else 36) * p
+        else:  # + the image cotangent and pair_cand in, one row (9 floats or
+            # 4 words) per pair out
+            nbytes += 4 * 3 * pix * t + 4 * p + (16 if packed else 36) * p
             ops += K2_PASS_OPS * work["passing"]
             if packed:
                 ops += PACK_GRAD_OPS * work["reached"]
-    elif name == "segment_sum":  # rows, pair_slot, pair_start in; sums out
+    elif name == "segment_sum":  # contiguous rows and pair_start in; sums out
         p, g = work["pairs"], work["gaussians"]
-        if packed:  # word rows 16 + pair_slot 4 a pair, pair_start, sums
-            nbytes, ops = 20 * p + 4 * (g + 1) + 36 * g, (9 + UNPACK_GRAD_OPS) * p
-        else:
-            nbytes, ops = 40 * p + 40 * g, 9 * p
+        row_bytes = 16 if packed else 36  # 4 words or 9 floats a pair
+        nbytes = row_bytes * p + 4 * (g + 1) + 36 * g
+        ops = ((9 + UNPACK_GRAD_OPS) if packed else 9) * p
     else:
         raise ValueError(f"no bound for {name}")
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -670,7 +673,7 @@ def path_inputs(params, cm, st):
         expand=[(rec1, off1, total_rows), (rec2, off2, total_pairs)],
         sort=(keys, binning.sort_key_bits(num_tiles, qd_bits)),
         raster=(attrs, tables.splat_gid, tables.tile_start, tables.tile_count),
-        runs=(tables.pair_slot, tables.pair_start),
+        pair_cand=tables.pair_cand, pair_start=tables.pair_start,
         num_pairs=total_pairs, num_rows=total_rows,
     )
 
@@ -717,7 +720,7 @@ def pair_pixel_counts(raster, out, num_tiles_x: int, packed: bool = False) -> di
 
 def compare_kernels(params, cm, st, timing_iters: int) -> dict:
     """Each kernel vs its plain version on the card; raises on disagreement."""
-    from gsplat_tpu_torch.kernels import expand, segsum, sort
+    from gsplat_tpu_torch.kernels import expand, sort
 
     inp = path_inputs(params, cm, st)
     res = {}
@@ -757,17 +760,6 @@ def compare_kernels(params, cm, st, timing_iters: int) -> dict:
         plain_ms=cuda_ms(lambda: sort.radix_sort_plain(keys, key_bits), timing_iters),
         library_ms=cuda_ms(lambda: torch.sort(keys, stable=True), timing_iters),
         **kernel_bound("radix_sort", keys=keys.shape[0]),
-    )
-    # The pair_slot scatter: bit-equal; argsort inverts a permutation too.
-    perm = ref[1]
-    if not torch.equal(segsum.inverse_permutation(perm), segsum.inverse_permutation_plain(perm)):
-        raise AssertionError("inverse_permutation differs from its plain version")
-    res["inverse_permutation"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters),
-        plain_ms=cuda_ms(lambda: segsum.inverse_permutation_plain(perm), timing_iters),
-        library_ms=cuda_ms(lambda: torch.argsort(perm), timing_iters),
-        **kernel_bound("inverse_permutation", pairs=perm.shape[0]),
     )
     # K1 in both modes: image PSNR >= 60 dB, n_splats equal on >= 99.9 % of
     # pixels, a rerun bit-identical.
@@ -893,24 +885,64 @@ def word_steps(words: torch.Tensor) -> torch.Tensor:
 
 def compare_backward(params, cm, st, timing_iters: int) -> dict:
     """The backward kernels vs their plain versions on the card, in both
-    modes; raises on disagreement."""
-    from gsplat_tpu_torch.kernels import segsum, sort
+    modes, and the segment sum on adversarial runs; raises on
+    disagreement."""
+    from gsplat_tpu_torch.kernels import sort
 
     inp = path_inputs(params, cm, st)
+    # pair_cand is the tile sort's permutation, each pair's candidate.
+    perm = sort.radix_sort_plain(*inp["sort"])[1]
+    if not torch.equal(perm, inp["pair_cand"]):
+        raise AssertionError("pair_cand is not the tile sort's permutation")
     res = {}
     for packed in (False, True):
         res.update(compare_backward_mode(inp, st, timing_iters, packed))
-    # Binning's scatter that makes pair_slot from the tile sort's permutation.
-    perm = sort.radix_sort_plain(*inp["sort"])[1]
-    if not torch.equal(segsum.inverse_permutation(perm), inp["runs"][0]):
-        raise AssertionError("pair_slot is not the inverse of the tile sort's permutation")
-    r = res["segment_sum"]
-    r["scatter_ms"] = cuda_ms(lambda: segsum.inverse_permutation(perm), timing_iters)
-    log(f"  pairs {perm.shape[0]}, Gaussians {inp['raster'][0].shape[0]}; segment_sum + "
-        f"pair_slot scatter {r['ms'] + r['scatter_ms']:.4f} ms ({r['ms']:.4f} + "
-        f"{r['scatter_ms']:.4f}) vs index_add_ {r['library_ms']:.4f} ms")
+    check_segsum_edge_runs(inp["pair_cand"].device)
+    log(f"  pairs {perm.shape[0]}, Gaussians {inp['raster'][0].shape[0]}")
     log_times(res)
     return res
+
+
+def segsum_edge_runs(n: int = 100_000, seed: int = 0) -> list:
+    """Adversarial per-Gaussian runs for the segment sum: (name, counts,
+    tail) with ``tail`` the rows past ``pair_start[n]`` (a capped table's,
+    which no kernel may read). Gaussians without pairs (most of them, and
+    the first and last 1,000); one run longer than a block's share of rows
+    (a Gaussian of 100,000 pairs amid runs of 0-8); a capped tail."""
+    rng = np.random.default_rng(seed)
+    empty = rng.integers(0, 6, n) * (rng.random(n) < 0.3)
+    empty[:1000] = empty[-1000:] = 0
+    long_run = rng.integers(0, 9, n)
+    long_run[n // 2 + 3] = 100_000
+    capped = rng.integers(0, 9, n)
+    return [("empty Gaussians", empty, 0), ("one long run", long_run, 0),
+            ("capped tail", capped, 4096)]
+
+
+def check_segsum_edge_runs(dev) -> None:
+    """[10] The segment sum bit-equal to its plain version on
+    ``segsum_edge_runs``, f32 rows and packed words, the tail's rows NaN;
+    raises on a difference."""
+    from gsplat_tpu_torch.kernels import packing, segsum
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, counts, tail in segsum_edge_runs():
+        n = counts.shape[0]
+        pair_start = torch.from_numpy(
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
+        p = int(counts.sum())
+        rows = torch.randn((p + tail, 9), generator=gen, device=dev)
+        words = packing.pack_grad_rows(rows)
+        rows[p:] = float("nan")
+        words[p:] = -1  # an all-ones word unpacks to NaNs and huge codes
+        for label, r in (("f32 rows", rows), ("packed words", words)):
+            got = segsum.segment_sum(r, pair_start, n)
+            ref = segsum.segment_sum_plain(r.cpu(), pair_start.cpu(), n)
+            same = torch.equal(got.cpu(), ref)
+            log(f"  segment_sum on {name} ({label}): {n} Gaussians, {p} rows + {tail} tail, "
+                f"longest run {int(counts.max())}; bit-equal to the plain version {same}")
+            if not (same and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"segment_sum ({label}) on {name} differs")
 
 
 def compare_backward_mode(inp: dict, st, timing_iters: int, packed: bool) -> dict:
@@ -921,7 +953,8 @@ def compare_backward_mode(inp: dict, st, timing_iters: int, packed: bool) -> dic
     from gsplat_tpu_torch.kernels import packing, rasterize, segsum
 
     args, n = backward_inputs(inp, st, packed=packed)
-    kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, packed=packed)
+    kw = dict(num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, packed=packed,
+              pair_cand=inp["pair_cand"])
     sfx, label = ("/packed", " (packed)") if packed else ("", "")
     res = {}
     # K2. The 256-pixel sums run in another order (registers and warp
@@ -975,16 +1008,15 @@ def compare_backward_mode(inp: dict, st, timing_iters: int, packed: bool) -> dic
         **kernel_bound("rasterize_backward", packed=packed, gaussians=n, pairs=gid.shape[0],
                        tiles=start.shape[0], **work),
     )
-    # K4 over binning's runs at rtol 1e-5; index_add_ on the card adds with
-    # atomics, in another order, so cancelling sums also get 1e-5 of the
-    # column's largest |value|. On the CPU index_add_ adds in index order,
-    # the kernel's order.
-    runs = inp["runs"]
-    pair_start = runs[1]
-    sums = segsum.segment_sum(out_rows, *runs, n)
-    again = segsum.segment_sum(out_rows, *runs, n)
-    ref = segsum.segment_sum_plain(out_rows, *runs, n)
-    on_cpu = segsum.segment_sum_plain(out_rows.cpu(), *(t.cpu() for t in runs), n)
+    # K4 over the rows as K2 stored them, one contiguous run a Gaussian, at
+    # rtol 1e-5; index_add_ on the card adds with atomics, in another
+    # order, so cancelling sums also get 1e-5 of the column's largest
+    # |value|. On the CPU index_add_ adds in index order, the kernel's order.
+    pair_start = inp["pair_start"]
+    sums = segsum.segment_sum(out_rows, pair_start, n)
+    again = segsum.segment_sum(out_rows, pair_start, n)
+    ref = segsum.segment_sum_plain(out_rows, pair_start, n)
+    on_cpu = segsum.segment_sum_plain(out_rows.cpu(), pair_start.cpu(), n)
     err = (sums - ref).abs()
     longest = int((pair_start[1:] - pair_start[:-1]).max())
     log(f"  segment_sum{label}: max |err| {err.max().item():.3g}, rerun bit-identical "
@@ -993,15 +1025,17 @@ def compare_backward_mode(inp: dict, st, timing_iters: int, packed: bool) -> dic
     if not (bool((err <= 1e-5 * ref.abs() + 1e-5 * ref.abs().amax(dim=0)).all())
             and torch.equal(sums, again)):
         raise AssertionError(f"segment_sum{label} disagrees with its plain version")
-    gid64 = gid.long()
+    # Each row's Gaussian, in the rows' (candidate) order.
+    cand_gid = gid.long()[torch.argsort(inp["pair_cand"].long())]
     # One PyTorch call computes the float32 rows' sums; none unpacks words.
     library = None if packed else cuda_ms(
-        lambda: torch.zeros((n, 9), device=rows.device).index_add_(0, gid64, rows),
+        lambda: torch.zeros((n, 9), device=rows.device).index_add_(0, cand_gid, rows),
         timing_iters)
     res["segment_sum" + sfx] = dict(
         max_abs_err=err.max().item(), longest_run=longest,
-        ms=cuda_ms(lambda: segsum.segment_sum(out_rows, *runs, n), timing_iters),
-        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(out_rows, *runs, n), timing_iters),
+        ms=cuda_ms(lambda: segsum.segment_sum(out_rows, pair_start, n), timing_iters),
+        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(out_rows, pair_start, n),
+                         timing_iters),
         library_ms=library,
         **kernel_bound("segment_sum", packed=packed, gaussians=n, pairs=gid.shape[0]),
     )
@@ -2197,10 +2231,12 @@ def train_profile(dev) -> None:
         if state is None:
             state = init_state(scene_params(1_000_000, seed=0, device=dev, perturb_seed=1))
         with mode_context(mode):
-            state, _, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS), quiet=True)
+            state, losses, times = run_steps(state, cams, gts, st, range(TRAIN_STEPS),
+                                             quiet=True)
         median = statistics.median(times[1:])
         log(f"[9] train_step, 1M Gaussians, {mode} mode: median {median:.3f} ms/step over "
-            f"steps 1-{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)})")
+            f"steps 1-{TRAIN_STEPS - 1} ({', '.join(f'{t:.2f}' for t in times)}); losses "
+            f"{[float(x) for x in losses]!r}")
         runs[mode], state = [state, TRAIN_STEPS, median], None
     device = profile_modes(runs, cams, gts, st)
     log("[9] device ms/step, the mean of each mode's windows: " + ", ".join(
@@ -2249,34 +2285,87 @@ def wall_steps(dev) -> None:
         state = None
 
 
-def exact_bits(dev, n: int = 1_000_000) -> None:
-    """``--exact-bits``: the sha256 of one exact-mode gradient call of [9]
-    (its start, view 0: the target, image, loss, uv gradient and every
-    gradient), with whatever ``gsplat_tpu_torch`` is imported, so that two
-    checkouts can be held bit-equal in exact mode (run as
-    ``--train-profile``). A checkout from before the packed mode has only
-    the exact mode."""
+def scale_profile(dev) -> None:
+    """``--scale-profile``: [15a]'s step at scale_mul 0.97 alone, without
+    its checks: ``tools/bench_scale.run`` at the JAX script's caps of that
+    point (one step, then 6 timed, through the CUDA graph), then a device
+    profile of SCALE_AB_STEPS more steps at those caps in the default
+    (packed) mode, with whatever ``gsplat_tpu_torch`` is imported (see the
+    module docstring), so that two checkouts compare at the 4.25M point in
+    one call."""
+    from gsplat_tpu_torch.kernels import _build
+    from gsplat_tpu_torch.tools import bench_scale
+
+    _build.build()
+    ref = recorded_geometry("SCALE_r04.json")
+    res = bench_scale.run(SCALE_N, 0.97, steps=6, reps=1, device=dev, pair_cap=ref["pair_cap"],
+                          row_cap=ref["row_cap"], log=lambda m: log("  " + m))
+    median = statistics.median(res.step_ms)
+    _, device = profile_steps(res.state, [res.camera], [res.target], res.statics, 7, median,
+                              steps=SCALE_AB_STEPS, label=", scale_mul 0.97", bg=0.0)
+    log(f"[15a] scale_mul 0.97, pairs {res.pairs}: device {device:.3f} ms/step over "
+        f"{SCALE_AB_STEPS} steps; the graph {median:.3f} ms a step (CUDA events)")
+
+
+def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
+    """``--bits``: sha256 digests of one gradient call, in packed and in
+    exact mode, at [9]'s 1M start (view 0) and at [15a]'s 4.25M scene
+    (scale_mul 0.97, binning sized exactly; ``n`` and ``scale_n``
+    Gaussians): of the segment sum's output
+    (the per-Gaussian sums, caught where ``ops.render`` calls it) and of
+    the target, image, loss and every gradient, with whatever
+    ``gsplat_tpu_torch`` is imported (run as ``--train-profile``): equal
+    digests of two checkouts show a mode bit for bit unchanged."""
     import hashlib
-    import inspect
 
-    from gsplat_tpu_torch.ops.binning import build_tile_tables
+    from gsplat_tpu_torch.ops import render
+    from gsplat_tpu_torch.tools import bench_scale
     from gsplat_tpu_torch.train import step
+    from gsplat_tpu_torch.train.state import round_capacity, state_from_gaussians
 
-    cm = views()[0]
-    st = statics(cm)
-    two = "bf16_colors" in inspect.signature(build_tile_tables).parameters
-    with mode_context("exact" if two else "its only"):
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def scenes():
+        cm = views()[0]
+        st = statics(cm)
         truth = scene_params(n, seed=0, device=dev)
         gt, _ = step.render_image(truth, cm.view, cm.proj, cm.campos, BG, st)
         del truth
-        params = scene_params(n, seed=0, device=dev, perturb_seed=1)
-        loss, image, _, tables, grads, g_uv = step.compute_loss_and_grads(
-            params, cm.view, cm.proj, cm.campos, gt, BG, st)
-    digest = hashlib.sha256()
-    for t in [gt, image, loss.reshape(1), g_uv] + [grads[k] for k in sorted(grads)]:
-        digest.update(t.detach().contiguous().cpu().numpy().tobytes())
-    log(f"[exact bits] {step.__file__}: loss {float(loss)!r}, pairs {tables.num_pairs}, "
-        f"sha256 {digest.hexdigest()}")
+        yield f"{n} (1M view)", scene_params(n, seed=0, device=dev, perturb_seed=1), cm, st, gt, BG
+        rng = np.random.default_rng(0)
+        g = bench_scale.scale_gaussians(scale_n, 0.97, rng=rng)
+        params = state_from_gaussians(g, dev, n_cap=round_capacity(scale_n)).params
+        gt = torch.from_numpy(rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
+        yield (f"{scale_n} (scale point)", params, bench_scale.scale_camera(),
+               bench_scale.scale_statics(pair_cap=0), gt, 0.0)
+
+    sums, real = [], render.segment_sum
+
+    def caught(*args):
+        sums.append(real(*args))
+        return sums[-1]
+
+    render.segment_sum = caught
+    try:
+        for label, params, cm, st, gt, bg in scenes():
+            for mode in ("packed", "exact"):
+                sums.clear()
+                with mode_context(mode):
+                    loss, image, _, tables, grads, g_uv = step.compute_loss_and_grads(
+                        params, cm.view, cm.proj, cm.campos, gt, bg, st)
+                all_grads = [gt, image, loss.reshape(1), g_uv] + [grads[k] for k in sorted(grads)]
+                log(f"[bits] {label}, {mode} mode: loss {float(loss)!r}, pairs "
+                    f"{int(tables.num_pairs)}; segment sum sha256 {digest(sums)}, gradients "
+                    f"sha256 {digest(all_grads)}")
+                del loss, image, tables, grads, g_uv, all_grads
+            del params, gt
+            torch.cuda.empty_cache()
+    finally:
+        render.segment_sum = real
 
 
 def sfm_cloud(arrays: dict, n: int, seed: int):
@@ -2437,8 +2526,7 @@ def depth_rank_slice(dev, n: int = 100_000) -> tuple:
         f"bits): {key_bits}-bit keys, {len(sort.sort_plan(1, key_bits).bits)} passes; "
         f"pairs {tables.num_pairs} (default mode {dflt.num_pairs}); launches {launches}")
     failed = []
-    if not (launches["radix_sort/tile"] == 1 and launches["segment_expand"] == 2
-            and launches["inverse_permutation"] == 1):
+    if not (launches["radix_sort/tile"] == 1 and launches["segment_expand"] == 2):
         failed.append("launches")
     same_sets = (torch.equal(tables.tile_start, dflt.tile_start)
                  and torch.equal(tables.tile_count, dflt.tile_count)
@@ -2455,7 +2543,7 @@ def depth_rank_slice(dev, n: int = 100_000) -> tuple:
     # The CPU path on the same inputs.
     cpu = binning.build_tile_tables(uv.cpu(), z.cpu(), radius.cpu(), mask.cpu(),
                                     depth_rank=rank.cpu(), **kw)
-    fields = ("splat_gid", "tile_start", "tile_count", "pair_slot", "pair_start")
+    fields = ("splat_gid", "tile_start", "tile_count", "pair_cand", "pair_start")
     differ = [f for f in fields if not torch.equal(getattr(tables, f).cpu(), getattr(cpu, f))]
     log(f"  card vs CPU path: {'equal' if not differ else 'differ in ' + ', '.join(differ)} "
         f"({', '.join(fields)}; pairs {tables.num_pairs} vs {cpu.num_pairs})")
@@ -2511,8 +2599,8 @@ def depth_rank_slice(dev, n: int = 100_000) -> tuple:
 # Kernels the e2e recipe must launch (packed, the default mode): binning's,
 # the density steps' Morton re-sort, the packed rasterizers and segment sum.
 E2E_KERNELS = ("segment_expand", "radix_sort/tile", "radix_sort/morton",
-               "inverse_permutation", "rasterize_forward/packed",
-               "rasterize_backward/packed", "segment_sum/packed")
+               "rasterize_forward/packed", "rasterize_backward/packed",
+               "segment_sum/packed")
 
 
 def e2e_slice(dev, iters: int = E2E_ITERS) -> tuple:
@@ -2598,6 +2686,7 @@ def remaining_slice(dev) -> dict:
 SCALE_N = 4_250_000
 SCALE_POINTS = ((0.97, "SCALE_r04.json"), (1.52, "SCALE_WIDE_r04.json"))
 SCALE_PROFILE_STEPS = 4  # [15a]: profiled train steps a point
+SCALE_AB_STEPS = 8  # --scale-profile: profiled train steps at scale_mul 0.97
 SCALE_TIMING_ITERS = 5  # [15a]: kernel timings at the scale point
 # [15b], [15c]: tools/train_at_scale.py at half its default length of 2,000
 # iterations, each event of its schedule at half its iteration (13 density
@@ -2617,10 +2706,9 @@ SCALE_TITLE = ("[15] the configuration's ceiling: the 4.25M-Gaussian train step 
 # The kernels of the packed path, a step of the scale point: key -> launches
 # a step (K5 at both binning levels, the tile sort once).
 SCALE_STEP_LAUNCHES = {"segment_expand": 2, "radix_sort": 1, "radix_sort/tile": 1,
-                       "inverse_permutation": 1, "rasterize_forward": 1,
-                       "rasterize_forward/packed": 1, "rasterize_backward": 1,
-                       "rasterize_backward/packed": 1, "segment_sum": 1,
-                       "segment_sum/packed": 1}
+                       "rasterize_forward": 1, "rasterize_forward/packed": 1,
+                       "rasterize_backward": 1, "rasterize_backward/packed": 1,
+                       "segment_sum": 1, "segment_sum/packed": 1}
 
 
 def add_launches(total: dict, launches: dict) -> None:
@@ -3234,7 +3322,7 @@ def live_part_equal(capped, exact) -> list:
     p = exact.num_pairs
     bad = [name for name, a, b in (
         ("splat_gid", capped.splat_gid[:p], exact.splat_gid),
-        ("pair_slot", capped.pair_slot[:p], exact.pair_slot),
+        ("pair_cand", capped.pair_cand[:p], exact.pair_cand),
         ("tile_start", capped.tile_start, exact.tile_start),
         ("tile_count", capped.tile_count, exact.tile_count),
         ("pair_start", capped.pair_start, exact.pair_start)) if not torch.equal(a, b)]
@@ -3894,8 +3982,11 @@ def main() -> int:
     if sys.argv[1:] == ["--wall"]:
         wall_steps(dev)
         return 0
-    if sys.argv[1:] == ["--exact-bits"]:
-        exact_bits(dev)
+    if sys.argv[1:] == ["--bits"]:
+        bits(dev)
+        return 0
+    if sys.argv[1:] == ["--scale-profile"]:
+        scale_profile(dev)
         return 0
     if sys.argv[1:] == ["--trainer"]:
         log(f"[11] Trainer.train, 1M points, {TRAINER_VIEWS} views, {TRAINER_ITERS} iterations")
@@ -3989,8 +4080,8 @@ def main() -> int:
     if not torch.equal(again, images[0]):
         raise AssertionError("re-render of view 0 is not bit-identical")
     log(f"  re-render bit-identical; launches {fwd_launches}")
-    for name in ("segment_expand", "radix_sort", "inverse_permutation",
-                 "rasterize_forward", "rasterize_forward/packed"):
+    for name in ("segment_expand", "radix_sort", "rasterize_forward",
+                 "rasterize_forward/packed"):
         if fwd_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the forward path")
 
@@ -4067,8 +4158,7 @@ def main() -> int:
     both = {**res, **bwd}
     pk, ex = modes["packed"]["launches"], modes["exact"]["launches"]
     table = [("segment_expand", "", None, pk["segment_expand"]),
-             ("radix_sort", "", "tile", pk["radix_sort/tile"]),
-             ("inverse_permutation", "", None, pk["inverse_permutation"])]
+             ("radix_sort", "", "tile", pk["radix_sort/tile"])]
     for name in ("rasterize_forward", "rasterize_backward", "segment_sum"):
         table += [(name, "/packed", None, pk[f"{name}/packed"]),
                   (name, "", None, ex[name] - ex[f"{name}/packed"])]

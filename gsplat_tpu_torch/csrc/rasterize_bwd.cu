@@ -32,6 +32,21 @@
 // products on its MXU; here they are the f32 sums of the exact mode, then
 // packed.
 //
+// Where the rows go: pair j of the sorted pair list stores its row at
+// pair_cand[j], its candidate index (binning's pair_cand: the tile sort's
+// permutation). Candidates are Gaussian-major, so the rows come out as one
+// contiguous run a Gaussian, which the segment sum (segsum.cu) streams with
+// no gather and no inverse permutation. A batch's candidate indices are
+// read coalesced into shared memory when the batch is staged (4 bytes a
+// pair); a packed row is still one 16-byte store, an f32 row nine 4-byte
+// stores to 36 contiguous bytes, but the rows of a tile land scattered.
+// That costs this kernel time and saves more after it. Measured on an
+// NVIDIA H100 80GB HBM3 at 700.00 W, device time a train step in
+// chip_smoke.py's profiles (PERF.md): packed 0.760 ms at the 1M view
+// (rows in tile order: 0.702), exact 0.823 (0.709), packed 1.24 ms at
+// 4.25M Gaussians (0.86), where the segment sum and the inverse
+// permutation it no longer needs saved 0.230 / 0.253 / 0.84 ms.
+//
 // What bounds it on an H100: instruction issue. Each replayed pair-pixel
 // is 26 FP32 operations up to the 1/255 cutoff (expf is 10 of them) and 44
 // more past it (chip_smoke.py counts both), and every pair's nine values
@@ -109,6 +124,7 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
                           const int32_t* __restrict__ splat_gid,
                           const int32_t* __restrict__ tile_start,
                           const int32_t* __restrict__ tile_count,
+                          const int32_t* __restrict__ pair_cand,
                           const float* __restrict__ out,
                           const float* __restrict__ d_tiles,
                           int num_tiles_x, const float* __restrict__ bg_ptr,
@@ -117,6 +133,7 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
   // three broadcast loads a pair.
   __shared__ float4 s_attr[3][kBatch];
   __shared__ float s_part[kWarps][kBatch * kGrads];  // [warp][pair * 9 + value]
+  __shared__ int32_t s_cand[kBatch];  // the batch's rows: their candidate indices
   __shared__ int s_maxn[kWarps];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -165,15 +182,18 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
   for (int w = 0; w < kWarps; ++w) maxn = max(maxn, s_maxn[w]);
   maxn = min(maxn, count);
 
-  float* g_tile = static_cast<float*>(grads_out) + (int64_t)start * kGrads;
-  uint4* w_tile = static_cast<uint4*>(grads_out) + start;
+  // Pair j of the tile's range is row pair_cand[start + j] of the output.
+  float* g_rows = static_cast<float*>(grads_out);
+  uint4* w_rows = static_cast<uint4*>(grads_out);
+  const int32_t* cand = pair_cand + start;
   if (kPackOut) {
     const float zeros[kGrads] = {};
     const uint4 zero_row = gs::pack_grad_row(zeros);
-    for (int j = maxn + tid; j < count; j += kThreads) w_tile[j] = zero_row;
+    for (int j = maxn + tid; j < count; j += kThreads) w_rows[cand[j]] = zero_row;
   } else {
     for (int i = maxn * kGrads + tid; i < count * kGrads; i += kThreads) {
-      g_tile[i] = 0.0f;
+      const int j = i / kGrads;
+      g_rows[(int64_t)cand[j] * kGrads + (i - j * kGrads)] = 0.0f;
     }
   }
 
@@ -197,6 +217,7 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
       s_attr[0][j] = make_float4(a[0], a[1], a[2], a[3]);
       s_attr[1][j] = make_float4(a[4], a[5], a[6], a[7]);
       s_attr[2][j] = make_float4(a[8], 0.0f, 0.0f, 0.0f);
+      s_cand[j] = cand[b0 + j];
     }
     __syncthreads();
     for (int jt = nb - 1; jt >= 0; jt -= kGroup) {
@@ -282,11 +303,13 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
       for (int i = tid; i < nb * kGrads; i += kThreads) s_part[0][i] = value(i);
       __syncthreads();
       for (int j = tid; j < nb; j += kThreads) {
-        w_tile[b0 + j] = gs::pack_grad_row(&s_part[0][j * kGrads]);
+        w_rows[s_cand[j]] = gs::pack_grad_row(&s_part[0][j * kGrads]);
       }
     } else {
-      float* g_batch = g_tile + (int64_t)b0 * kGrads;
-      for (int i = tid; i < nb * kGrads; i += kThreads) g_batch[i] = value(i);
+      for (int i = tid; i < nb * kGrads; i += kThreads) {
+        const int j = i / kGrads;
+        g_rows[(int64_t)s_cand[j] * kGrads + (i - j * kGrads)] = value(i);
+      }
     }
   }
 }
@@ -298,7 +321,8 @@ rasterize_backward_kernel(void* __restrict__ grads_out,
 extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
                                      const void* splat_gid,
                                      const void* tile_start,
-                                     const void* tile_count, const void* out,
+                                     const void* tile_count, const void* pair_cand,
+                                     const void* out,
                                      const void* d_tiles, int num_tiles,
                                      int num_tiles_x, const void* bg, float scale_u,
                                      float scale_v, int packed, int pack_grads,
@@ -311,8 +335,8 @@ extern "C" int gs_rasterize_backward(void* grads, const void* attrs,
     kernel<<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
         grads, (const float*)attrs, (const int32_t*)splat_gid,
         (const int32_t*)tile_start, (const int32_t*)tile_count,
-        (const float*)out, (const float*)d_tiles, num_tiles_x, (const float*)bg, scale_u,
-        scale_v);
+        (const int32_t*)pair_cand, (const float*)out, (const float*)d_tiles, num_tiles_x,
+        (const float*)bg, scale_u, scale_v);
   }
   return (int)cudaGetLastError();
 }

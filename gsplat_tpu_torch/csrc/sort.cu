@@ -49,11 +49,9 @@
 // stores) with three resident blocks per SM and runs of ~16 keys a digit
 // per tile at the scatter.
 //
-// The inverse of the permutation, which binning keeps as pair_slot, comes
-// from segsum.cu's kernel of its own. The last pass knows both halves of
-// each of its writes, so it was stored there too: its 5.4M random 4-byte
-// stores cost the pass as much as they cost a kernel of their own, and the
-// train step 0.017 ms of device time more in all (PERF.md).
+// Binning keeps the tile sort's permutation as pair_cand, and the backward
+// rasterizer stores each pair's gradient row at it, so no inverse of the
+// permutation is made.
 //
 // Launches: 1 histogram + 1 per pass, after one cudaMemsetAsync that zeroes
 // the counts, the tile counters and every pass's status words.

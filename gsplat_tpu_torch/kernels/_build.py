@@ -53,24 +53,21 @@ SIGNATURES = {
     # out, attrs, splat_gid, tile_start, tile_count, num_tiles,
     # num_tiles_x, bg (a device float), packed, stream
     "gs_rasterize_forward": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-    # grads, attrs, splat_gid, tile_start, tile_count, out, d_tiles,
-    # num_tiles, num_tiles_x, bg (a device float), scale_u, scale_v, packed,
-    # pack_grads, stream
-    "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+    # grads, attrs, splat_gid, tile_start, tile_count, pair_cand, out,
+    # d_tiles, num_tiles, num_tiles_x, bg (a device float), scale_u, scale_v,
+    # packed, pack_grads, stream
+    "gs_rasterize_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                               ctypes.c_float, ctypes.c_float, _I, _I, _P],
-    # out, rows, pair_slot, pair_start, n, stream
-    "gs_segment_sum": [_P, _P, _P, _P, _I, _P],
-    # out, words, pair_slot, pair_start, n, stream
-    "gs_segment_sum_packed": [_P, _P, _P, _P, _I, _P],
-    # out, perm, p, stream
-    "gs_inverse_permutation": [_P, _P, _I, _P],
+    # out, rows, pair_start, n, stream
+    "gs_segment_sum": [_P, _P, _P, _I, _P],
+    # out, words, pair_start, n, stream
+    "gs_segment_sum_packed": [_P, _P, _P, _I, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
     "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
     "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
-    "inverse_permutation": 0,
 }
 
 _lock = threading.Lock()

@@ -12,8 +12,10 @@ Output (T, 5, PIX) f32 rows ``[r g b T_final n_splats]``: the reference's
 
 Backward, per tile: back-to-front replay from each pixel's T_final and
 n_splats, one (9,) gradient row per pair ``[du dv dc00 dc01 dc11 dopa dr dg
-db]`` in sorted-pair order. CUDA kernel: ``csrc/rasterize_bwd.cu``. Both
-kernels take 16x16 tiles only.
+db]``, sorted pair j's row stored at ``pair_cand[j]`` (binning's candidate
+order: each Gaussian's rows one contiguous run, as the segment sum reads
+them). CUDA kernel: ``csrc/rasterize_bwd.cu``. Both kernels take 16x16
+tiles only.
 
 ``packed`` is the reference's default mode (its packed pair stream): each
 pair's attributes are rounded as that stream carries them
@@ -244,6 +246,7 @@ def rasterize_backward_plain(
     d_tiles: torch.Tensor,
     bg,
     *,
+    pair_cand: torch.Tensor,
     num_tiles_x: int,
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
@@ -258,19 +261,21 @@ def rasterize_backward_plain(
     product of its (1 - alpha), takes per-splat entry transmittances as
     exclusive cumulative products, and the suffix sum of w (c . dI) as a
     reversed cumulative sum carried across chunks. Chunks past every
-    pixel's n_splats are not visited; their rows stay zero. With
-    ``pack_grads`` the float32 rows are then packed.
+    pixel's n_splats are not visited; their rows stay zero. Pair j's row
+    lands at ``pair_cand[j]``. With ``pack_grads`` the float32 rows are then
+    packed.
     """
     rows = _backward_rows_plain(
-        attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
+        attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg, pair_cand,
         num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
         grad_scale=grad_scale, packed=packed,
     )
     return packing.pack_grad_rows(rows) if pack_grads else rows
 
 
-def _backward_rows_plain(attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg, *,
-                         num_tiles_x, num_tiles_y, tile, grad_scale, packed):
+def _backward_rows_plain(attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
+                         pair_cand, *, num_tiles_x, num_tiles_y, tile, grad_scale,
+                         packed):
     num_tiles = tile_start.shape[0]
     dev = attrs.device
     bg = background(bg, dev)
@@ -329,7 +334,7 @@ def _backward_rows_plain(attrs, splat_gid, tile_start, tile_count, out, d_tiles,
         )  # (T, K, 6)
         vals = torch.cat([vals, torch.einsum("tpk,tpc->tkc", w, di)], dim=-1)
         slot = tile_start.to(torch.int64)[:, None] + c0 + torch.arange(kk, device=dev)
-        rows[slot[sel]] = vals[sel]
+        rows[pair_cand[slot[sel]].long()] = vals[sel]
         tcar = t_in
         pq = pk[..., :1]
     return rows
@@ -344,6 +349,7 @@ def rasterize_backward(
     d_tiles: torch.Tensor,
     bg,
     *,
+    pair_cand: torch.Tensor,
     num_tiles_x: int,
     num_tiles_y: int,
     tile: int = KERNEL_TILE,
@@ -351,23 +357,25 @@ def rasterize_backward(
     packed: bool = False,
     pack_grads: bool = False,
 ) -> torch.Tensor:
-    """Per-pair gradient rows (P, 9) f32, in sorted-pair order, or with
-    ``pack_grads`` their (P, 4) int32 words.
+    """Per-pair gradient rows (P, 9) f32, or with ``pack_grads`` their
+    (P, 4) int32 words: sorted pair j's row at ``pair_cand[j]``.
 
     ``attrs``, ``splat_gid``, ``tile_start``, ``tile_count`` and ``packed``
-    as for ``rasterize_forward``; ``out`` is its (T, 5, PIX) output and
+    as for ``rasterize_forward``; ``pair_cand`` (P,) int32 maps each sorted
+    pair to its row (binning's candidate index: a permutation of the live
+    pairs onto themselves); ``out`` is the forward's (T, 5, PIX) output and
     ``d_tiles`` the (T, 3, PIX) image cotangent in tile layout (zero on
     padded pixels). Rows are ``[du dv dc00 dc01 dc11 dopa dr dg db]``: du,
     dv scaled by ``grad_scale`` (default ``grad_scales``, the padded
-    grid's), dopa with respect to the sigmoid-ed opacity. Every row is
-    written, zeros for pairs no pixel reached. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel.
+    grid's), dopa with respect to the sigmoid-ed opacity. Every row of a
+    pair in a tile's range is written, zeros for pairs no pixel reached. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     if attrs.device.type == "cpu":
         return rasterize_backward_plain(
             attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg,
-            num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
-            grad_scale=grad_scale, packed=packed, pack_grads=pack_grads,
+            pair_cand=pair_cand, num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y,
+            tile=tile, grad_scale=grad_scale, packed=packed, pack_grads=pack_grads,
         )
     name = "rasterize_backward"
     _check_tables(name, attrs, splat_gid, tile_start, tile_count, tile)
@@ -378,8 +386,11 @@ def rasterize_backward(
     for t, rows_ in ((out, OUT_ROWS), (d_tiles, 3)):
         if t.dtype != torch.float32 or tuple(t.shape) != (num_tiles, rows_, pix):
             raise ValueError(f"{name}: expected ({num_tiles}, {rows_}, {pix}) float32")
+    if pair_cand.dtype != torch.int32 or pair_cand.shape != splat_gid.shape:
+        raise ValueError(f"{name}: pair_cand must be ({splat_gid.shape[0]},) int32")
     bg = background(bg, attrs.device)
-    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, out, d_tiles, bg)
+    _build.require_cuda(name, attrs, splat_gid, tile_start, tile_count, pair_cand, out,
+                        d_tiles, bg)
     lib = _build.build()
     grads = torch.empty(
         (splat_gid.shape[0], packing.GRAD_WORDS) if pack_grads
@@ -389,9 +400,9 @@ def rasterize_backward(
     scale_u, scale_v = grad_scale or grad_scales(num_tiles_x, num_tiles_y, tile)
     err = lib.gs_rasterize_backward(
         grads.data_ptr(), attrs.data_ptr(), splat_gid.data_ptr(),
-        tile_start.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
-        d_tiles.data_ptr(), num_tiles, num_tiles_x, bg.data_ptr(), scale_u, scale_v,
-        int(packed), int(pack_grads), _build.stream_ptr(attrs.device),
+        tile_start.data_ptr(), tile_count.data_ptr(), pair_cand.data_ptr(),
+        out.data_ptr(), d_tiles.data_ptr(), num_tiles, num_tiles_x, bg.data_ptr(), scale_u,
+        scale_v, int(packed), int(pack_grads), _build.stream_ptr(attrs.device),
     )
     _build.check(err, name)
     _build.launches[name] += 1

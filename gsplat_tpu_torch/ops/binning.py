@@ -20,9 +20,10 @@ The reference's ``build_tile_tables``, resized for a GPU:
 4. Tile ranges come from ``searchsorted`` at the qd-aligned boundaries.
 5. The same two facts give the backward its per-Gaussian runs without a
    second sort: Gaussian g's candidates are the run ``[pair_start[g],
-   pair_start[g+1])``, in ascending tile order, and ``pair_slot`` (the
-   inverse of the sort's permutation) gives each candidate's slot in the
-   sorted pair list, so ``pair_slot`` over a run ascends too.
+   pair_start[g+1])``, in ascending tile order, and ``pair_cand`` (the
+   sort's permutation itself) maps each sorted pair to its candidate. The
+   backward rasterizer stores pair j's gradient row at ``pair_cand[j]``, so
+   each Gaussian's rows are one contiguous run for the segment sum.
 
 By default sizing is exact per frame: one host sync of the row total
 after level 1 and one of the pair total after level 2, as the original
@@ -49,7 +50,6 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.expand import segment_expand
-from ..kernels.segsum import inverse_permutation
 from ..kernels.sort import radix_sort
 
 _QD_Z0 = 1e-4
@@ -66,14 +66,15 @@ class TileTables(NamedTuple):
     ``splat_gid[tile_start[t] : tile_start[t] + tile_count[t]]`` are tile
     t's Gaussian ids, depth-ascending. Exactly ``num_pairs`` long, or, at
     fixed capacities, ``pair_cap`` long with a -1 tail past the live
-    ``num_pairs``. ``pair_slot[pair_start[g] : pair_start[g + 1]]`` are
-    Gaussian g's slots in that list, ascending.
+    ``num_pairs``. ``pair_cand[j]`` is sorted pair j's candidate: Gaussian
+    g's candidates are ``[pair_start[g], pair_start[g + 1])``, and at fixed
+    capacities ``pair_cand[j] < num_pairs`` exactly for the live ``j``.
     """
 
     splat_gid: torch.Tensor  # (P,) int32
     tile_start: torch.Tensor  # (T,) int32
     tile_count: torch.Tensor  # (T,) int32
-    pair_slot: torch.Tensor  # (P,) int32, candidate -> sorted slot
+    pair_cand: torch.Tensor  # (P,) int32, sorted pair -> candidate (the sort's permutation)
     pair_start: torch.Tensor  # (N+1,) int32, Gaussian -> first candidate; [N] = pairs
     num_pairs: int | torch.Tensor  # a host int, or a () int32 device count when capped
     bf16_colors: bool  # the rasterizers round pairs to the packed stream
@@ -427,7 +428,7 @@ def build_tile_tables(
         splat_gid=gid[perm.long()],
         tile_start=tile_start,
         tile_count=tile_count,
-        pair_slot=inverse_permutation(perm),
+        pair_cand=perm,
         pair_start=off2[off1.long()],
         num_pairs=total_pairs,
         bf16_colors=bool(bf16_colors),
@@ -501,7 +502,7 @@ def _capped(geom: Geometry, ty0, rc, pair_cap: int, row_cap: int | None, *, num_
         splat_gid=torch.where(live_p, gid[perm.long()], -1),
         tile_start=tile_start,
         tile_count=tile_count,
-        pair_slot=inverse_permutation(perm),
+        pair_cand=perm,
         pair_start=off2[off1.long()],
         num_pairs=num_pairs,
         bf16_colors=bool(bf16_colors),

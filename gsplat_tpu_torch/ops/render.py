@@ -5,9 +5,10 @@ rows ``attrs`` (N, 9) -> (T, 5, PIX) tile pixels. The forward is the
 forward rasterizer kernel, reading ``attrs`` through binning's
 ``splat_gid``. The backward is
 
-  backward rasterizer (one gradient row per pair, in tile order)
-  -> segment sum over binning's per-Gaussian runs (``pair_slot``,
-     ``pair_start``) -> ``d_attrs`` (N, 9).
+  backward rasterizer (one gradient row per pair, stored at the pair's
+     candidate index, binning's ``pair_cand``)
+  -> segment sum over the per-Gaussian runs of those rows (``pair_start``)
+  -> ``d_attrs`` (N, 9).
 
 The reference sorts the pairs by Gaussian id a second time (its regroup
 ``sample_sort`` call site) to feed its segment sum a gid-sorted stream.
@@ -55,13 +56,13 @@ class _Rasterize(torch.autograd.Function):
     """attrs (N, 9) -> (T, 5, PIX) tile pixels; differentiable in attrs."""
 
     @staticmethod
-    def forward(ctx, attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start,
+    def forward(ctx, attrs, splat_gid, tile_start, tile_count, pair_cand, pair_start,
                 bg, num_tiles_x, num_tiles_y, tile, grad_scale, packed, pack_grads):
         out = rasterize_forward(
             attrs, splat_gid, tile_start, tile_count, bg,
             num_tiles_x=num_tiles_x, tile=tile, packed=packed,
         )
-        ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, pair_slot,
+        ctx.save_for_backward(attrs, splat_gid, tile_start, tile_count, pair_cand,
                               pair_start, out)
         ctx.bg = bg
         ctx.grid = (num_tiles_x, num_tiles_y, tile)
@@ -71,17 +72,17 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
-        attrs, splat_gid, tile_start, tile_count, pair_slot, pair_start, out = (
+        attrs, splat_gid, tile_start, tile_count, pair_cand, pair_start, out = (
             ctx.saved_tensors)
         num_tiles_x, num_tiles_y, tile = ctx.grid
         packed, pack_grads = ctx.modes
         rows = rasterize_backward(
             attrs, splat_gid, tile_start, tile_count, out,
-            d_out[:, 0:3, :].contiguous(), ctx.bg,
+            d_out[:, 0:3, :].contiguous(), ctx.bg, pair_cand=pair_cand,
             num_tiles_x=num_tiles_x, num_tiles_y=num_tiles_y, tile=tile,
             grad_scale=ctx.grad_scale, packed=packed, pack_grads=pack_grads,
         )
-        d_attrs = segment_sum(rows, pair_slot, pair_start, attrs.shape[0])
+        d_attrs = segment_sum(rows, pair_start, attrs.shape[0])
         return d_attrs, *(None,) * 12
 
 
@@ -150,7 +151,7 @@ def rasterize(
         0.5 * grad_scale_wh[0], 0.5 * grad_scale_wh[1])
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
-        tables.pair_slot, tables.pair_start, background(bg, uv.device), num_tiles_x,
+        tables.pair_cand, tables.pair_start, background(bg, uv.device), num_tiles_x,
         num_tiles_y, tile, grad_scale, bool(tables.bf16_colors), bool(bf16_grads),
     )
     # Cropping outside the Function: autograd gives the padded pixels zero

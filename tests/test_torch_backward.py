@@ -6,11 +6,15 @@
   tests/test_render.py::test_backward_matches_oracle;
 - rows past every pixel's n_splats are written, as exact zeros (the
   saturated tile of tests/test_render.py's early-termination test);
+- ``rasterize_backward_plain``'s rows are the sorted-order rows (an
+  identity ``pair_cand``) stored at binning's ``pair_cand``, in both modes;
 - ``segment_sum_plain`` against the JAX ``segment_sum_by_gid`` (f32 rows,
   interpret mode) fed the same rows sorted by Gaussian id, on
-  Gaussian-major candidates in a stable tile order, and bit-equal to a
-  stable sort of ``splat_gid`` followed by ``index_add_`` (the regroup the
-  reference makes, which the port leaves out);
+  Gaussian-major candidates in a stable tile order; against a numpy oracle
+  of the gathered sum over contiguous runs (empty runs, a long run, packed
+  words); and, over rows the backward stores at ``pair_cand``, bit-equal
+  to a stable sort of ``splat_gid`` followed by ``index_add_`` (the
+  regroup the reference makes, which the port leaves out);
 - the port's differentiable ``rasterize(bf16_grads=False)`` on exact-mode
   tables against ``jax.vjp`` of the JAX ``rasterize(bf16_grads=False)`` on
   the same tile tables, at a height that is not a multiple of 16 (so the
@@ -32,7 +36,7 @@ from test_render import _make_scene, _tables  # noqa: E402
 from gsplat_tpu.kernels.segsum import segment_sum_by_gid  # noqa: E402
 from gsplat_tpu.ops import oracle  # noqa: E402
 from gsplat_tpu.ops.render import rasterize as j_rasterize  # noqa: E402
-from gsplat_tpu_torch.kernels import _build  # noqa: E402
+from gsplat_tpu_torch.kernels import _build, packing  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     grad_scales, rasterize_backward, rasterize_backward_plain, rasterize_forward,
 )
@@ -57,14 +61,16 @@ def _image_to_tiles(img, ntx, nty):
 
 
 def _port_backward(uv, conic, opa, rgb, tables, d_img, bg, ntx, nty):
-    """Per-Gaussian (N, 9) sums of the plain backward's pair rows."""
+    """Per-Gaussian (N, 9) sums of the plain backward's pair rows (the
+    rows in candidate order, as the backward stores them)."""
     attrs = pack_attrs(_t(uv), _t(conic), _t(rgb), _t(opa))
     args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
     out = rasterize_forward(*args, bg, num_tiles_x=ntx)
     rows = rasterize_backward_plain(*args, out, _image_to_tiles(d_img, ntx, nty), bg,
-                                    num_tiles_x=ntx, num_tiles_y=nty)
+                                    pair_cand=tables.pair_cand, num_tiles_x=ntx,
+                                    num_tiles_y=nty)
     n = uv.shape[0]
-    sums = segment_sum_plain(rows, tables.pair_slot, tables.pair_start, n)
+    sums = segment_sum_plain(rows, tables.pair_start, n)
     return rows, sums.numpy(), out
 
 
@@ -116,25 +122,58 @@ def test_backward_rows_past_every_pixel_are_zero(rng):
     maxn = int(out[:, 4].max())
     assert rows.shape == (tables.num_pairs, 9) == (n, 9)
     assert maxn < n  # the tile saturated before its last pair
+    rows = rows[tables.pair_cand.long()]  # sorted pair j's row
     assert (rows[:maxn].abs().sum(dim=1) > 0).any()
     assert torch.equal(rows[maxn:], torch.zeros_like(rows[maxn:]))
     np.testing.assert_array_equal(d_attrs[tables.splat_gid[maxn:].long()], 0.0)
 
 
+@pytest.mark.parametrize("scene", ["oracle", "wide"])
+def test_backward_plain_rows_land_at_pair_cand(rng, scene):
+    # The rows the backward stores at binning's pair_cand are its rows in
+    # sorted-pair order (an identity pair_cand), permuted: sorted pair j's
+    # row is row pair_cand[j], for every row of every tile.
+    width, height, n = (32, 16, 16) if scene == "oracle" else (96, 64, 180)
+    uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
+    ntx, nty = width // TILE, height // TILE
+    tables = build_tile_tables(_t(uv), _t(z), _t(radius), torch.ones(n, dtype=torch.bool),
+                               num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE)
+    attrs = pack_attrs(_t(uv), _t(conic), _t(rgb), _t(opa))
+    args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
+    out = rasterize_forward(*args, 0.4, num_tiles_x=ntx)
+    d_tiles = _image_to_tiles(rng.normal(size=(height, width, 3)).astype(np.float32), ntx, nty)
+    kw = dict(num_tiles_x=ntx, num_tiles_y=nty)
+    p = tables.num_pairs
+    ident = torch.arange(p, dtype=torch.int32)
+    assert not torch.equal(tables.pair_cand, ident)
+    rows = rasterize_backward_plain(*args, out, d_tiles, 0.4, pair_cand=tables.pair_cand, **kw)
+    in_order = rasterize_backward_plain(*args, out, d_tiles, 0.4, pair_cand=ident, **kw)
+    assert rows.shape == in_order.shape == (p, 9)
+    assert (in_order != 0).any(dim=1).sum() > p // 2  # most pairs reach a pixel
+    assert torch.equal(rows[tables.pair_cand.long()], in_order)
+    assert torch.equal(rows, _stored(in_order, tables.pair_cand))
+
+
 def _runs(counts, rng, num_tiles=64, qd_bits=4):
     """Gaussian-major candidates, each Gaussian's in ascending tile order
     (as binning emits them), put in a random stable (tile, depth) order:
-    (pair_slot, pair_start, splat_gid) as binning's tables hold them."""
+    (pair_cand, pair_start, splat_gid) as binning's tables hold them."""
     n = len(counts)
     tiles = [np.sort(rng.choice(num_tiles, c, replace=False)) for c in counts]
     qd = rng.integers(0, 1 << qd_bits, n)  # few depth buckets: many key ties
     keys = np.concatenate([(t << qd_bits) | qd[g] for g, t in enumerate(tiles)] + [[]])
     cand_gid = np.repeat(np.arange(n), counts).astype(np.int32)
-    perm = np.argsort(keys.astype(np.int64), kind="stable")
-    pair_slot = np.empty(len(perm), np.int32)
-    pair_slot[perm] = np.arange(len(perm))
+    perm = np.argsort(keys.astype(np.int64), kind="stable").astype(np.int32)
     pair_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return _t(pair_slot), _t(pair_start), _t(cand_gid[perm])
+    return _t(perm), _t(pair_start), _t(cand_gid[perm])
+
+
+def _stored(sorted_rows, pair_cand):
+    """The rows as the backward stores them: sorted pair j's at
+    ``pair_cand[j]``."""
+    out = torch.empty_like(sorted_rows)
+    out[pair_cand.long()] = sorted_rows
+    return out
 
 
 def _regroup_sums(rows, splat_gid, n):
@@ -156,33 +195,33 @@ def test_segment_sum_plain_matches_jax_kernel(rng, case):
     counts[3] = 0 if case == "empty frame" else 300
     if case == "empty frame":
         counts[:] = 0
-    pair_slot, pair_start, splat_gid = _runs(counts, rng, num_tiles=400)
+    pair_cand, pair_start, splat_gid = _runs(counts, rng, num_tiles=400)
     p = int(counts.sum())
-    rows = rng.standard_normal((p, 9)).astype(np.float32)
-    got = segment_sum(_t(rows), pair_slot, pair_start, n)
-    assert torch.equal(got, segment_sum_plain(_t(rows), pair_slot, pair_start, n))
-    # JAX takes the rows sorted by Gaussian id; an empty stream is one
-    # sentinel slot (id n), which it never sums.
-    slots = pair_slot.numpy()
+    rows = rng.standard_normal((p, 9)).astype(np.float32)  # in candidate order
+    got = segment_sum(_t(rows), pair_start, n)
+    assert torch.equal(got, segment_sum_plain(_t(rows), pair_start, n))
+    # JAX takes the rows sorted by Gaussian id (candidate order is such an
+    # order); an empty stream is one sentinel slot (id n), never summed.
     cand_gid = np.repeat(np.arange(n), counts).astype(np.int32)
-    values, ids = rows[slots].T, cand_gid
+    values, ids = rows.T, cand_gid
     if p == 0:
         values, ids = np.ones((9, 1), np.float32), np.full((1,), n, np.int32)
     ref = np.asarray(segment_sum_by_gid(
         jnp.asarray(values), jnp.asarray(ids), n, interpret=True))[:, :n].T
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
     assert got.shape == (n, 9) and (got.numpy()[counts == 0] == 0).all()
-    assert torch.equal(splat_gid[pair_slot.long()], _t(cand_gid))
+    assert torch.equal(splat_gid, _t(cand_gid)[pair_cand.long()])
 
 
 def test_segment_sum_equals_the_regroup_bit_for_bit(rng):
     # Random runs, and the binned scene of test_backward_plain_matches_oracle:
-    # the runs add each Gaussian's rows in the order a stable sort of
-    # splat_gid gives them, so the sums are the same floats.
+    # rows in sorted-pair order, stored at pair_cand as the backward stores
+    # them, are summed over each Gaussian's run in the order a stable sort
+    # of splat_gid gives them, so the sums are the same floats.
     counts = rng.integers(0, 40, 500)
-    pair_slot, pair_start, splat_gid = _runs(counts, rng, num_tiles=256, qd_bits=2)
+    pair_cand, pair_start, splat_gid = _runs(counts, rng, num_tiles=256, qd_bits=2)
     rows = _t(rng.standard_normal((int(counts.sum()), 9)).astype(np.float32))
-    got = segment_sum(rows, pair_slot, pair_start, 500)
+    got = segment_sum(_stored(rows, pair_cand), pair_start, 500)
     assert torch.equal(got, _regroup_sums(rows, splat_gid, 500))
 
     width, height, n = 96, 64, 180
@@ -191,7 +230,7 @@ def test_segment_sum_equals_the_regroup_bit_for_bit(rng):
                                num_tiles_x=width // TILE, num_tiles_y=height // TILE,
                                tile_size=TILE)
     rows = _t(rng.standard_normal((tables.num_pairs, 9)).astype(np.float32) * 1e3)
-    got = segment_sum(rows, tables.pair_slot, tables.pair_start, n)
+    got = segment_sum(_stored(rows, tables.pair_cand), tables.pair_start, n)
     assert torch.equal(got, _regroup_sums(rows, tables.splat_gid, n))
 
 
@@ -217,14 +256,17 @@ def test_rasterize_vjp_matches_jax(rng):
     num_pairs = int(j_tables.num_pairs)
     splat_gid = _t(np.asarray(j_tables.splat_gid)[:num_pairs])
     # Per-Gaussian runs of the reference's pair list: its slots by Gaussian,
-    # ascending (what the port's binning derives without a sort).
+    # ascending, are the candidates; each pair's candidate is its place in
+    # that order (what the port's binning derives without a second sort).
     order = torch.sort(splat_gid, stable=True)
     counts = torch.bincount(splat_gid.long(), minlength=n)
+    pair_cand = torch.empty(num_pairs, dtype=torch.int32)
+    pair_cand[order.indices] = torch.arange(num_pairs, dtype=torch.int32)
     tables = TileTables(
         splat_gid=splat_gid,
         tile_start=_t(np.asarray(j_tables.tile_start)),
         tile_count=_t(np.asarray(j_tables.tile_count)),
-        pair_slot=order.indices.to(torch.int32),
+        pair_cand=pair_cand,
         pair_start=torch.cat([torch.zeros(1, dtype=torch.int64),
                               torch.cumsum(counts, 0)]).to(torch.int32),
         num_pairs=num_pairs,
@@ -249,9 +291,14 @@ def test_rasterize_backward_rejects_bad_shapes():
     attrs = torch.zeros((4, 9), device="meta")
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")  # noqa: E731
     out = torch.zeros((2, 5, 256), device="meta")
+    d_tiles = torch.zeros((2, 3, 256), device="meta")
     with pytest.raises(ValueError, match="tiles"):
-        rasterize_backward(attrs, i32(3), i32(2), i32(2), out, torch.zeros((2, 3, 256)),
-                           0.0, num_tiles_x=1, num_tiles_y=1)
+        rasterize_backward(attrs, i32(3), i32(2), i32(2), out, d_tiles, 0.0,
+                           pair_cand=i32(3), num_tiles_x=1, num_tiles_y=1)
     with pytest.raises(ValueError, match=r"\(2, 3, 256\)"):
         rasterize_backward(attrs, i32(3), i32(2), i32(2), out, torch.zeros((2, 4, 256)),
-                           0.0, num_tiles_x=2, num_tiles_y=1)
+                           0.0, pair_cand=i32(3), num_tiles_x=2, num_tiles_y=1)
+    for cand in (i32(4), i32(3).to(torch.int64)):
+        with pytest.raises(ValueError, match="pair_cand"):
+            rasterize_backward(attrs, i32(3), i32(2), i32(2), out, d_tiles, 0.0,
+                               pair_cand=cand, num_tiles_x=2, num_tiles_y=1)

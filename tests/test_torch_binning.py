@@ -29,7 +29,6 @@ from gsplat_tpu.ops import projection as j_proj  # noqa: E402
 from gsplat_tpu.ops.render import pack_attrs as j_pack_attrs  # noqa: E402
 from gsplat_tpu_torch.ops import binning  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand  # noqa: E402
-from gsplat_tpu_torch.kernels.segsum import inverse_permutation_plain  # noqa: E402
 
 TILE = 16
 
@@ -104,21 +103,22 @@ def test_binning_matches_jax_exact_mode(rng, width, height, n, masked):
     [(64, 64, 30, False), (32, 32, 10, True), (96, 64, 180, False)],
 )
 def test_pair_runs_match_brute_force(rng, width, height, n, masked):
-    """``pair_slot`` and ``pair_start`` on the scenes above: Gaussian g's
-    run lists exactly the slots of the sorted pair list that hold g, in
-    ascending slot (so ascending tile) order; ``pair_slot`` is a
-    permutation and ``pair_start`` ends at the pair count."""
+    """``pair_cand`` and ``pair_start`` on the scenes above: ``pair_cand``
+    is a permutation, ``pair_start`` ends at the pair count, and Gaussian
+    g's run of candidates holds exactly the slots of the sorted pair list
+    that hold g, in ascending slot (so ascending tile) order."""
     uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
     mask = np.ones(n, bool)
     if masked:
         mask[1::2] = False
     ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
     port = _port_tables(uv, z, radius, mask, ntx, nty)
-    gid, slot, start = (t.numpy() for t in (port.splat_gid, port.pair_slot,
+    gid, cand, start = (t.numpy() for t in (port.splat_gid, port.pair_cand,
                                             port.pair_start))
-    assert slot.dtype == start.dtype == np.int32
+    assert cand.dtype == start.dtype == np.int32
     assert start.shape == (n + 1,) and start[0] == 0 and start[-1] == port.num_pairs
-    np.testing.assert_array_equal(np.sort(slot), np.arange(port.num_pairs))
+    np.testing.assert_array_equal(np.sort(cand), np.arange(port.num_pairs))
+    slot = np.argsort(cand)  # each candidate's slot in the sorted pair list
     tile_of_slot = np.repeat(np.arange(ntx * nty), port.tile_count.numpy())
     for g in range(n):
         run = slot[start[g]: start[g + 1]]
@@ -144,25 +144,45 @@ def _sort_keys(uv, z, radius, mask, ntx, nty):
     return keys.numpy(), gid.numpy()
 
 
+@pytest.mark.parametrize("capped", [False, True])
 @pytest.mark.parametrize(
     "width,height,n,masked",
     [(64, 64, 30, False), (32, 32, 10, True), (96, 64, 180, False)],
 )
-def test_pair_slot_is_the_inverse_of_the_tile_sort(rng, width, height, n, masked):
-    """``pair_slot`` is ``inverse_permutation_plain`` of the stable argsort
-    of the tile sort's keys, and ``splat_gid`` the candidates' Gaussians in
-    that order."""
+def test_pair_cand_is_the_stable_argsort_of_the_tile_keys(rng, width, height, n, masked,
+                                                          capped):
+    """``pair_cand`` is the stable argsort of the tile sort's keys, and
+    ``splat_gid`` the candidates' Gaussians in that order. At a pair cap
+    (no pair dropped) the keys past the live pairs are the largest key,
+    so the stable sort leaves the tail behind every pair: ``pair_cand[j]``
+    is a live candidate exactly for a live ``j``, and the tail maps onto
+    the tail in order."""
     uv, conic, radius, z, opa, rgb = _make_scene(rng, n, width, height)
     mask = np.ones(n, bool)
     if masked:
         mask[1::2] = False
     ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
     keys, gid = _sort_keys(uv, z, radius, mask, ntx, nty)
+    p = len(keys)
+    caps = {}
+    if capped:
+        caps = dict(pair_cap=(p // 512 + 2) * 512)
+        key_bits = binning.sort_key_bits(ntx * nty, binning.depth_key_bits(ntx * nty))
+        keys = np.concatenate([keys, np.full(caps["pair_cap"] - p, (1 << key_bits) - 1,
+                                             np.int32)])
+        gid = np.concatenate([gid, np.zeros(caps["pair_cap"] - p, np.int32)])
     perm = np.argsort(keys, kind="stable").astype(np.int32)
-    port = _port_tables(uv, z, radius, mask, ntx, nty)
-    np.testing.assert_array_equal(
-        port.pair_slot.numpy(), inverse_permutation_plain(torch.from_numpy(perm)).numpy())
-    np.testing.assert_array_equal(port.splat_gid.numpy(), gid[perm])
+    port = binning.build_tile_tables(
+        torch.from_numpy(uv), torch.from_numpy(z), torch.from_numpy(radius),
+        torch.from_numpy(mask), num_tiles_x=ntx, num_tiles_y=nty, tile_size=TILE, **caps)
+    cand = port.pair_cand.numpy()
+    assert cand.dtype == np.int32 and int(port.num_pairs) == p > 0
+    np.testing.assert_array_equal(cand, perm)
+    np.testing.assert_array_equal(port.splat_gid.numpy()[:p], gid[perm][:p])
+    live = np.arange(len(cand)) < p
+    np.testing.assert_array_equal(cand < p, live)
+    np.testing.assert_array_equal(cand[~live], np.arange(p, len(cand)))
+    assert int(port.pair_start[-1]) == p
 
 
 def test_binning_ellipse_records_match_jax(rng):
@@ -279,8 +299,8 @@ def test_depth_rank_pair_set_equals_default_mode(rng):
     d_lists = _lists(dflt.splat_gid.numpy(), dflt.tile_start.numpy(),
                      dflt.tile_count.numpy())
     assert [sorted(a) for a in lists] == [sorted(b) for b in d_lists]
-    gid, slot, start = (t.numpy() for t in (port.splat_gid, port.pair_slot, port.pair_start))
-    np.testing.assert_array_equal(gid[slot], np.repeat(np.arange(len(z)), np.diff(start)))
+    gid, cand, start = (t.numpy() for t in (port.splat_gid, port.pair_cand, port.pair_start))
+    np.testing.assert_array_equal(gid, np.repeat(np.arange(len(z)), np.diff(start))[cand])
 
 
 def test_depth_rank_key_budget():

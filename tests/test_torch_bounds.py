@@ -238,21 +238,18 @@ def test_kernel_bound_hand_counted():
     kw = dict(gaussians=2, pairs=3, tiles=1, pair_pixels=10, passing=4)
     r = chip_smoke.kernel_bound("rasterize_forward", **kw)
     assert (r["bytes"], r["ops"], r["bound_by"]) == (72 + 12 + 8 + 5120, 300, "bytes")
-    # Backward: + cotangent 3 x 256 x 4 in, 3 rows of 36 bytes out; 44 more
-    # operations for a passing pair-pixel.
+    # Backward: + cotangent 3 x 256 x 4 and pair_cand 3 x 4 in, 3 rows of 36
+    # bytes out; 44 more operations for a passing pair-pixel.
     r = chip_smoke.kernel_bound("rasterize_backward", **kw)
-    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120 + 3072 + 108, 260 + 176)
+    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120 + 3072 + 12 + 108, 260 + 176)
     kw.update(pair_pixels=10**7, passing=10**6)  # 3.04e8 operations outweigh 8 KB
     r = chip_smoke.kernel_bound("rasterize_backward", **kw)
     assert r["bound_by"] == "operations"
     assert r["bound_ms"] == pytest.approx(1e3 * 3.04e8 / fp32)
-    # Segment sum: rows 36 + pair_slot 4 bytes a pair; pair_start 4 in and
-    # 36 out a Gaussian; 9 adds a pair.
+    # Segment sum: contiguous rows of 36 bytes a pair; pair_start's N + 1
+    # words in and 36 bytes out a Gaussian; 9 adds a pair.
     r = chip_smoke.kernel_bound("segment_sum", gaussians=2, pairs=3)
-    assert (r["bytes"], r["ops"]) == (3 * 40 + 2 * 40, 27)
-    # Inverse permutation: 4 bytes a pair in, 4 out.
-    r = chip_smoke.kernel_bound("inverse_permutation", pairs=5)
-    assert (r["bytes"], r["ops"], r["bound_by"]) == (40, 0, "bytes")
+    assert (r["bytes"], r["ops"], r["bound_by"]) == (3 * 36 + 3 * 4 + 2 * 36, 27, "bytes")
 
 
 def test_kernel_bound_packed_hand_counted():
@@ -260,15 +257,15 @@ def test_kernel_bound_packed_hand_counted():
     # deepest n_splats (87 operations a pair); K2 writes 4-word rows (16
     # bytes, not 36) and packs those it reaches (50 a pair: 2 of the 3);
     # K4 reads 16-byte rows and unpacks every one (21 a pair), pair_start is
-    # N + 1 words.
+    # N + 1 words, no gather index.
     kw = dict(gaussians=2, pairs=3, tiles=1, pair_pixels=10, passing=4, reached=2)
     r = chip_smoke.kernel_bound("rasterize_forward", packed=True, **kw)
     assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120, 300 + 2 * 87)
     r = chip_smoke.kernel_bound("rasterize_backward", packed=True, **kw)
-    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120 + 3072 + 48,
+    assert (r["bytes"], r["ops"]) == (72 + 12 + 8 + 5120 + 3072 + 12 + 48,
                                       260 + 176 + 2 * 87 + 2 * 50)
     r = chip_smoke.kernel_bound("segment_sum", packed=True, gaussians=2, pairs=3)
-    assert (r["bytes"], r["ops"]) == (3 * 16 + 3 * 4 + 3 * 4 + 2 * 36, 3 * (9 + 21))
+    assert (r["bytes"], r["ops"]) == (3 * 16 + 3 * 4 + 2 * 36, 3 * (9 + 21))
     # The one splat of test_pair_pixel_counts_hand_counted is exact in the
     # packed formats: the same work.
     from gsplat_tpu_torch.kernels.rasterize import rasterize_forward_plain

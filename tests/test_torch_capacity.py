@@ -10,6 +10,10 @@ trainer's capacity growth, against the JAX package.
   documented log2 bucket hazard, in the order of a list only);
 - the live part of capped tables bit-equal to the exactly sized tables,
   which report the same requirements;
+- the capped tail is never read: ``pair_cand[j]`` is a live candidate
+  exactly for a live ``j``, so the backward stores no row past the live
+  candidates and the segment sum, which stops at ``pair_start[N]``, sums
+  the live rows as the reference's regroup would;
 - ``round_pair_cap`` and ``round_row_cap`` equal to the reference's;
 - three ``get_monitored_train_step`` calls at a pair cap on the CPU
   against the reference's ``get_monitored_train_step`` (its default packed
@@ -37,7 +41,11 @@ from gsplat_tpu.ops.render import pack_attrs as j_pack_attrs  # noqa: E402
 from gsplat_tpu.train import state as j_state  # noqa: E402
 from gsplat_tpu.train import step as j_step  # noqa: E402
 from gsplat_tpu.utils import checkpoint as j_checkpoint  # noqa: E402
+from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
+    rasterize_backward_plain, rasterize_forward)
+from gsplat_tpu_torch.kernels.segsum import segment_sum  # noqa: E402
 from gsplat_tpu_torch.ops import binning  # noqa: E402
+from gsplat_tpu_torch.ops.render import pack_attrs  # noqa: E402
 from gsplat_tpu_torch.train import state as t_state  # noqa: E402
 from gsplat_tpu_torch.train import step as t_step  # noqa: E402
 from gsplat_tpu_torch.utils import checkpoint as t_checkpoint  # noqa: E402
@@ -100,7 +108,7 @@ def test_capped_binning_matches_jax(case):
     ref = _jax_tables(uv, z, radius, mask, conic, opa, rgb, ntx, nty, pair_cap=pair_cap,
                       row_cap=row_cap)
     port = _port(uv, z, radius, mask, ntx, nty, pair_cap=pair_cap, row_cap=row_cap)
-    assert port.splat_gid.shape == (pair_cap,) and port.pair_slot.shape == (pair_cap,)
+    assert port.splat_gid.shape == (pair_cap,) and port.pair_cand.shape == (pair_cap,)
     for name in ("num_pairs", "overflow", "row_overflow"):
         got = getattr(port, name)
         assert got.dtype == torch.int32 and got.shape == ()
@@ -139,7 +147,7 @@ def test_capped_tables_live_part_equals_exact(case):
     if case is CASES[0]:
         assert num_pairs == exact.num_pairs
         assert torch.equal(capped.splat_gid[:num_pairs], exact.splat_gid)
-        assert torch.equal(capped.pair_slot[:num_pairs], exact.pair_slot)
+        assert torch.equal(capped.pair_cand[:num_pairs], exact.pair_cand)
         for name in ("tile_start", "tile_count", "pair_start"):
             assert torch.equal(getattr(capped, name), getattr(exact, name)), name
         return
@@ -150,6 +158,35 @@ def test_capped_tables_live_part_equals_exact(case):
                        capped.tile_count.numpy())
     for kept, full in zip(cap_lists, ex_lists):
         assert kept == [g for g in full if g in set(kept)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_capped_tail_is_never_read(case):
+    width, height, n, pair_cap, row_cap, _ = case
+    uv, conic, radius, z, opa, rgb, mask = _inputs(case)
+    ntx, nty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    tables = _port(uv, z, radius, mask, ntx, nty, pair_cap=pair_cap, row_cap=row_cap)
+    p = int(tables.num_pairs)
+    cand = tables.pair_cand.numpy()
+    assert cand.shape == (pair_cap,) and 0 < p <= pair_cap
+    np.testing.assert_array_equal(cand < p, np.arange(pair_cap) < p)
+    assert int(tables.pair_start[-1]) == p
+    attrs = pack_attrs(*(_t(x) for x in (uv, conic, rgb, opa)))
+    args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
+    out = rasterize_forward(*args, BG, num_tiles_x=ntx)
+    d_tiles = _t(np.random.default_rng(1).normal(size=(ntx * nty, 3, 256)).astype(np.float32))
+    rows = rasterize_backward_plain(*args, out, d_tiles, BG, pair_cand=tables.pair_cand,
+                                    num_tiles_x=ntx, num_tiles_y=nty)
+    assert rows.shape == (pair_cap, 9) and (rows[:p] != 0).any()
+    assert torch.equal(rows[p:], torch.zeros_like(rows[p:]))  # no row stored there
+    rows[p:] = float("nan")  # what a kernel's unwritten tail may hold
+    sums = segment_sum(rows, tables.pair_start, n)
+    # The reference's regroup of the live sorted rows: a stable sort by
+    # Gaussian id, then the rows added in that order.
+    sorted_rows = rows[tables.pair_cand[:p].long()]
+    order = torch.sort(tables.splat_gid[:p], stable=True)
+    ref = torch.zeros((n, 9)).index_add_(0, order.values.long(), sorted_rows[order.indices])
+    assert torch.equal(sums, ref)
 
 
 def test_round_caps_match_jax():

@@ -22,9 +22,7 @@ from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_backward_plain, rasterize_forward,
     rasterize_forward_plain,
 )
-from gsplat_tpu_torch.kernels.segsum import (  # noqa: E402
-    inverse_permutation, inverse_permutation_plain, segment_sum, segment_sum_plain,
-)
+from gsplat_tpu_torch.kernels.segsum import segment_sum, segment_sum_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain, sort_plan  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
 from gsplat_tpu_torch.train.step import exact_mode  # noqa: E402
@@ -248,12 +246,13 @@ def test_binning_depth_rank_on_card_equals_cpu(dev):
     gpu = build_tile_tables(uv.to(dev), z.to(dev), radius.to(dev), mask.to(dev),
                             depth_rank=rank.to(dev), **kw)
     assert gpu.num_pairs == cpu.num_pairs > 0
-    for f in ("splat_gid", "tile_start", "tile_count", "pair_slot", "pair_start"):
+    for f in ("splat_gid", "tile_start", "tile_count", "pair_cand", "pair_start"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
 
 
 def _backward_inputs(rng, n, width, height, saturate=False):
-    """Tables, attrs, forward output and a random image cotangent (CPU)."""
+    """Tables, attrs, forward output, a random image cotangent and the
+    pairs' candidates, binning's ``pair_cand`` (CPU)."""
     ntx, nty = (width + 15) // 16, (height + 15) // 16
     uv, radius, z, attrs = _scene(rng, n, width, height)
     if saturate:  # opaque and wide: every pixel stops long before the last pair
@@ -265,19 +264,26 @@ def _backward_inputs(rng, n, width, height, saturate=False):
     args = (attrs, tables.splat_gid, tables.tile_start, tables.tile_count)
     out = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx)
     d_tiles = torch.from_numpy(rng.normal(size=(ntx * nty, 3, 256)).astype(np.float32))
-    return args, out, d_tiles, ntx, nty
+    return args, out, d_tiles, ntx, nty, tables.pair_cand
+
+
+def _tile_tail(rows, cand, start, count, maxn, t):
+    """The rows of tile t's pairs past its deepest n_splats, where the
+    backward stores them (at their candidates)."""
+    lo, hi = int(start[t]) + int(maxn[t]), int(start[t]) + int(count[t])
+    return rows[cand[lo:hi].long()]
 
 
 @pytest.mark.parametrize("n,saturate", [(50, False), (3000, False), (400, True)])
 def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
-    args, out, d_tiles, ntx, nty = _backward_inputs(
+    args, out, d_tiles, ntx, nty, cand = _backward_inputs(
         np.random.default_rng(n), n, 160, 88, saturate)
     kw = dict(num_tiles_x=ntx, num_tiles_y=nty)
     dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
-    got = rasterize_backward(*dev_in, 0.3, **kw)
-    again = rasterize_backward(*dev_in, 0.3, **kw)
+    got = rasterize_backward(*dev_in, 0.3, pair_cand=cand.to(dev), **kw)
+    again = rasterize_backward(*dev_in, 0.3, pair_cand=cand.to(dev), **kw)
     torch.cuda.synchronize()
-    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, pair_cand=cand, **kw)
     assert torch.equal(got, again)  # no atomics: bit-identical reruns
     # The 256-pixel sums run in another order (registers and warp shuffles
     # vs a tensor sum) and T is replayed by a reciprocal vs chunked
@@ -292,7 +298,7 @@ def test_rasterize_backward_kernel_close_to_plain(dev, n, saturate):
         maxn = out[:, 4].amax(dim=1).long()
         assert (maxn < count.long()).any()
         for t in torch.nonzero(maxn < count.long()).flatten().tolist():
-            tail = got[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
+            tail = _tile_tail(got, cand, start, count, maxn, t)
             assert torch.equal(tail, torch.zeros_like(tail))  # written, as zeros
 
 
@@ -303,19 +309,20 @@ def test_rasterize_backward_packed_words(dev, n, saturate, packed):
     # on the same inputs (packed or exact pairs), bit for bit; those rows
     # are the plain version's within the exact mode's bound; rows past
     # every n_splats are the words of a zero row.
-    args, _, d_tiles, ntx, nty = _backward_inputs(
+    args, _, d_tiles, ntx, nty, cand = _backward_inputs(
         np.random.default_rng(n + 2), n, 160, 88, saturate)
     kw = dict(num_tiles_x=ntx, num_tiles_y=nty, packed=packed)
     out = rasterize_forward_plain(*args, 0.3, num_tiles_x=ntx, packed=packed)
     dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
-    rows = rasterize_backward(*dev_in, 0.3, **kw)
-    words = rasterize_backward(*dev_in, 0.3, pack_grads=True, **kw)
-    again = rasterize_backward(*dev_in, 0.3, pack_grads=True, **kw)
+    cand_d = cand.to(dev)
+    rows = rasterize_backward(*dev_in, 0.3, pair_cand=cand_d, **kw)
+    words = rasterize_backward(*dev_in, 0.3, pack_grads=True, pair_cand=cand_d, **kw)
+    again = rasterize_backward(*dev_in, 0.3, pack_grads=True, pair_cand=cand_d, **kw)
     torch.cuda.synchronize()
     assert words.dtype == torch.int32 and words.shape == (args[1].shape[0], 4)
     assert torch.equal(words, again)
     assert torch.equal(words, packing.pack_grad_rows(rows))
-    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, pair_cand=cand, **kw)
     rows = rows.cpu()
     scale = ref.abs().amax(dim=1, keepdim=True)
     assert ((rows - ref).abs() <= 1e-3 * scale + 1e-6).all()
@@ -324,7 +331,7 @@ def test_rasterize_backward_packed_words(dev, n, saturate, packed):
         maxn = out[:, 4].amax(dim=1).long()
         zero = packing.pack_grad_rows(torch.zeros((1, 9)))
         t = int(torch.nonzero(maxn < count.long())[0])
-        tail = words.cpu()[int(start[t]) + int(maxn[t]): int(start[t]) + int(count[t])]
+        tail = _tile_tail(words.cpu(), cand, start, count, maxn, t)
         assert tail.shape[0] > 0 and torch.equal(tail, zero.expand_as(tail))
 
 
@@ -388,10 +395,11 @@ def test_rasterize_backward_kernel_edge_tiles(dev, case):
         assert _dead_groups(*args, out, ntx) > 0
     kw = dict(num_tiles_x=ntx, num_tiles_y=nty)
     dev_in = [t.to(dev) for t in (*args, out, d_tiles)]
-    got = rasterize_backward(*dev_in, 0.3, **kw)
-    again = rasterize_backward(*dev_in, 0.3, **kw)
+    cand = tables.pair_cand
+    got = rasterize_backward(*dev_in, 0.3, pair_cand=cand.to(dev), **kw)
+    again = rasterize_backward(*dev_in, 0.3, pair_cand=cand.to(dev), **kw)
     torch.cuda.synchronize()
-    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, **kw)
+    ref = rasterize_backward_plain(*args, out, d_tiles, 0.3, pair_cand=cand, **kw)
     assert torch.equal(got, again)
     got = got.cpu()
     assert torch.isfinite(got).all()
@@ -400,50 +408,47 @@ def test_rasterize_backward_kernel_edge_tiles(dev, case):
 
 
 def _gaussian_runs(rng, n, p):
-    """Per-Gaussian runs of p pairs in a random stable tile order, as
-    binning gives them: (pair_slot, pair_start) and the pair counts."""
+    """Per-Gaussian runs of p pairs, as the backward stores their rows:
+    pair_start and the pair counts."""
     gids = rng.integers(0, n, p).astype(np.int32)
     gids[: p // 5] = n // 2  # one Gaussian with hundreds of pairs
     gids[gids % 3 == 1] = n // 3  # and empty runs around it
     counts = np.bincount(gids, minlength=n)
-    keys = torch.from_numpy(rng.permutation(p).astype(np.int32))  # slot order
-    perm = radix_sort_plain(keys, 31)[1]
     pair_start = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
-    return inverse_permutation(perm), pair_start, counts
+    return pair_start, counts
 
 
-@pytest.mark.parametrize("p", [0, 1, 255, 256, 257, 1_000_003])
-def test_inverse_permutation_kernel_equals_plain(dev, p):
-    perm = torch.from_numpy(np.random.default_rng(p).permutation(p).astype(np.int32))
-    got = inverse_permutation(perm.to(dev))
-    torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and torch.equal(got.cpu(), inverse_permutation_plain(perm))
+# (n, p, tail): rows past pair_start[n] (a capped table's tail, NaN here)
+# are never read.
+SEGSUM_CASES = [(1, 5, 0), (700, 3500, 0), (100_000, 1_500_000, 0), (700, 3500, 4096)]
 
 
-@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
-def test_segment_sum_kernel_close_to_plain(dev, n, p):
+@pytest.mark.parametrize("n,p,tail", SEGSUM_CASES)
+def test_segment_sum_kernel_close_to_plain(dev, n, p, tail):
     rng = np.random.default_rng(p)
-    pair_slot, pair_start, counts = _gaussian_runs(rng, n, p)
-    rows = torch.from_numpy(rng.standard_normal((p, 9)).astype(np.float32))
-    args = [t.to(dev) for t in (rows, pair_slot, pair_start)]
+    pair_start, counts = _gaussian_runs(rng, n, p)
+    rows = torch.from_numpy(rng.standard_normal((p + tail, 9)).astype(np.float32))
+    rows[p:] = float("nan")
+    args = [t.to(dev) for t in (rows, pair_start)]
     got = segment_sum(*args, n)
     again = segment_sum(*args, n)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    ref = segment_sum_plain(rows, pair_slot, pair_start, n)
+    ref = segment_sum_plain(rows, pair_start, n)
     # The kernel adds each run in the plain version's (index) order.
     assert torch.equal(got.cpu(), ref)
     assert (got.cpu()[torch.from_numpy(counts == 0)] == 0).all()
 
 
-@pytest.mark.parametrize("n,p", [(1, 5), (700, 3500), (100_000, 1_500_000)])
-def test_segment_sum_packed_kernel_equals_plain(dev, n, p):
+@pytest.mark.parametrize("n,p,tail", SEGSUM_CASES)
+def test_segment_sum_packed_kernel_equals_plain(dev, n, p, tail):
     rng = np.random.default_rng(p + 1)
-    pair_slot, pair_start, counts = _gaussian_runs(rng, n, p)
-    rows = torch.from_numpy((rng.standard_normal((p, 9)) * np.exp2(
-        rng.integers(-30, 0, (p, 1)))).astype(np.float32))
+    pair_start, counts = _gaussian_runs(rng, n, p)
+    rows = torch.from_numpy((rng.standard_normal((p + tail, 9)) * np.exp2(
+        rng.integers(-30, 0, (p + tail, 1)))).astype(np.float32))
     words = packing.pack_grad_rows(rows)
-    args = [t.to(dev) for t in (words, pair_slot, pair_start)]
+    words[p:] = -1  # unpacks to NaNs
+    args = [t.to(dev) for t in (words, pair_start)]
     before = _build.launches["segment_sum/packed"]
     got = segment_sum(*args, n)
     again = segment_sum(*args, n)
@@ -451,7 +456,7 @@ def test_segment_sum_packed_kernel_equals_plain(dev, n, p):
     assert _build.launches["segment_sum/packed"] == before + 2
     assert torch.equal(got, again)
     # The kernel adds each run's unpacked words in the plain version's order.
-    assert torch.equal(got.cpu(), segment_sum_plain(words, pair_slot, pair_start, n))
+    assert torch.equal(got.cpu(), segment_sum_plain(words, pair_start, n))
     assert (got.cpu()[torch.from_numpy(counts == 0)] == 0).all()
 
 
@@ -508,9 +513,9 @@ def test_backward_kernels_with_no_pairs(dev):
     attrs = torch.zeros((5, 9), device=dev)
     out = torch.zeros((2, 5, 256), device=dev)
     rows = rasterize_backward(attrs, i32(0), i32(2), i32(2), out,
-                              torch.ones((2, 3, 256), device=dev), 0.5,
+                              torch.ones((2, 3, 256), device=dev), 0.5, pair_cand=i32(0),
                               num_tiles_x=2, num_tiles_y=1)
-    sums = segment_sum(rows, i32(0), i32(6), 5)
+    sums = segment_sum(rows, i32(6), 5)
     torch.cuda.synchronize()
     assert rows.shape == (0, 9)
     assert torch.equal(sums, torch.zeros((5, 9), device=dev))
@@ -590,29 +595,33 @@ def test_rasterizers_read_bg_from_device_memory(dev, packed):
     CUDA graph captured at one background and replayed after the tensor
     was refilled, each is bit-equal to a launch at the new background, and
     close to its plain version at it (the bounds of the tests above)."""
-    args, out, d_tiles, ntx, nty = _backward_inputs(np.random.default_rng(9), 3000, 160, 88)
+    args, out, d_tiles, ntx, nty, cand = _backward_inputs(np.random.default_rng(9), 3000,
+                                                          160, 88)
     kw = dict(num_tiles_x=ntx, packed=packed)
     dev_in = [t.to(dev) for t in args]
-    out_d, d_d = out.to(dev), d_tiles.to(dev)
+    out_d, d_d, cand_d = out.to(dev), d_tiles.to(dev), cand.to(dev)
     bg = torch.full((), 0.3, dtype=torch.float32, device=dev)
     rasterize_forward(*dev_in, bg, **kw)  # built and warm outside the capture
-    rasterize_backward(*dev_in, out_d, d_d, bg, num_tiles_y=nty, **kw)
+    rasterize_backward(*dev_in, out_d, d_d, bg, pair_cand=cand_d, num_tiles_y=nty, **kw)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fwd = rasterize_forward(*dev_in, bg, **kw)
-        bwd = rasterize_backward(*dev_in, out_d, d_d, bg, num_tiles_y=nty, **kw)
+        bwd = rasterize_backward(*dev_in, out_d, d_d, bg, pair_cand=cand_d, num_tiles_y=nty,
+                                 **kw)
     bg.fill_(0.75)
     graph.replay()
     new_bg = torch.full((), 0.75, dtype=torch.float32, device=dev)
     fwd_ref = rasterize_forward(*dev_in, new_bg, **kw)
-    bwd_ref = rasterize_backward(*dev_in, out_d, d_d, new_bg, num_tiles_y=nty, **kw)
+    bwd_ref = rasterize_backward(*dev_in, out_d, d_d, new_bg, pair_cand=cand_d,
+                                 num_tiles_y=nty, **kw)
     torch.cuda.synchronize()
     assert torch.equal(fwd, fwd_ref) and torch.equal(bwd, bwd_ref)
     assert not torch.equal(fwd_ref, rasterize_forward(*dev_in, 0.3, **kw))
     plain = rasterize_forward_plain(*args, new_bg.cpu(), **kw)
     torch.testing.assert_close(fwd.cpu()[:, :3], plain[:, :3], rtol=0, atol=1e-4)
-    rows = rasterize_backward_plain(*args, out, d_tiles, new_bg.cpu(), num_tiles_y=nty, **kw)
+    rows = rasterize_backward_plain(*args, out, d_tiles, new_bg.cpu(), pair_cand=cand,
+                                    num_tiles_y=nty, **kw)
     scale = rows.abs().amax(dim=1, keepdim=True)
     assert ((bwd.cpu() - rows).abs() <= 1e-3 * scale + 1e-6).all()
 

@@ -5,8 +5,10 @@
   ``np.repeat`` on the adversarial counts chip_smoke.py holds the kernel
   to on the card (``expand_edge_counts``);
 - radix sort (stable) vs a numpy lexsort on (key, gid): equal;
-- inverse permutation (binning's ``pair_slot``), alone and after the radix
-  sort, vs ``np.argsort``: equal;
+- segment sum over contiguous per-Gaussian runs vs a numpy oracle of the
+  gathered sum it replaces (rows read through the inverse of the tile
+  sort's permutation, in run order): bit-equal, with empty runs, a long
+  run, packed words and a capped tail;
 - forward rasterizer vs the numpy oracle at the tolerances of
   tests/test_render.py (image rtol 2e-4 / atol 2e-5, T_final rtol 1e-3,
   n_splats exact), including the early-termination/saturation case, in
@@ -28,12 +30,12 @@ from test_render import _make_scene  # noqa: E402
 
 from gsplat_tpu.kernels.expand import segment_expand as j_segment_expand  # noqa: E402
 from gsplat_tpu.ops import oracle  # noqa: E402
-from gsplat_tpu_torch.kernels import _build  # noqa: E402
+from gsplat_tpu_torch.kernels import _build, packing  # noqa: E402
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_forward,
 )
-from gsplat_tpu_torch.kernels.segsum import inverse_permutation, segment_sum  # noqa: E402
+from gsplat_tpu_torch.kernels.segsum import segment_sum  # noqa: E402
 from gsplat_tpu_torch.kernels.sort import radix_sort, radix_sort_plain  # noqa: E402
 from gsplat_tpu_torch.ops.binning import build_tile_tables  # noqa: E402
 from gsplat_tpu_torch.ops.render import rasterize  # noqa: E402
@@ -99,35 +101,60 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         rasterize_forward(f32(4, 9), i32(3), i32(2), i32(2), 0.0, num_tiles_x=2)
     with pytest.raises(ValueError, match="CUDA"):
         rasterize_backward(f32(4, 9), i32(3), i32(2), i32(2), f32(2, 5, 256),
-                           f32(2, 3, 256), 0.0, num_tiles_x=2, num_tiles_y=1)
+                           f32(2, 3, 256), 0.0, pair_cand=i32(3), num_tiles_x=2,
+                           num_tiles_y=1)
     with pytest.raises(ValueError, match="CUDA"):
-        segment_sum(f32(3, 9), i32(3), i32(5), 4)
-    with pytest.raises(ValueError, match="CUDA"):
-        inverse_permutation(i32(3))
+        segment_sum(f32(3, 9), i32(5), 4)
     assert _build.launches == dict.fromkeys(_build.launches, 0)
 
 
-@pytest.mark.parametrize("p", [0, 1, 1000])
-def test_inverse_permutation_plain_is_argsort(rng, p):
-    # binning's pair_slot: out[perm[j]] = j, i.e. the permutation's argsort.
-    perm = rng.permutation(p).astype(np.int32)
-    got = inverse_permutation(torch.from_numpy(perm))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), np.argsort(perm))
+def _gathered_sums(sorted_rows, perm, counts):
+    """The numpy oracle of the sum the port no longer makes: each
+    candidate's row gathered from the sorted-order rows through the inverse
+    of the tile sort's permutation, added in float32 in run order."""
+    slot = np.empty(len(perm), np.int64)
+    slot[perm] = np.arange(len(perm))
+    out = np.zeros((len(counts), sorted_rows.shape[1]), np.float32)
+    c = 0
+    for g, k in enumerate(counts):
+        for _ in range(k):
+            out[g] += sorted_rows[slot[c]]
+            c += 1
+    return out
 
 
-@pytest.mark.parametrize("n,key_bits", [(0, 8), (1, 1), (4097, 5), (30_000, 20)])
-def test_radix_sort_inverse_is_argsort_of_the_permutation(rng, n, key_bits):
-    # Binning's pair_slot, the inverse of the sort's permutation, is each
-    # key's sorted position: argsort of the permutation, and sorted[inv]
-    # gives the keys back.
-    keys = rng.integers(0, 1 << key_bits, n).astype(np.int32)
-    s_keys, perm = radix_sort(torch.from_numpy(keys), key_bits)
-    inv = inverse_permutation(perm)
-    assert inv.dtype == torch.int32 and inv.shape == (n,)
-    np.testing.assert_array_equal(perm.numpy(), np.argsort(keys, kind="stable"))
-    np.testing.assert_array_equal(inv.numpy(), np.argsort(perm.numpy()))
-    np.testing.assert_array_equal(s_keys.numpy()[inv.numpy()], keys)
+@pytest.mark.parametrize("case", ["empty runs", "long run", "packed words", "capped tail"])
+def test_segment_sum_plain_sums_contiguous_runs(rng, case):
+    # Rows in sorted-pair order, stored at their candidate (the tile sort's
+    # permutation) as the backward stores them: the sums over contiguous
+    # runs are the gathered sums, bit for bit.
+    n = 300
+    counts = rng.integers(0, 12, n)
+    if case == "empty runs":
+        counts[rng.random(n) < 0.6] = 0
+        counts[:5] = counts[-5:] = 0
+    if case == "long run":
+        counts[7] = 2000  # past a CUDA block's 256 Gaussians' worth of rows
+    p = int(counts.sum())
+    tiles = np.concatenate([np.sort(rng.choice(4096, k, replace=False)) for k in counts])
+    perm = np.argsort(tiles, kind="stable").astype(np.int32)
+    sorted_rows = (rng.standard_normal((p, 9)) * np.exp2(rng.integers(-20, 8, (p, 1))))
+    sorted_rows = sorted_rows.astype(np.float32)
+    if case == "packed words":
+        words = packing.pack_grad_rows(torch.from_numpy(sorted_rows))
+        sorted_rows = packing.unpack_grad_rows(words).numpy()
+        stored = torch.empty_like(words)
+        stored[torch.from_numpy(perm).long()] = words
+    else:
+        stored = torch.empty((p, 9), dtype=torch.float32)
+        stored[torch.from_numpy(perm).long()] = torch.from_numpy(sorted_rows)
+    pair_start = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    if case == "capped tail":  # rows past pair_start[n] are never read
+        stored = torch.cat([stored, torch.full((512, 9), float("nan"))])
+    got = segment_sum(stored, pair_start, n)
+    assert got.dtype == torch.float32 and got.shape == (n, 9)
+    np.testing.assert_array_equal(got.numpy(), _gathered_sums(sorted_rows, perm, counts))
+    assert (got.numpy()[counts == 0] == 0).all()
 
 
 @pytest.mark.parametrize("case", [name for name, _ in expand_edge_counts()])

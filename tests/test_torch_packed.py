@@ -267,7 +267,7 @@ def test_plain_backward_words_are_packed_rows(render_scene, port_grads, packed):
     args = (attrs.detach(), tables.splat_gid, tables.tile_start, tables.tile_count)
     out = rasterize_forward(*args, BG, num_tiles_x=4, packed=packed)
     d_tiles = _t(np.random.default_rng(4).normal(size=(12, 3, 256)).astype(np.float32))
-    kw = dict(num_tiles_x=4, num_tiles_y=3, packed=packed)
+    kw = dict(num_tiles_x=4, num_tiles_y=3, packed=packed, pair_cand=tables.pair_cand)
     rows = rasterize_backward(*args, out, d_tiles, BG, **kw)
     words = rasterize_backward(*args, out, d_tiles, BG, pack_grads=True, **kw)
     assert rows.dtype == torch.float32 and words.shape == (tables.num_pairs, 4)
@@ -278,8 +278,29 @@ def test_plain_backward_words_are_packed_rows(render_scene, port_grads, packed):
     # the packed inputs change the rows
     other = rasterize_backward(*args, rasterize_forward(*args, BG, num_tiles_x=4,
                                                         packed=not packed),
-                               d_tiles, BG, num_tiles_x=4, num_tiles_y=3, packed=not packed)
+                               d_tiles, BG, pair_cand=tables.pair_cand, num_tiles_x=4,
+                               num_tiles_y=3, packed=not packed)
     assert not torch.equal(rows, other)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_plain_backward_words_land_at_pair_cand(render_scene, port_grads, packed):
+    # Sorted pair j's words are stored at its candidate, pair_cand[j]: the
+    # words of an identity pair_cand (sorted-pair order), permuted.
+    s = render_scene
+    tables = port_grads[2]
+    attrs = pack_attrs(*(_t(s[k]) for k in ("uv", "conic", "rgb", "opacity")))
+    args = (attrs.detach(), tables.splat_gid, tables.tile_start, tables.tile_count)
+    out = rasterize_forward(*args, BG, num_tiles_x=4, packed=packed)
+    d_tiles = _t(np.random.default_rng(5).normal(size=(12, 3, 256)).astype(np.float32))
+    kw = dict(num_tiles_x=4, num_tiles_y=3, packed=packed, pack_grads=True)
+    p = tables.num_pairs
+    ident = torch.arange(p, dtype=torch.int32)
+    assert not torch.equal(tables.pair_cand, ident)
+    words = rasterize_backward(*args, out, d_tiles, BG, pair_cand=tables.pair_cand, **kw)
+    in_order = rasterize_backward(*args, out, d_tiles, BG, pair_cand=ident, **kw)
+    assert (in_order != 0).any(dim=1).sum() > p // 2
+    assert torch.equal(words[tables.pair_cand.long()], in_order)
 
 
 @pytest.mark.parametrize("case", ["runs", "empty frame"])
@@ -292,17 +313,16 @@ def test_packed_segment_sum_matches_jax_kernel(rng, case):
     counts[3] = 0 if case == "empty frame" else 300
     if case == "empty frame":
         counts[:] = 0
-    pair_slot, pair_start, _ = _runs(counts, rng, num_tiles=400)
+    _, pair_start, _ = _runs(counts, rng, num_tiles=400)
     p = int(counts.sum())
     rows = rng.standard_normal((p, 9)).astype(np.float32) * np.exp2(
         rng.integers(-30, 0, (p, 1))).astype(np.float32)
-    words = packing.pack_grad_rows(_t(rows))
-    got = segment_sum(words, pair_slot, pair_start, n)
+    words = packing.pack_grad_rows(_t(rows))  # in candidate order, as K2 stores them
+    got = segment_sum(words, pair_start, n)
     # the plain version sums the unpacked rows in run order
-    assert torch.equal(got, segment_sum_plain(packing.unpack_grad_rows(words), pair_slot,
-                                              pair_start, n))
+    assert torch.equal(got, segment_sum_plain(packing.unpack_grad_rows(words), pair_start, n))
     cand_gid = np.repeat(np.arange(n), counts).astype(np.int32)
-    values, ids = words.numpy()[pair_slot.numpy()].T, cand_gid
+    values, ids = words.numpy().T, cand_gid
     if p == 0:  # one sentinel slot (id n), never summed
         values, ids = np.zeros((4, 1), np.int32), np.full((1,), n, np.int32)
     ref = np.asarray(segment_sum_by_gid(jnp.asarray(values), jnp.asarray(ids), n,
