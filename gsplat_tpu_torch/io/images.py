@@ -6,7 +6,10 @@ their copy to the device: into pinned host memory, then a ``non_blocking``
 copy, so the transfer overlaps the train step. Images are drawn at random
 with replacement, draw ``k`` from ``random.Random(seed * 1_000_003 + k)``
 as in the reference, so the port samples the same image sequence. PIL is
-imported only when an image is decoded or encoded.
+imported only when an image is decoded or encoded. Traced (spans of
+``utils/profiling.py``): ``loader.decode`` on the thread, one an image,
+its parent the span that made the loader; ``loader.wait`` and
+``loader.close`` on the caller's.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 def load_image(path: str) -> np.ndarray:
@@ -60,6 +65,7 @@ class AsyncImageLoader:
         self._stride = stride
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
+        self._parent = profiling.current_span()  # the decode spans' parent
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -78,8 +84,9 @@ class AsyncImageLoader:
         while not self._stop.is_set():
             idx = -1
             try:
-                idx = self._next_index()
-                item = self._to_device(load_image(self._paths[idx]))
+                with profiling.span("loader.decode", parent=self._parent):
+                    idx = self._next_index()
+                    item = self._to_device(load_image(self._paths[idx]))
             except Exception as e:  # noqa: BLE001 — surfaced by next(): a
                 # dead producer thread would deadlock the training loop.
                 item = e
@@ -91,17 +98,19 @@ class AsyncImageLoader:
                     continue
 
     def next(self):
-        idx, item = self._q.get()
+        with profiling.span("loader.wait"):
+            idx, item = self._q.get()
         if isinstance(item, Exception):
             raise item
         return idx, item
 
     def close(self):
-        self._stop.set()
-        # Drain so the producer can leave a blocking put.
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
-        self._thread.join(timeout=5)
+        with profiling.span("loader.close"):
+            self._stop.set()
+            # Drain so the producer can leave a blocking put.
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=5)

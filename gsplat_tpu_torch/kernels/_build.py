@@ -62,6 +62,8 @@ SIGNATURES = {
     "gs_segment_sum": [_P, _P, _P, _I, _P],
     # out, words, pair_start, n, stream
     "gs_segment_sum_packed": [_P, _P, _P, _I, _P],
+    # times, slot, stamp, stamps, ring, advance, stream (utils/profiling.py)
+    "gs_stage_stamp": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 launches = {

@@ -43,6 +43,7 @@ import torch
 
 from ..kernels.rasterize import background, rasterize_backward, rasterize_forward
 from ..kernels.segsum import segment_sum
+from ..utils import profiling
 from .binning import TileTables
 
 
@@ -72,6 +73,7 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
+        profiling.stage_done("loss")  # the stage clock: the loss and its gradient end here
         attrs, splat_gid, tile_start, tile_count, pair_cand, pair_start, out = (
             ctx.saved_tensors)
         num_tiles_x, num_tiles_y, tile = ctx.grid
@@ -83,6 +85,7 @@ class _Rasterize(torch.autograd.Function):
             grad_scale=ctx.grad_scale, packed=packed, pack_grads=pack_grads,
         )
         d_attrs = segment_sum(rows, pair_start, attrs.shape[0])
+        profiling.stage_done("raster_bwd")
         return d_attrs, *(None,) * 12
 
 

@@ -35,6 +35,13 @@ collectives can be (NCCL).
 The uv-gradient statistic of densification comes from a zero probe added
 to uv before rasterization: its gradient is exactly the reference's
 scaled ``grad_uv``.
+
+The step and the render stamp the tracer's stage clock
+(``utils/profiling.py``): a step's stages are geometry, sh, binning,
+raster_fwd, loss, raster_bwd (stamped inside ``_Rasterize.backward``),
+per_gaussian_bwd and adam (the update, the metrics and the monitor's
+fold); a render's the first four. A graph captures the stamps, so its
+replays stamp the card's clock with no host work.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from ..ops import sh as sh_ops
 from ..ops.binning import TileTables, build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
+from ..utils import profiling
 from .state import PARAM_DIMS, GaussianParams, TrainState
 
 # The package's modules that call build_tile_tables and rasterize, the two
@@ -147,7 +155,9 @@ def _per_gaussian(params: GaussianParams, view, proj, campos, st: StepStatics):
     conic, radius = covariance.conic_and_radius(
         sigma, jac, view, st.mh_dist, opacity_logit=params.opacity
     )
+    profiling.stage_done("geometry")
     rgb = sh_ops.sh_to_rgb(params.xyz, params.rgb, params.sh, campos, st.l_max)
+    profiling.stage_done("sh")
     z = xyz_c[:, 2]
     return uv, conic, rgb, mask, radius, z
 
@@ -157,11 +167,13 @@ def _as_f32(x, device) -> torch.Tensor:
 
 
 def _tables(uv, z, radius, mask, st: StepStatics) -> TileTables:
-    return build_tile_tables(
+    tables = build_tile_tables(
         uv, z, radius, mask,
         num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile,
         pair_cap=st.pair_cap or None, row_cap=st.row_cap or None,
     )
+    profiling.stage_done("binning")
+    return tables
 
 
 @torch.no_grad()
@@ -172,16 +184,17 @@ def render_image(
 
     ``view``/``proj`` (4, 4) and ``campos`` (3,) may be numpy arrays or
     tensors; they are moved to the parameters' device. ``bg`` is a number
-    or a () float32 tensor.
+    or a () float32 tensor. Stamps the ``"render"`` stage clock.
     """
     dev = params.xyz.device
-    view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
-    uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
-    tables = _tables(uv, z, radius, mask, st)
-    out = rasterize(
-        uv, conic, rgb, params.opacity, tables, bg,
-        width=st.width, height=st.height, tile=st.tile,
-    )
+    with profiling.stage_clock("render", dev):
+        view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
+        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+        tables = _tables(uv, z, radius, mask, st)
+        out = rasterize(
+            uv, conic, rgb, params.opacity, tables, bg,
+            width=st.width, height=st.height, tile=st.tile,
+        )
     return out.image, tables
 
 
@@ -204,28 +217,33 @@ def compute_loss_and_grads(
     parameter name to its gradient (zeros where a parameter is unused, as
     for SH bands above ``l_max``); ``g_uv`` (N_cap, 2) is the gradient of
     the uv probe. Dead capacity rows may carry NaN gradients, which
-    ``apply_adam`` scrubs.
+    ``apply_adam`` scrubs. Stamps the ``"step"`` stage clock (in a step,
+    the step's clock).
     """
     dev = params.xyz.device
-    view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
-    names = list(PARAM_DIMS)
-    leaves = [getattr(params, name) for name in names]
-    with torch.enable_grad():
-        uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
-                               requires_grad=True)
-        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
-        uv = uv + uv_probe
-        tables = _tables(uv.detach(), z.detach(), radius, mask, st)
-        out = rasterize(
-            uv, conic, rgb, params.opacity, tables, bg,
-            width=st.width, height=st.height, tile=st.tile,
-        )
-        loss = fused_loss(out.image, gt_image, st.ssim_frac)
-        got = torch.autograd.grad(loss, leaves + [uv_probe], allow_unused=True)
-    grads = {
-        name: torch.zeros_like(leaf) if g is None else g
-        for name, leaf, g in zip(names, leaves, got)
-    }
+    with profiling.stage_clock("step", dev):
+        view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
+        names = list(PARAM_DIMS)
+        leaves = [getattr(params, name) for name in names]
+        with torch.enable_grad():
+            uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
+                                   requires_grad=True)
+            uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+            uv = uv + uv_probe
+            tables = _tables(uv.detach(), z.detach(), radius, mask, st)
+            out = rasterize(
+                uv, conic, rgb, params.opacity, tables, bg,
+                width=st.width, height=st.height, tile=st.tile,
+            )
+            profiling.stage_done("raster_fwd")
+            # "loss" ends, and "raster_bwd" is stamped, in _Rasterize.backward
+            loss = fused_loss(out.image, gt_image, st.ssim_frac)
+            got = torch.autograd.grad(loss, leaves + [uv_probe], allow_unused=True)
+        grads = {
+            name: torch.zeros_like(leaf) if g is None else g
+            for name, leaf, g in zip(names, leaves, got)
+        }
+        profiling.stage_done("per_gaussian_bwd")
     return loss.detach(), out.image.detach(), mask, tables, grads, got[-1]
 
 
@@ -308,19 +326,21 @@ def train_step(
     iteration, st: StepStatics,
 ) -> tuple[TrainState, StepMetrics]:
     """One optimizer step on one camera; updates ``state`` in place and
-    returns it with the step's metrics."""
-    loss, image, mask, tables, grads, g_uv = compute_loss_and_grads(
-        state.params, view, proj, campos, gt_image, bg, st
-    )
-    apply_adam(state, grads, g_uv, mask, iteration, st)
-    metrics = StepMetrics(
-        loss=loss,
-        psnr=compute_psnr(image, gt_image),
-        num_visible=torch.sum(mask.to(torch.int32)),
-        num_pairs=tables.num_pairs,
-        overflow=tables.overflow,
-        row_overflow=tables.row_overflow,
-    )
+    returns it with the step's metrics. Stamps the ``"step"`` stage clock:
+    its last stage, ``adam``, holds the update and the metrics."""
+    with profiling.stage_clock("step", state.params.xyz.device):
+        loss, image, mask, tables, grads, g_uv = compute_loss_and_grads(
+            state.params, view, proj, campos, gt_image, bg, st
+        )
+        apply_adam(state, grads, g_uv, mask, iteration, st)
+        metrics = StepMetrics(
+            loss=loss,
+            psnr=compute_psnr(image, gt_image),
+            num_visible=torch.sum(mask.to(torch.int32)),
+            num_pairs=tables.num_pairs,
+            overflow=tables.overflow,
+            row_overflow=tables.row_overflow,
+        )
     return state, metrics
 
 
@@ -332,9 +352,12 @@ def monitored_train_step(
     ``monitor`` (3,) float32 [max pair requirement seen, max row
     requirement seen, all losses finite] folds this step in on the device,
     so one host read at a boundary covers every step since the last
-    ``fresh_monitor``. Returns (state, metrics, new monitor)."""
-    state, m = train_step(state, view, proj, campos, gt_image, bg, iteration, st)
-    return state, m, fold_monitor(monitor, m)
+    ``fresh_monitor``. Returns (state, metrics, new monitor). The fold
+    ends the stage clock's ``adam`` stage."""
+    with profiling.stage_clock("step", state.params.xyz.device):
+        state, m = train_step(state, view, proj, campos, gt_image, bg, iteration, st)
+        new_monitor = fold_monitor(monitor, m)
+    return state, m, new_monitor
 
 
 def fold_monitor(monitor: torch.Tensor, m: StepMetrics) -> torch.Tensor:
@@ -389,10 +412,11 @@ class _Graphed:
     static input buffers and replays it; later calls copy their inputs into
     the buffers (a device copy, or a fill for a number) and replay, with no
     host read. Each replay adds the launches the capture recorded
-    (``_build.recording``). A capture that fails raises.
+    (``_build.recording``) and advances the stage clocks' slots as the
+    capture's stamps do (``profiling.recording``). A capture that fails
+    raises. The tracer counts eager first calls (``step.eager``) and
+    captures (``step.captures``), a render's too, and spans both.
     """
-
-    captures = 0  # made by every _Graphed of the process
 
     def __init__(self):
         self.warm_key = None  # the state and mode of the eager first call
@@ -400,7 +424,8 @@ class _Graphed:
 
     def free(self) -> None:
         """Drop the graph, its memory pool and its buffers."""
-        self.graph, self.key, self.bufs, self.outputs, self.counted = None, None, {}, None, {}
+        self.graph, self.key, self.bufs, self.outputs = None, None, {}, None
+        self.counted, self.advanced = {}, {}
 
     def run(self, tensors: list[torch.Tensor], fn, inputs: dict):
         """``fn(**inputs)``, through the graph of the state ``tensors``.
@@ -413,30 +438,34 @@ class _Graphed:
             dev = tensors[0].device
             if self.warm_key != key:
                 self.warm_key = key
-                here = torch.cuda.current_stream(dev)
-                side = torch.cuda.Stream(dev)
-                side.wait_stream(here)
-                with torch.cuda.stream(side):
-                    out = fn(**inputs)
-                here.wait_stream(side)
-                for t in _tensors_of(out):  # made on the side stream, used here
-                    t.record_stream(here)
+                profiling.count("step.eager")
+                with profiling.span("step.eager"):
+                    here = torch.cuda.current_stream(dev)
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(here)
+                    with torch.cuda.stream(side):
+                        out = fn(**inputs)
+                    here.wait_stream(side)
+                    for t in _tensors_of(out):  # made on the side stream, used here
+                        t.record_stream(here)
                 return out
-            self.bufs = {k: v.detach().clone() if isinstance(v, torch.Tensor)
-                         else torch.full((), v, dtype=torch.float32, device=dev)
-                         for k, v in inputs.items()}
-            graph = torch.cuda.CUDAGraph()
-            here = torch.cuda.current_stream(dev)
-            try:
-                with _build.recording() as counted:
-                    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                        self.outputs = fn(**self.bufs)
-            except BaseException:
-                torch.cuda.set_stream(here)  # a failed capture can leave its stream current
-                self.free()
-                raise
-            self.graph, self.counted, self.key = graph, counted, key
-            _Graphed.captures += 1
+            with profiling.span("step.capture"):
+                self.bufs = {k: v.detach().clone() if isinstance(v, torch.Tensor)
+                             else torch.full((), v, dtype=torch.float32, device=dev)
+                             for k, v in inputs.items()}
+                profiling.rings_on(dev)  # the stage clocks' rings stay out of the pool
+                graph = torch.cuda.CUDAGraph()
+                here = torch.cuda.current_stream(dev)
+                try:
+                    with _build.recording() as counted, profiling.recording() as advanced:
+                        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                            self.outputs = fn(**self.bufs)
+                except BaseException:
+                    torch.cuda.set_stream(here)  # a failed capture can leave its stream current
+                    self.free()
+                    raise
+            self.graph, self.counted, self.advanced, self.key = graph, counted, advanced, key
+            profiling.count("step.captures")
         for name, value in inputs.items():
             buf = self.bufs[name]
             if not isinstance(value, torch.Tensor):
@@ -445,6 +474,7 @@ class _Graphed:
                 buf.copy_(value)
         self.graph.replay()
         _build.add_launches(self.counted)
+        profiling.advance(self.advanced)
         return self.outputs
 
 
@@ -460,7 +490,9 @@ class _Factory:
     iteration, st) -> (state, metrics)`` is the step it runs
     (``train_step``, or a parallel step bound to its process group), and
     ``monitored`` folds the metrics into the monitor; with no ``step`` it
-    is the render."""
+    is the render. A call is the span ``step.issue`` or ``render.issue``,
+    which carries the slot of the call's stage clock: its input copies,
+    the replay and the copies out of its outputs."""
 
     def __init__(self, st: StepStatics, step=None, monitored: bool = False,
                  capturable=None):
@@ -473,6 +505,13 @@ class _Factory:
                 and (self.capturable is None or self.capturable()))
 
     def __call__(self, *args):
+        if self.step is None:
+            with profiling.issue_span("render", args[0].xyz.device):
+                return self._call(*args)
+        with profiling.issue_span("step", args[0].params.xyz.device):
+            return self._call(*args)
+
+    def _call(self, *args):
         st = self.st
         if self.step is None:
             params, view, proj, campos, bg = args
@@ -489,20 +528,22 @@ class _Factory:
             # The image lives in the graph's pool: the caller gets its own.
             return self.graphed.run(tensors, render, inputs).clone()
         state, view, proj, campos, gt_image, bg, iteration = args[:7]
-        if not self._graphs(state.params.xyz.device):
-            state, m = self.step(*args[:7], st)
-            return (state, m, fold_monitor(args[7], m)) if self.monitored else (state, m)
         dev = state.params.xyz.device
+        if not self._graphs(dev):
+            with profiling.stage_clock("step", dev):
+                state, m = self.step(*args[:7], st)
+                return (state, m, fold_monitor(args[7], m)) if self.monitored else (state, m)
 
         def step(view, proj, campos, gt_image, bg, iteration, monitor=None):
-            m = self.step(state, view, proj, campos, gt_image, bg, iteration, st)[1]
-            if monitor is None:
-                return m
-            new_monitor = fold_monitor(monitor, m)
-            if torch.cuda.is_current_stream_capturing():
-                monitor.copy_(new_monitor)  # the buffer accumulates over replays
-                new_monitor = monitor
-            return m, new_monitor
+            with profiling.stage_clock("step", dev):
+                m = self.step(state, view, proj, campos, gt_image, bg, iteration, st)[1]
+                if monitor is None:
+                    return m
+                new_monitor = fold_monitor(monitor, m)
+                if torch.cuda.is_current_stream_capturing():
+                    monitor.copy_(new_monitor)  # the buffer accumulates over replays
+                    new_monitor = monitor
+                return m, new_monitor
 
         inputs = dict(view=_on(view, dev), proj=_on(proj, dev), campos=_on(campos, dev),
                       gt_image=gt_image, bg=bg, iteration=iteration)
@@ -570,5 +611,6 @@ def release_graphs() -> None:
 
 
 def graph_captures() -> int:
-    """CUDA graph captures the factories have made in this process."""
-    return _Graphed.captures
+    """CUDA graph captures the factories have made in this process (the
+    tracer's counter ``step.captures``)."""
+    return profiling.counter("step.captures")

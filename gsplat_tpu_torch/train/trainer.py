@@ -40,6 +40,14 @@ so a graph stays valid across them. Eval renders and image dumps go
 through ``step.get_render_fn``. The split noise comes from
 ``density.split_noise`` (a ``torch.Generator`` seeded by
 ``seed * 1_000_003 + iteration``) instead of threefry.
+
+Traced (``utils/profiling.py``, while a torch.profiler session records),
+a ``train`` call is the span ``trainer.train``, the parent of its
+loader's spans (``loader.wait``, ``loader.decode``, ``loader.close``) and
+of ``trainer.step`` (the step's issue), ``trainer.monitor_read`` (the
+boundary's host read), ``trainer.dump``, ``trainer.eval`` and
+``trainer.density`` (the density step, its growth and second pass
+included).
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ from ..ops.loss import compute_psnr
 from ..parallel import require_world
 from ..parallel.data_parallel import get_monitored_dp_train_step
 from ..parallel.tile_parallel import get_monitored_tp_train_step
-from ..utils import checkpoint
+from ..utils import checkpoint, profiling
 from .density import (
     DensityInfo, DensityStatics, adaptive_density_step, morton_sort, reset_opacity,
     split_noise, zero_sh,
@@ -268,19 +276,20 @@ class Trainer:
 
     def _step(self, img: Image, gt: torch.Tensor, monitor: torch.Tensor):
         """One step on ``img``: (state, metrics, monitor)."""
-        st = self._statics(self._matrices(img))
-        key = (self.pair_cap, self.row_cap, self.l_max, self.state.capacity)
-        if key != self._graph_key:  # the old graphs' statics are gone
-            release_graphs()
-            self._graph_key = key
-        if self.dp:
-            step = get_monitored_dp_train_step(st)
-        elif self.tp:
-            step = get_monitored_tp_train_step(st)
-        else:
-            step = get_monitored_train_step(st)
-        return step(
-            self.state, *self._camera(img), gt, self._bg(self.iter), self.iter, monitor)
+        with profiling.span("trainer.step"):
+            st = self._statics(self._matrices(img))
+            key = (self.pair_cap, self.row_cap, self.l_max, self.state.capacity)
+            if key != self._graph_key:  # the old graphs' statics are gone
+                release_graphs()
+                self._graph_key = key
+            if self.dp:
+                step = get_monitored_dp_train_step(st)
+            elif self.tp:
+                step = get_monitored_tp_train_step(st)
+            else:
+                step = get_monitored_train_step(st)
+            return step(
+                self.state, *self._camera(img), gt, self._bg(self.iter), self.iter, monitor)
 
     def _grow_caps(self, overflow: int, row_overflow: int) -> None:
         """The reference's growth at a boundary: a capacity the window's
@@ -307,90 +316,94 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self, max_iters: int | None = None, verbose: bool = True) -> None:
-        c = self.config
-        num_iters = max_iters if max_iters is not None else c.num_iters
-        # counter-based draws: a resumed run samples what an uninterrupted
-        # one would
-        buckets, loaders = self._loaders()
-        lead = self.rank == 0
-        bar = ProgressBar(num_iters) if verbose and lead else None
-        out_dir = Path(c.output_dir)
-        eval_interval = 3000 if c.strict_reference else max(c.test_eval_interval, 1)
-        monitor = fresh_monitor(self.device)
-        window_start = self.iter
-        try:
-            while self.iter < num_iters:
-                self._maybe_add_sh_band(self.iter)
-                bi = (self._dp_bucket_choice(self.iter, buckets)
-                      if self.dp and len(buckets) > 1 else 0)
-                idx, gt = loaders[bi].next()
-                img = self.train_images[buckets[bi][idx]]
-                self.state, metrics, monitor = self._step(img, gt, monitor)
-                densify = (
-                    self.iter > c.adaptive_control_start
-                    and self.iter % c.adaptive_control_interval == 0
-                    and self.iter < c.adaptive_control_end
-                )
-                if self.iter % c.print_interval == 0 or densify:
-                    # One host read covers every step of the window.
-                    mon = monitor.cpu().tolist()
-                    monitor = fresh_monitor(self.device)
-                    self._grow_caps(int(mon[0]), int(mon[1]))
-                    if not mon[2] > 0.0:
-                        raise FloatingPointError(
-                            f"non-finite loss in iterations [{window_start}, {self.iter}]"
-                        )
-                    window_start = self.iter + 1
-                    if bar is not None:
-                        bar.update(self.iter, float(metrics.loss), num_active(self.state))
+        with profiling.span("trainer.train"):
+            c = self.config
+            num_iters = max_iters if max_iters is not None else c.num_iters
+            # counter-based draws: a resumed run samples what an uninterrupted
+            # one would
+            buckets, loaders = self._loaders()
+            lead = self.rank == 0
+            bar = ProgressBar(num_iters) if verbose and lead else None
+            out_dir = Path(c.output_dir)
+            eval_interval = 3000 if c.strict_reference else max(c.test_eval_interval, 1)
+            monitor = fresh_monitor(self.device)
+            window_start = self.iter
+            try:
+                while self.iter < num_iters:
+                    self._maybe_add_sh_band(self.iter)
+                    bi = (self._dp_bucket_choice(self.iter, buckets)
+                          if self.dp and len(buckets) > 1 else 0)
+                    idx, gt = loaders[bi].next()
+                    img = self.train_images[buckets[bi][idx]]
+                    self.state, metrics, monitor = self._step(img, gt, monitor)
+                    densify = (
+                        self.iter > c.adaptive_control_start
+                        and self.iter % c.adaptive_control_interval == 0
+                        and self.iter < c.adaptive_control_end
+                    )
+                    if self.iter % c.print_interval == 0 or densify:
+                        # One host read covers every step of the window.
+                        with profiling.span("trainer.monitor_read"):
+                            mon = monitor.cpu().tolist()
+                        monitor = fresh_monitor(self.device)
+                        self._grow_caps(int(mon[0]), int(mon[1]))
+                        if not mon[2] > 0.0:
+                            raise FloatingPointError(
+                                f"non-finite loss in iterations [{window_start}, {self.iter}]"
+                            )
+                        window_start = self.iter + 1
+                        if bar is not None:
+                            bar.update(self.iter, float(metrics.loss), num_active(self.state))
 
-                if self.iter % c.print_interval == 0 and lead:
-                    self._dump_image(img, out_dir)
+                    if self.iter % c.print_interval == 0 and lead:
+                        self._dump_image(img, out_dir)
 
-                if self.iter % eval_interval == 0 and lead:
-                    self.evaluate(verbose=verbose)
+                    if self.iter % eval_interval == 0 and lead:
+                        self.evaluate(verbose=verbose)
 
-                if densify:
-                    self._density_step()
+                    if densify:
+                        self._density_step()
 
-                if (
-                    self.iter > c.reset_opacity_start
-                    and self.iter % c.reset_opacity_interval == 0
-                    and self.iter < c.reset_opacity_end
-                ):
-                    reset_opacity(self.state, c.reset_opacity_value)
+                    if (
+                        self.iter > c.reset_opacity_start
+                        and self.iter % c.reset_opacity_interval == 0
+                        and self.iter < c.reset_opacity_end
+                    ):
+                        reset_opacity(self.state, c.reset_opacity_value)
 
-                self.iter += 1
-        finally:
-            for loader in loaders:
-                loader.close()
-            if bar is not None:
-                bar.finish()
+                    self.iter += 1
+            finally:
+                for loader in loaders:
+                    loader.close()
+                if bar is not None:
+                    bar.finish()
 
     # ------------------------------------------------------------------
     def _density_step(self) -> DensityInfo:
         """Prune/clone/split (growing the capacity and running again when
         it does not fit), then the Morton re-sort, which runs whether or
         not the step applied."""
-        ds = self._density_statics()
-        seed = self.config.seed
-        new_state, info = adaptive_density_step(
-            self.state, ds, *split_noise(self.state, seed, self.iter))
-        if info.needs_grow:
-            new_cap = round_capacity(info.new_total, minimum=self.state.capacity * 2)
-            new_cap = min(new_cap, round_capacity(self.config.max_gaussians))
-            self.state = grow_state(self.state, new_cap)
+        with profiling.span("trainer.density"):
+            ds = self._density_statics()
+            seed = self.config.seed
             new_state, info = adaptive_density_step(
                 self.state, ds, *split_noise(self.state, seed, self.iter))
-        self.state = morton_sort(new_state)
-        return info
+            if info.needs_grow:
+                new_cap = round_capacity(info.new_total, minimum=self.state.capacity * 2)
+                new_cap = min(new_cap, round_capacity(self.config.max_gaussians))
+                self.state = grow_state(self.state, new_cap)
+                new_state, info = adaptive_density_step(
+                    self.state, ds, *split_noise(self.state, seed, self.iter))
+            self.state = morton_sort(new_state)
+            return info
 
     # ------------------------------------------------------------------
     def _dump_image(self, img: Image, out_dir: Path) -> None:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        pred = self._render(img, bg=self._bg(self.iter))
-        arr = np.clip(pred.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
-        image_io.save_image(out_dir / f"rendered_image_{self.iter}.png", arr)
+        with profiling.span("trainer.dump"):
+            out_dir.mkdir(parents=True, exist_ok=True)
+            pred = self._render(img, bg=self._bg(self.iter))
+            arr = np.clip(pred.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+            image_io.save_image(out_dir / f"rendered_image_{self.iter}.png", arr)
 
     def render(self, cm: CameraMatrices, bg: float = 0.0) -> torch.Tensor:
         """(H, W, 3) image of the current Gaussians from one camera."""
@@ -409,44 +422,45 @@ class Trainer:
         current one, and the per-image PSNRs stay on the device until one
         read at the end. Unreadable test images are skipped with a
         warning."""
-        if not self.test_images:
-            return None
-        loads: queue.Queue = queue.Queue(maxsize=2)
+        with profiling.span("trainer.eval"):
+            if not self.test_images:
+                return None
+            loads: queue.Queue = queue.Queue(maxsize=2)
 
-        def _producer():
-            for img in self.test_images:
-                try:
-                    gt = image_io.load_image(img.name)
-                except OSError as e:
-                    loads.put((img, None, e))
-                else:
-                    loads.put((img, gt, None))
-            loads.put(None)
+            def _producer():
+                for img in self.test_images:
+                    try:
+                        gt = image_io.load_image(img.name)
+                    except OSError as e:
+                        loads.put((img, None, e))
+                    else:
+                        loads.put((img, gt, None))
+                loads.put(None)
 
-        thread = threading.Thread(target=_producer, daemon=True)
-        thread.start()
-        psnrs = []
-        skipped = []
-        while (item := loads.get()) is not None:
-            img, gt, err = item
-            if err is not None:
-                skipped.append(f"{img.name}: {err}")
-                continue
-            pred = self._render(img, bg=0.0)
-            psnrs.append(compute_psnr(pred, torch.from_numpy(gt).to(self.device)))
-        thread.join()
-        if skipped:
-            warnings.warn(
-                f"evaluate(): skipped {len(skipped)}/{len(self.test_images)} unreadable "
-                f"test images (first: {skipped[0]})",
-                stacklevel=2,
-            )
-        if not psnrs:
-            return None
-        mean = float(np.mean(torch.stack(psnrs).cpu().numpy()))
-        if verbose:
-            print(f"\n[ITER {self.iter}] Eval PSNR: {mean:.4f}")
-        return mean
+            thread = threading.Thread(target=_producer, daemon=True)
+            thread.start()
+            psnrs = []
+            skipped = []
+            while (item := loads.get()) is not None:
+                img, gt, err = item
+                if err is not None:
+                    skipped.append(f"{img.name}: {err}")
+                    continue
+                pred = self._render(img, bg=0.0)
+                psnrs.append(compute_psnr(pred, torch.from_numpy(gt).to(self.device)))
+            thread.join()
+            if skipped:
+                warnings.warn(
+                    f"evaluate(): skipped {len(skipped)}/{len(self.test_images)} unreadable "
+                    f"test images (first: {skipped[0]})",
+                    stacklevel=2,
+                )
+            if not psnrs:
+                return None
+            mean = float(np.mean(torch.stack(psnrs).cpu().numpy()))
+            if verbose:
+                print(f"\n[ITER {self.iter}] Eval PSNR: {mean:.4f}")
+            return mean
 
     # ------------------------------------------------------------------
     def save_to_ply(self, filename: str | Path) -> None:

@@ -762,3 +762,65 @@ def test_nccl_one_rank_graph_bit_equal_to_eager(dev, kind):
             np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
     for name in ("alive", "uv_grad_accum", "accum_dur"):
         np.testing.assert_array_equal(s_g[name], s_e[name])
+
+
+@pytest.mark.parametrize("kind", ["step", "render"])
+def test_stage_clock_in_the_graph(dev, kind):
+    """The stage clock's stamps captured into the monitored step's (or the
+    render's) CUDA graph: the graphed calls' outputs bit-identical to the
+    eager calls', every stage >= 0 (the stamps in order) for each replay,
+    and the stages summed over 20 more replays within 3 % of CUDA events
+    recorded around the same replays."""
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+    from gsplat_tpu_torch.utils import profiling
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    runs = []
+    for graphed in (False, True):
+        state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+        monitor, out = t_step.fresh_monitor(dev), []
+        step, render = t_step.get_monitored_train_step(st), t_step.get_render_fn(st)
+        for it in range(3):
+            args = (state, *cam_t[it % 2], gt, 0.1 * it, it)
+            if kind == "step":
+                if graphed:
+                    state, m, monitor = step(*args, monitor)
+                else:
+                    state, m, monitor = t_step.monitored_train_step(*args, monitor, st)
+                out.append(torch.cat([torch.stack([m.loss, m.psnr]), monitor]))
+            else:
+                img = (render(state.params, *cam_t[it % 2], 0.1 * it) if graphed else
+                       t_step.render_image(state.params, *cam_t[it % 2], 0.1 * it, st)[0])
+                out.append(img.reshape(-1))
+        torch.cuda.synchronize()
+        runs.append((torch.stack(out).cpu(), t_state.state_to_numpy(state)))
+        if not graphed:
+            t_step.release_graphs()
+    (o_e, s_e), (o_g, s_g) = runs
+    assert torch.equal(o_e.view(torch.int32), o_g.view(torch.int32))
+    for name in s_e["params"]:
+        np.testing.assert_array_equal(s_g["params"][name], s_e["params"][name])
+
+    factory = step if kind == "step" else render
+    graph = factory.graphed.graph
+    profiling.clear()
+    events = []
+    for _ in range(20):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # the card stays busy while the host queues the replay
+        e0.record()
+        graph.replay()  # the last call's inputs again
+        e1.record()
+        profiling.advance(factory.graphed.advanced)
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    times = profiling.stage_times(kind, dev)
+    t_step.release_graphs()
+    assert len(times) == 20
+    for stages in times.values():
+        assert tuple(stages) == profiling.STAGES[kind]
+        assert all(ms >= 0 for ms in stages.values()), stages
+    stamped = sum(sum(stages.values()) for stages in times.values())
+    timed = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    assert stamped == pytest.approx(timed, rel=0.03), (stamped, timed)
