@@ -41,9 +41,18 @@ through ``step.get_render_fn``. The split noise comes from
 ``density.split_noise`` (a ``torch.Generator`` seeded by
 ``seed * 1_000_003 + iteration``) instead of threefry.
 
+The trainer owns one ``image_io.DecodedImages`` for its lifetime and hands
+it to every loader it builds (alone, each dp bucket's, tp's), so each
+training image is decoded once, on its first draw, and every later draw,
+in this ``train`` call or a later one, takes the same device tensor; the
+draws and the images are those of a loader without it. The cache turns
+itself off where the decoded training set would pass a quarter of the
+device's free memory, and the loader then decodes every draw.
+
 Traced (``utils/profiling.py``, while a torch.profiler session records),
 a ``train`` call is the span ``trainer.train``, the parent of its
-loader's spans (``loader.wait``, ``loader.decode``, ``loader.close``) and
+loader's spans (``loader.wait``, ``loader.decode``, ``loader.close``;
+its counters ``loader.hits`` and ``loader.misses``) and
 of ``trainer.step`` (the step's issue), ``trainer.monitor_read`` (the
 boundary's host read), ``trainer.dump``, ``trainer.eval`` and
 ``trainer.density`` (the density step, its growth and second pass
@@ -157,6 +166,8 @@ class Trainer:
         self._cam_cache: dict[int, CameraMatrices] = {}
         self._cam_tensors: dict[int, tuple] = {}
         self.test_train_split()
+        # every loader's decoded ground truths, kept across train calls
+        self._decoded = image_io.DecodedImages(len(self.train_images))
 
     # ------------------------------------------------------------------
     def test_train_split(self) -> None:
@@ -259,7 +270,8 @@ class Trainer:
         if not self.dp:
             # under tp every rank draws the same image
             return [list(range(len(names)))], [image_io.AsyncImageLoader(
-                names, self.device, seed=c.seed, prefetch=2, start=self.iter)]
+                names, self.device, seed=c.seed, prefetch=2, start=self.iter,
+                cache=self._decoded)]
         buckets = self._dp_buckets()
         consumed = [0] * len(buckets)
         if len(buckets) > 1:
@@ -270,7 +282,8 @@ class Trainer:
         return buckets, [
             image_io.AsyncImageLoader(
                 [names[p] for p in bucket], self.device, seed=c.seed + 1_000_003 * bi,
-                prefetch=2, start=consumed[bi] * self.dp + self.rank, stride=self.dp)
+                prefetch=2, start=consumed[bi] * self.dp + self.rank, stride=self.dp,
+                cache=self._decoded)
             for bi, bucket in enumerate(buckets)
         ]
 

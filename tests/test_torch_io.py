@@ -371,10 +371,12 @@ def test_checkpoint_port_to_jax(tmp_path):
 # ------------------------------------------------------------- images
 
 
-def test_image_io_and_loader_draws_match_jax(tmp_path):
+@pytest.mark.parametrize("cached", [False, True])
+def test_image_io_and_loader_draws_match_jax(tmp_path, cached):
     """save_image / load_image round-trip a PNG as the reference reads it,
     and the loader draws the reference's image sequence from any start
-    (counter-based draws), each image as a float32 tensor."""
+    (counter-based draws), each image as a float32 tensor, with or without
+    a decoded-image cache (shared by both starts' loaders)."""
     from gsplat_tpu.io import images as j_images
     from gsplat_tpu_torch.io import images as t_images
 
@@ -387,9 +389,10 @@ def test_image_io_and_loader_draws_match_jax(tmp_path):
         np.testing.assert_array_equal(t_images.load_image(paths[-1]), arr / np.float32(255.0))
         np.testing.assert_array_equal(t_images.load_image(paths[-1]),
                                       j_images.load_image(paths[-1]))
+    cache = t_images.DecodedImages(len(paths)) if cached else None
     for start in (0, 5):
         ref = j_images.AsyncImageLoader(paths, seed=3, start=start)
-        got = t_images.AsyncImageLoader(paths, "cpu", seed=3, start=start)
+        got = t_images.AsyncImageLoader(paths, "cpu", seed=3, start=start, cache=cache)
         try:
             for _ in range(8):
                 (j_idx, j_img), (t_idx, t_img) = ref.next(), got.next()
@@ -399,6 +402,63 @@ def test_image_io_and_loader_draws_match_jax(tmp_path):
         finally:
             ref.close()
             got.close()
+
+
+def _counts():
+    from gsplat_tpu_torch.utils import profiling
+
+    return profiling.counter("loader.hits"), profiling.counter("loader.misses")
+
+
+def _draws(loader, n):
+    try:
+        return [loader.next() for _ in range(n)]
+    finally:
+        loader.close()
+
+
+@pytest.mark.parametrize("free", [None, 0])
+def test_loader_cache_decodes_each_image_once_within_its_bound(tmp_path, monkeypatch, free):
+    """A cache decodes each path once, on its first draw and in the order of
+    first draws, and hands out the decoded tensor again, bit-equal to a
+    decode; counted as hits and misses. Where the decoded set would pass
+    a quarter of the free memory (none free here), it turns itself off:
+    every draw is decoded and none is a hit."""
+    from gsplat_tpu_torch.io import images as t_images
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(4):
+        paths.append(str(tmp_path / f"im{i}.png"))
+        t_images.save_image(paths[-1], rng.integers(0, 256, (5, 7, 3)).astype(np.uint8))
+    if free is not None:
+        monkeypatch.setattr(t_images, "_free_bytes", lambda device: free)
+    real, calls = t_images.load_image, []
+
+    def load(path):
+        calls.append(path)
+        return real(path)
+
+    monkeypatch.setattr(t_images, "load_image", load)
+    cache = t_images.DecodedImages(len(paths))
+    before = _counts()
+    got = _draws(t_images.AsyncImageLoader(paths, "cpu", seed=5, cache=cache), 12)
+    got += _draws(t_images.AsyncImageLoader(paths, "cpu", seed=5, start=12, cache=cache), 12)
+    hits, misses = (a - b for a, b in zip(_counts(), before))
+    assert hits + misses == 24
+    order = [paths[i] for i, _ in got]
+    for (i, img), path in zip(got, order):
+        np.testing.assert_array_equal(img.numpy(), real(path))
+    if free is None:
+        first = list(dict.fromkeys(order))  # all four, within the first loader's draws
+        # the threads may have drawn ahead of the 24 draws taken
+        assert calls[: len(first)] == first and len(set(calls)) == len(calls)
+        assert misses == len(first) and hits == 24 - len(first)
+        assert all(img is cache.get(paths[i]) for i, img in got)
+    else:
+        assert calls[:12] == order[:12] and len(calls) >= 24
+        assert hits == 0 and misses == 24
+        assert all(cache.get(p) is None for p in paths)
 
 
 def test_loader_surfaces_decode_errors(tmp_path):

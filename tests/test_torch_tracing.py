@@ -334,7 +334,8 @@ def _store():
                       for s in (4, 5, 6, 7)},
              "render": {s: {st: float(2 * s + i) for i, st in
                             enumerate(profiling.STAGES["render"])} for s in (1, 2, 3)}}
-    counts = {"step.eager": 1, "step.captures": 2, "other": 7}
+    counts = {"step.eager": 1, "step.captures": 2, "loader.hits": 3, "loader.misses": 1,
+              "other": 7}
     return SimpleNamespace(spans=lambda: spans, counters=lambda: dict(counts),
                            stage_times=lambda kind: times[kind])
 
@@ -345,6 +346,8 @@ def _expected(name):
         return 20.0
     if metric == "graph_builds":
         return 3
+    if metric == "loader_hit_pct":
+        return 75.0
     span = {"loader_wait_ms": "loader.wait", "step_issue_ms": "trainer.step",
             "monitor_read_ms": "trainer.monitor_read", "dump_ms": "trainer.dump",
             "density_ms": "trainer.density"}.get(metric)

@@ -20,7 +20,9 @@ no silent CPU fallback when no card is present.
 """
 
 import dataclasses
+import itertools
 import os
+import random
 import warnings
 from pathlib import Path
 from types import SimpleNamespace
@@ -311,17 +313,27 @@ def _trainer(dataset, tmp_path, **cfg):
                              device="cpu")
 
 
+def _draw(seed: int, k: int, n: int) -> int:
+    """The loader's draw k: the image it takes at iteration k."""
+    return random.Random(seed * 1_000_003 + k).randint(0, n - 1)
+
+
 def test_nonfinite_loss_mid_window_raises(dataset, tmp_path, monkeypatch):
     # The image of draw 1 (iteration 1) holds a NaN; iteration 2's loss is
-    # finite again, and the boundary at 3 still sees the window's NaN.
-    tr = _trainer(dataset, tmp_path, print_interval=3, adaptive_control_start=10**9)
+    # finite again, and the boundary at 3 still sees the window's NaN. The
+    # trainer decodes each image once and draws it again from its cache, so
+    # the seed is the first whose window [0, 3] draws that image only at 1.
+    n = len(_trainer(dataset, tmp_path).train_images)
+    seed = next(s for s in itertools.count()
+                if [_draw(s, k, n) for k in range(4)].count(_draw(s, 1, n)) == 1)
+    tr = _trainer(dataset, tmp_path, print_interval=3, adaptive_control_start=10**9,
+                  seed=seed)
     real = t_images.load_image
-    calls = []
+    target = tr.train_images[_draw(seed, 1, n)].name
 
     def load(path):
-        calls.append(path)
         img = real(path)
-        if len(calls) == 2:
+        if path == target:
             img[0, 0, 0] = np.nan
         return img
 
@@ -329,6 +341,45 @@ def test_nonfinite_loss_mid_window_raises(dataset, tmp_path, monkeypatch):
     with pytest.raises(FloatingPointError, match=r"iterations \[1, 3\]"):
         tr.train(verbose=False)
     assert tr.iter == 3
+
+
+def test_trainer_decodes_each_image_once_across_train_calls(dataset, tmp_path, monkeypatch):
+    """Over two ``train`` calls of one Trainer, each drawn image is decoded
+    once, in the order of first draws; every step gets the loader's
+    counter-based draw and a ground truth bit-equal to a decode, which the
+    steps leave unchanged."""
+    from gsplat_tpu_torch.utils import profiling
+
+    tr = _trainer(dataset, tmp_path, test_split_ratio=0)  # evaluate() decodes none
+    real, calls, taken = t_images.load_image, [], []
+
+    def load(path):
+        calls.append(path)
+        return real(path)
+
+    real_step = tr._step
+
+    def step(img, gt, monitor):
+        taken.append((img.name, gt))
+        return real_step(img, gt, monitor)
+
+    monkeypatch.setattr(t_images, "load_image", load)
+    monkeypatch.setattr(tr, "_step", step)
+    before = [profiling.counter(c) for c in ("loader.hits", "loader.misses")]
+    tr.train(max_iters=4, verbose=False)
+    tr.train(max_iters=8, verbose=False)
+    hits, misses = (profiling.counter(c) - b
+                    for c, b in zip(("loader.hits", "loader.misses"), before))
+    names = [im.name for im in tr.train_images]
+    # the loaders' threads may have drawn up to two draws ahead of a call
+    drawn = [names[_draw(tr.config.seed, k, len(names))] for k in range(8 + 2)]
+    assert [name for name, _ in taken] == drawn[:8]
+    first = list(dict.fromkeys(drawn))
+    assert calls == first[: len(calls)] and set(drawn[:8]) <= set(calls)
+    assert hits + misses == 8 and hits >= 8 - len(set(drawn[:8])) > 0
+    for name, gt in taken:
+        assert gt is tr._decoded.get(name)
+        np.testing.assert_array_equal(gt.numpy(), real(name))
 
 
 def test_evaluate_and_skip_warning(dataset, tmp_path):
