@@ -24,6 +24,7 @@ import datetime
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from .data_parallel import dp_train_step, get_dp_train_step, get_monitored_dp_train_step
 from .tile_parallel import get_monitored_tp_train_step, get_tp_train_step, tp_train_step
 
@@ -60,8 +61,10 @@ def initialize_multihost(
 
     No backend is chosen after another fails. ``timeout`` (seconds) bounds
     every collective, so a rank that never reaches one turns into an error
-    instead of a hang. No-op when only one process is present and no
-    coordinator is given.
+    instead of a hang. Under NCCL the group is bound to the rank's device,
+    which makes its communicator here, not at the first collective. The
+    tracer's span ``dp.init`` covers the join and the communicator. No-op
+    when only one process is present and no coordinator is given.
     """
     if coordinator_address is None and num_processes in (None, 1):
         return
@@ -80,11 +83,13 @@ def initialize_multihost(
                                f"devices ({cards})")
         torch.cuda.set_device(local_rank)
     addr = coordinator_address
-    dist.init_process_group(
-        backend, init_method=addr if "://" in addr else f"tcp://{addr}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout),
-    )
+    bound = dict(device_id=torch.device("cuda", local_rank)) if backend == "nccl" else {}
+    with profiling.span("dp.init"):
+        dist.init_process_group(
+            backend, init_method=addr if "://" in addr else f"tcp://{addr}",
+            world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=timeout), **bound,
+        )
 
 
 def require_world(want: int, group=None) -> int:

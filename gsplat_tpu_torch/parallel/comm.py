@@ -19,6 +19,8 @@ tensor as it is, and its collectives are captured with the step.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
@@ -58,6 +60,16 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=0)
     return out.to(t.device) if staged else out
+
+
+def reduced_bytes(n: int, columns: int, scalars: int, counts: int, world: int) -> int:
+    """The bytes ``sum_over_ranks`` SUM-reduces for ``n`` Gaussians: the
+    float buffer (the parameter gradients, 59 floats a Gaussian at SH 3,
+    ``columns`` more floats a Gaussian, a slot a rank for each of
+    ``scalars``) and the int32 buffer (the mask, a slot a rank for each of
+    ``counts``)."""
+    grads = sum(math.prod(d) if isinstance(d, tuple) else max(d, 1) for d in PARAM_DIMS.values())
+    return 4 * (n * (grads + columns) + scalars * world + n + counts * world)
 
 
 def sum_over_ranks(grads: dict, columns: list, scalars: list, mask: torch.Tensor,

@@ -21,6 +21,12 @@ Then every rank applies the same masked Adam update to the same state, so
 the replicas stay bit-identical with no parameter traffic. Dead capacity
 rows may carry NaN gradients; they stay dead rows, and ``apply_adam``
 scrubs them as in one camera's step.
+
+The factories' steps stamp the tracer's ``"dp"`` stage clock: a step's
+stages with ``allreduce`` (the pack, both all-reduces and the unpack)
+between per_gaussian_bwd and adam. Each call is a ``dp.issue`` span and
+adds the bytes its step all-reduces to the counter ``comm.reduced_bytes``
+(``reduced_bytes``), counted outside the step's graph.
 """
 
 from __future__ import annotations
@@ -35,7 +41,13 @@ from ..ops.loss import compute_psnr
 from ..train.state import GaussianParams, TrainState
 from ..train.step import (
     StepMetrics, StepStatics, apply_adam, compute_loss_and_grads, factory_callable)
+from ..utils import profiling
 from . import comm
+
+# What a dp step reduces besides the parameter gradients: the uv gradient
+# and its norm a Gaussian (columns), the loss and PSNR a rank (scalars),
+# the pair count and binning's pair and row requirements a rank (counts).
+COLUMNS, SCALARS, COUNTS = 3, 2, 3
 
 
 class BatchGrads(NamedTuple):
@@ -66,12 +78,24 @@ def dp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torc
         [tables.num_pairs, tables.overflow, tables.row_overflow], group)
     b = dist.get_world_size(group)
     num_pairs, overflow, row_overflow = counts.amax(dim=1)
-    return BatchGrads(
+    out = BatchGrads(
         loss=scalars[0].sum() / b, psnr=scalars[1].sum() / b, image=image,
         grads={k: g / b for k, g in summed.items()}, g_uv=g_uv_sum / b, g_norm=g_norm_sum,
         visible_count=visible_count, num_pairs=num_pairs, overflow=overflow,
         row_overflow=row_overflow,
     )
+    profiling.stage_done("allreduce")
+    return out
+
+
+def reduced_bytes(capacity: int, group=None) -> int:
+    """The bytes one dp step SUM-reduces over the group at ``capacity``
+    Gaussians: ``comm.sum_over_ranks``'s float and int32 buffers."""
+    return comm.reduced_bytes(capacity, COLUMNS, SCALARS, COUNTS, dist.get_world_size(group))
+
+
+def _count_reduced(group, state: TrainState) -> None:
+    profiling.count("comm.reduced_bytes", reduced_bytes(state.params.capacity, group))
 
 
 def dp_train_step(
@@ -100,12 +124,11 @@ def get_dp_train_step(st: StepStatics, group=None):
     view, proj, campos, gt_image, bg, iteration) -> (state, metrics)``,
     this rank's camera. On the card, at a pair cap and over NCCL, the
     whole step, its collectives included, runs as one CUDA graph
-    (``train.step._Graphed``: an eager first call, which also makes the
-    NCCL communicator, then the capture and replays); over gloo, on the
-    CPU or at ``pair_cap=0`` it runs eagerly."""
-    return factory_callable(("dp", st, group),
-                            capturable=functools.partial(comm.capturable, group),
-                            step=functools.partial(dp_train_step, group=group))
+    (``train.step._Graphed``: an eager first call, then the capture and
+    replays; the NCCL communicator is made when the group forms,
+    ``initialize_multihost``); over gloo, on the CPU or at ``pair_cap=0`` it
+    runs eagerly."""
+    return factory_callable(("dp", st, group), **_factory_kw(group))
 
 
 def get_monitored_dp_train_step(st: StepStatics, group=None):
@@ -114,6 +137,10 @@ def get_monitored_dp_train_step(st: StepStatics, group=None):
     monitor) -> (state, metrics, monitor)``, the monitor [max pair
     requirement, max row requirement, all losses finite] over the batch's
     reduced metrics, so every rank folds the same values."""
-    return factory_callable(("dp_monitored", st, group), monitored=True,
-                            capturable=functools.partial(comm.capturable, group),
-                            step=functools.partial(dp_train_step, group=group))
+    return factory_callable(("dp_monitored", st, group), monitored=True, **_factory_kw(group))
+
+
+def _factory_kw(group) -> dict:
+    return dict(capturable=functools.partial(comm.capturable, group),
+                step=functools.partial(dp_train_step, group=group), clock="dp",
+                on_call=functools.partial(_count_reduced, group))

@@ -40,8 +40,11 @@ The step and the render stamp the tracer's stage clock
 (``utils/profiling.py``): a step's stages are geometry, sh, binning,
 raster_fwd, loss, raster_bwd (stamped inside ``_Rasterize.backward``),
 per_gaussian_bwd and adam (the update, the metrics and the monitor's
-fold); a render's the first four. A graph captures the stamps, so its
-replays stamp the card's clock with no host work.
+fold); a render's the first four. The dp factories stamp a clock of
+their own kind, ``"dp"``, whose ``allreduce`` stage (the collectives with
+their pack and unpack) lies between per_gaussian_bwd and adam. A graph
+captures the stamps, so its replays stamp the card's clock with no host
+work.
 """
 
 from __future__ import annotations
@@ -490,14 +493,18 @@ class _Factory:
     iteration, st) -> (state, metrics)`` is the step it runs
     (``train_step``, or a parallel step bound to its process group), and
     ``monitored`` folds the metrics into the monitor; with no ``step`` it
-    is the render. A call is the span ``step.issue`` or ``render.issue``,
-    which carries the slot of the call's stage clock: its input copies,
-    the replay and the copies out of its outputs."""
+    is the render. ``clock`` is the kind of stage clock a step stamps
+    (``"step"``, or ``"dp"`` for the data-parallel step), and
+    ``on_call(state)``, if given, runs on every call of a step outside its
+    graph (a replay runs no Python of the step). A call is the span
+    ``<clock>.issue`` or ``render.issue``, which carries the slot of the
+    call's stage clock: its input copies, the replay and the copies out of
+    its outputs."""
 
     def __init__(self, st: StepStatics, step=None, monitored: bool = False,
-                 capturable=None):
+                 capturable=None, clock: str = "step", on_call=None):
         self.st, self.step, self.monitored = st, step, monitored
-        self.capturable = capturable
+        self.capturable, self.clock, self.on_call = capturable, clock, on_call
         self.graphed = _Graphed()
 
     def _graphs(self, device: torch.device) -> bool:
@@ -508,7 +515,9 @@ class _Factory:
         if self.step is None:
             with profiling.issue_span("render", args[0].xyz.device):
                 return self._call(*args)
-        with profiling.issue_span("step", args[0].params.xyz.device):
+        if self.on_call is not None:
+            self.on_call(args[0])
+        with profiling.issue_span(self.clock, args[0].params.xyz.device):
             return self._call(*args)
 
     def _call(self, *args):
@@ -530,12 +539,12 @@ class _Factory:
         state, view, proj, campos, gt_image, bg, iteration = args[:7]
         dev = state.params.xyz.device
         if not self._graphs(dev):
-            with profiling.stage_clock("step", dev):
+            with profiling.stage_clock(self.clock, dev):
                 state, m = self.step(*args[:7], st)
                 return (state, m, fold_monitor(args[7], m)) if self.monitored else (state, m)
 
         def step(view, proj, campos, gt_image, bg, iteration, monitor=None):
-            with profiling.stage_clock("step", dev):
+            with profiling.stage_clock(self.clock, dev):
                 m = self.step(state, view, proj, campos, gt_image, bg, iteration, st)[1]
                 if monitor is None:
                     return m

@@ -17,10 +17,11 @@ is its total in this process; ``counters()`` holds what was counted while
 tracing was on, since the last ``clear()``.
 
 **The stage clock.** ``stage_clock(kind, device)`` around one call of the
-train step (kind ``"step"``) or the render (``"render"``) stamps the
-call's start, each ``stage_done(stage)`` inside it stamps the end of a
-stage, and its exit stamps the end of the last stage and advances the
-clock's slot. On the card a stamp is a one-thread kernel
+train step (kind ``"step"``), the data-parallel step (``"dp"``: the step's
+stages with ``allreduce`` before ``adam``) or the render (``"render"``)
+stamps the call's start, each ``stage_done(stage)`` inside it stamps the
+end of a stage, and its exit stamps the end of the last stage and advances
+the clock's slot. On the card a stamp is a one-thread kernel
 (``csrc/stamp.cu``) that reads ``%globaltimer`` into a device ring at
 (slot mod ``RING``, stamp); on the CPU it writes ``time.time_ns()`` into a
 CPU ring. The stamps sit on the stream, so a CUDA graph captures them and
@@ -57,6 +58,8 @@ from torch.autograd import profiler as _profiler
 STAGES = {
     "step": ("geometry", "sh", "binning", "raster_fwd", "loss", "raster_bwd",
              "per_gaussian_bwd", "adam"),
+    "dp": ("geometry", "sh", "binning", "raster_fwd", "loss", "raster_bwd",
+           "per_gaussian_bwd", "allreduce", "adam"),
     "render": ("geometry", "sh", "binning", "raster_fwd"),
 }
 RING = 4096  # calls a ring keeps, per kind and device

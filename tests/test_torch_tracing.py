@@ -247,6 +247,59 @@ def test_issue_spans_carry_their_calls_slots():
     t_step.release_graphs()
 
 
+def test_dp_step_stamps_its_own_clock_and_counts_its_reduced_bytes(monkeypatch):
+    from gsplat_tpu_torch import parallel
+    from gsplat_tpu_torch.parallel import comm
+    from gsplat_tpu_torch.parallel.launch import free_port
+
+    params, alive, cam_t, st, gt = _scene(n=300)
+    st = t_step.StepStatics(**{**st.__dict__, "pair_cap": 1 << 16, "row_cap": 1 << 14})
+    reduced = []
+    real_reduce = comm.all_reduce_sum_
+
+    def spy(t, group=None):
+        reduced.append(t.numel() * t.element_size())
+        return real_reduce(t, group)
+
+    monkeypatch.setattr(comm, "all_reduce_sum_", spy)
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
+    try:
+        state = _state(params, alive)
+        dp = parallel.get_monitored_dp_train_step(st)
+        monitor = t_step.fresh_monitor("cpu")
+        dp(state, *cam_t, gt, 0.0, 0, monitor)  # an untraced call: counted in the total only
+        before = profiling.counter("comm.reduced_bytes")
+        steps_before = profiling.stage_times("step", "cpu")
+        reduced.clear()
+        walls = []
+        with _profiled():
+            for it in range(1, 4):
+                t0 = time.perf_counter_ns()
+                state, _, monitor = dp(state, *cam_t, gt, 0.0, it, monitor)
+                walls.append((time.perf_counter_ns() - t0) / 1e6)
+        got = profiling.stage_times("dp", "cpu")
+        slots = [s.slot for s in profiling.spans() if s.name == "dp.issue"]
+        assert len(slots) == 3 and slots == sorted(got)[-3:]
+        assert not [s for s in profiling.spans() if s.name == "step.issue"]
+        for wall, slot in zip(walls, slots):
+            stages = got[slot]
+            assert tuple(stages) == profiling.STAGES["dp"] and len(stages) == 9
+            assert list(stages)[7:] == ["allreduce", "adam"]
+            assert all(ms >= 0 for ms in stages.values()), stages
+            assert sum(stages.values()) == pytest.approx(wall, rel=0.05)
+        # once a call, the bytes of the float and the int32 buffer it reduces
+        assert len(reduced) == 6 and sum(reduced) == 3 * (reduced[0] + reduced[1])
+        assert profiling.counters() == {"comm.reduced_bytes": sum(reduced)}
+        assert profiling.counter("comm.reduced_bytes") - before == sum(reduced)
+        assert reduced[0] + reduced[1] == parallel.data_parallel.reduced_bytes(
+            state.params.capacity)
+        # the single-camera step's clock is left as it was
+        assert profiling.stage_times("step", "cpu") == steps_before
+    finally:
+        t_step.release_graphs()
+        torch.distributed.destroy_process_group()
+
+
 # --------------------------------------------------------------- trainer
 
 
@@ -313,13 +366,15 @@ def test_trainer_spans_under_a_profiler(tmp_path):
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 READERS = [m for m in BENCH["per_layer"] if m["source"] in ("program_span", "program_counter")]
-KIND = {"trainer": "trainer", "train": "train", "render": "render"}
+KIND = {"trainer": "trainer", "train": "train", "render": "render", "dp": "dp"}
 DUR_MS = {"loader.wait": [2.0, 3.0], "loader.decode": [10.0, 20.0, 30.0],
           "trainer.step": [1.5, 0.5], "trainer.monitor_read": [4.0],
           "trainer.dump": [100.0], "trainer.density": [40.0, 8.0],
-          "step.issue": [0.25, 0.5, 0.75], "render.issue": [0.5, 0.5]}
-SLOTS = {"step.issue": [5, 6, 7], "render.issue": [2, 3]}
+          "step.issue": [0.25, 0.5, 0.75], "render.issue": [0.5, 0.5],
+          "dp.issue": [0.5, 0.5, 0.5]}
+SLOTS = {"step.issue": [5, 6, 7], "render.issue": [2, 3], "dp.issue": [5, 6, 7]}
 UNITS = 4
+RANKS, REDUCED = 4, 4 * 264_241_232  # the window's comm.reduced_bytes: UNITS calls
 
 
 def _store():
@@ -330,12 +385,12 @@ def _store():
             spans.append(profiling.Span(len(spans), name, t, t + int(ms * 1e6), None, 1, slot))
             t += 10**9
     # slot 4 is outside the window: its stage times must not count
-    times = {"step": {s: {st: float(s - 4 + i) for i, st in enumerate(profiling.STAGES["step"])}
-                      for s in (4, 5, 6, 7)},
-             "render": {s: {st: float(2 * s + i) for i, st in
-                            enumerate(profiling.STAGES["render"])} for s in (1, 2, 3)}}
+    times = {kind: {s: {st: float(s - 4 + i) for i, st in enumerate(profiling.STAGES[kind])}
+                    for s in (4, 5, 6, 7)} for kind in ("step", "dp")}
+    times["render"] = {s: {st: float(2 * s + i) for i, st in
+                           enumerate(profiling.STAGES["render"])} for s in (1, 2, 3)}
     counts = {"step.eager": 1, "step.captures": 2, "loader.hits": 3, "loader.misses": 1,
-              "other": 7}
+              "other": 7, "comm.reduced_bytes": REDUCED}
     return SimpleNamespace(spans=lambda: spans, counters=lambda: dict(counts),
                            stage_times=lambda kind: times[kind])
 
@@ -355,9 +410,12 @@ def _expected(name):
         span = f"{'step' if kind == 'train' else 'render'}.issue"
     if span is not None:
         return sum(DUR_MS[span]) / UNITS
+    if metric == "allreduce_link_pct":  # the stage's median: 2 + its index, in ms
+        ms = 2.0 + profiling.STAGES["dp"].index("allreduce")
+        return 100.0 * (RANKS - 1) / RANKS * REDUCED / UNITS / 450e9 / (ms / 1e3)
     stage = metric[: -len("_ms")]
-    if kind == "train":  # slots 5, 6, 7: stage i reads slot - 4 + i
-        i = profiling.STAGES["step"].index(stage)
+    if kind in ("train", "dp"):  # slots 5, 6, 7: stage i reads slot - 4 + i
+        i = profiling.STAGES["step" if kind == "train" else "dp"].index(stage)
         return float(2 + i)
     i = profiling.STAGES["render"].index(stage)  # slots 2, 3: 2 s + i
     return float((4 + i + 6 + i) / 2)
@@ -365,7 +423,7 @@ def _expected(name):
 
 def _out(kind, busy_s=1.0):
     traced = SimpleNamespace(kind=kind, units=UNITS, busy_s=busy_s, window_s=2.0)
-    return SimpleNamespace(traced=traced)
+    return SimpleNamespace(traced=traced, ranks=RANKS)
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in READERS])
