@@ -154,10 +154,10 @@ words), and its exact f32 mode where named
     pairs and tile rows beside the recorded counts with their relative
     difference, ms a step, peak allocated memory, a device profile of
     SCALE_PROFILE_STEPS more steps; every kernel of the packed path
-    launched (K5 twice a step, the tile sort, the inverse permutation, K1,
-    K2 and K4 packed, once a step); one exact-mode step from the same
-    state (finite loss, its pairs those of the packed path on that state,
-    no packed launch). At 0.97 also: two gradient calls on one state
+    launched (K5 twice a step, the tile sort, K1, K2 and K4 packed, once a
+    step, masked Adam once a parameter group); one exact-mode step from the
+    same state (finite loss, its pairs those of the packed path on that
+    state, no packed launch). At 0.97 also: two gradient calls on one state
     bit-identical, and every kernel against its plain version at these
     shapes as in [3], [6], [7] and [10] (K1 and K2 on the whole frame),
     timed beside its bound and library call, and printed beside the 1M
@@ -229,7 +229,8 @@ words), and its exact f32 mode where named
     and every tensor of the states bit-identical. (d) The graph's replays
     run under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in
     one fails); its run launches every kernel of the mode's path, the
-    tile sort once a step, from one capture. (e) [11]'s run again with the
+    tile sort once a step and masked Adam once a parameter group a step
+    (ADAM_GROUPS), from one capture. (e) [11]'s run again with the
     trainer's factories eager: every loss, the caps of every step, the
     density steps' counts, the state's checksums and the PLY bytes
     bit-identical to [11]'s graphed run; prints [11]'s captures. (f) [9]'s
@@ -252,11 +253,19 @@ words), and its exact f32 mode where named
     counts, monitors and states bit-identical, one capture; the eager
     steps after the first (which makes the communicator) and the replays
     under ``torch.cuda.set_sync_debug_mode("error")``; (b) every kernel of
-    the packed path counted at the replays, the tile sort once a step; (c)
+    the packed path counted at the replays, the tile sort once a step,
+    masked Adam once a parameter group a step; (c)
     eager and graph in windows taken in turns as [17f]: wall, process CPU,
     issue and device ms a step, busy share, launch calls (one
     ``cudaGraphLaunch`` a step), peak MiB. A failed group or capture
     raises.
+19. holds masked Adam's kernel (``kernels/adam.py``, ``csrc/adam.cu``)
+    against its plain version at [9]'s 1M start and [15a]'s 4.25M scene
+    (``adam_table``): the packed gradient call's mask and gradients step
+    the scene's state once, then each parameter group through each
+    version from copies of one start, bit-equal, and each timed in a CUDA
+    graph (``graph_ms``) beside ``kernel_bound``; then a step's six groups
+    in order and ``apply_adam`` whole, through each.
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -274,7 +283,8 @@ of [15] (its exact steps give the exact entries; no run of [15] takes
 ``depth_rank``), ``launches_recipes`` from [16a] and [16b],
 ``launches_nccl_graph`` from [18]'s graphed runs (dp and tp), ``scale``
 the kernel's times at the 4.25M point; the
-radix sort also in [14b]'s ``depth_rank`` mode), then the nvidia-smi
+radix sort also in [14b]'s ``depth_rank`` mode; masked Adam, which
+replaces no TPU kernel, with [19]'s sums a step), then the nvidia-smi
 line, then the result line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Exits non-zero at once when no CUDA
 device is present.
@@ -342,14 +352,21 @@ above.
 
 runs [1] and prints, in packed and in exact mode, the sha256 of one
 gradient call's segment-sum output and of its target, image, loss and
-gradients, at [9]'s 1M start and at [15a]'s 4.25M scene, with the
-``gsplat_tpu_torch`` that the import path finds first, as above: equal
-digests of two checkouts show a mode bit for bit unchanged.
+gradients, at [9]'s 1M start and at [15a]'s 4.25M scene, then of the
+whole state after ``apply_adam`` steps it with the packed call's
+gradients at iterations 3000 and 3001, with the ``gsplat_tpu_torch`` that
+the import path finds first, as above: equal digests of two checkouts
+show a mode, and the update, bit for bit unchanged.
+
+    python3 chip_smoke.py --adam
+
+runs [1] and [19] alone, with its checks (no result line).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -380,6 +397,7 @@ SOURCES = {
     "segment_sum": "gsplat_tpu_torch/csrc/segsum.cu",
 }
 TRAIN_STEPS = 8
+ADAM_GROUPS = 6  # masked Adam's launches a step at SH degree 3: one a parameter group
 TRAINER_VIEWS = 8  # [11]: cameras at distinct centres
 TRAINER_ITERS = 24  # [11]: iterations of Trainer.train
 # [9] and --train-profile: train steps under torch.profiler after the timed
@@ -426,6 +444,10 @@ K2_WARP_PIXELS = 128
 PACK_ATTR_OPS = 87
 PACK_GRAD_OPS = 50
 UNPACK_GRAD_OPS = 21
+# Masked Adam (csrc/adam.cu), operations a stepped element, counted as
+# above: the NaN select 1; m' 3; v' 4; the two bias divisions 2; the square
+# root and + EPS 2; -lr m^ and its division 2; p + step 1.
+ADAM_OPS = 15
 
 
 def kernel_bound(name: str, packed: bool = False, **work) -> dict:
@@ -439,9 +461,13 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     ``expand`` [(cols, records, total)] (segment_expand), ``keys``
     (radix_sort), ``gaussians``, ``pairs``, ``tiles``, ``pair_pixels``,
     ``passing``, ``reached`` (rasterizers; segment_sum takes gaussians and
-    pairs). ``packed``: the packed mode's rasterizers also round each pair
-    up to every tile's deepest n_splats (``reached``), K2 writes 16-byte
-    word rows and packs those it reaches, K4 reads and unpacks every row.
+    pairs; masked_adam ``stepped``, the elements of the rows that step,
+    and ``rows``, the mask bytes read, both summed over the groups: a
+    stepped element reads param, grad and both moments and writes param
+    and moments, 28 bytes). ``packed``: the packed mode's rasterizers also
+    round each pair up to every tile's deepest n_splats (``reached``), K2
+    writes 16-byte word rows and packs those it reaches, K4 reads and
+    unpacks every row.
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -470,6 +496,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
         row_bytes = 16 if packed else 36  # 4 words or 9 floats a pair
         nbytes = row_bytes * p + 4 * (g + 1) + 36 * g
         ops = ((9 + UNPACK_GRAD_OPS) if packed else 9) * p
+    elif name == "masked_adam":
+        nbytes = 28 * work["stepped"] + work["rows"]
+        ops = ADAM_OPS * work["stepped"]
     else:
         raise ValueError(f"no bound for {name}")
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -632,6 +661,22 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int, reps: int = 5) -> float:
+    """Device ms of one fn(): ``calls`` calls captured into one CUDA graph
+    (after one eager call), the median of ``reps`` timed replays
+    (``cuda_ms``) over ``calls``: no host work between the calls, as in the
+    step's graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms / calls
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2307,6 +2352,32 @@ def scale_profile(dev) -> None:
         f"{SCALE_AB_STEPS} steps; the graph {median:.3f} ms a step (CUDA events)")
 
 
+ADAM_BITS_ITERS = (3000, 3001)  # --bits: apply_adam's iterations
+
+
+def one_call_scenes(dev, n: int, scale_n: int):
+    """--bits and --adam: (label, params, camera, statics, target, bg) of
+    [9]'s start (``n`` Gaussians, view 0, the target rendered from the
+    unperturbed scene), then of [15a]'s scene (``scale_n`` at scale_mul
+    0.97, binning sized exactly, a seeded random target)."""
+    from gsplat_tpu_torch.tools import bench_scale
+    from gsplat_tpu_torch.train.state import round_capacity, state_from_gaussians
+    from gsplat_tpu_torch.train.step import render_image
+
+    cm = views()[0]
+    st = statics(cm)
+    truth = scene_params(n, seed=0, device=dev)
+    gt, _ = render_image(truth, cm.view, cm.proj, cm.campos, BG, st)
+    del truth
+    yield f"{n} (1M view)", scene_params(n, seed=0, device=dev, perturb_seed=1), cm, st, gt, BG
+    rng = np.random.default_rng(0)
+    g = bench_scale.scale_gaussians(scale_n, 0.97, rng=rng)
+    params = state_from_gaussians(g, dev, n_cap=round_capacity(scale_n)).params
+    gt = torch.from_numpy(rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
+    yield (f"{scale_n} (scale point)", params, bench_scale.scale_camera(),
+           bench_scale.scale_statics(pair_cap=0), gt, 0.0)
+
+
 def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
     """``--bits``: sha256 digests of one gradient call, in packed and in
     exact mode, at [9]'s 1M start (view 0) and at [15a]'s 4.25M scene
@@ -2315,33 +2386,22 @@ def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
     (the per-Gaussian sums, caught where ``ops.render`` calls it) and of
     the target, image, loss and every gradient, with whatever
     ``gsplat_tpu_torch`` is imported (run as ``--train-profile``): equal
-    digests of two checkouts show a mode bit for bit unchanged."""
+    digests of two checkouts show a mode bit for bit unchanged. Then, at
+    each scene, the packed call's gradients step a fresh state of its
+    parameters through ``apply_adam`` at ADAM_BITS_ITERS, the digest of
+    every tensor of the state printed after each: equal digests show the
+    update unchanged to the bit."""
     import hashlib
 
     from gsplat_tpu_torch.ops import render
-    from gsplat_tpu_torch.tools import bench_scale
     from gsplat_tpu_torch.train import step
-    from gsplat_tpu_torch.train.state import round_capacity, state_from_gaussians
+    from gsplat_tpu_torch.train.state import init_state
 
     def digest(tensors) -> str:
         h = hashlib.sha256()
         for t in tensors:
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         return h.hexdigest()
-
-    def scenes():
-        cm = views()[0]
-        st = statics(cm)
-        truth = scene_params(n, seed=0, device=dev)
-        gt, _ = step.render_image(truth, cm.view, cm.proj, cm.campos, BG, st)
-        del truth
-        yield f"{n} (1M view)", scene_params(n, seed=0, device=dev, perturb_seed=1), cm, st, gt, BG
-        rng = np.random.default_rng(0)
-        g = bench_scale.scale_gaussians(scale_n, 0.97, rng=rng)
-        params = state_from_gaussians(g, dev, n_cap=round_capacity(scale_n)).params
-        gt = torch.from_numpy(rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
-        yield (f"{scale_n} (scale point)", params, bench_scale.scale_camera(),
-               bench_scale.scale_statics(pair_cap=0), gt, 0.0)
 
     sums, real = [], render.segment_sum
 
@@ -2351,21 +2411,116 @@ def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
 
     render.segment_sum = caught
     try:
-        for label, params, cm, st, gt, bg in scenes():
+        for label, params, cm, st, gt, bg in one_call_scenes(dev, n, scale_n):
             for mode in ("packed", "exact"):
                 sums.clear()
                 with mode_context(mode):
-                    loss, image, _, tables, grads, g_uv = step.compute_loss_and_grads(
+                    loss, image, mask, tables, grads, g_uv = step.compute_loss_and_grads(
                         params, cm.view, cm.proj, cm.campos, gt, bg, st)
                 all_grads = [gt, image, loss.reshape(1), g_uv] + [grads[k] for k in sorted(grads)]
                 log(f"[bits] {label}, {mode} mode: loss {float(loss)!r}, pairs "
                     f"{int(tables.num_pairs)}; segment sum sha256 {digest(sums)}, gradients "
                     f"sha256 {digest(all_grads)}")
-                del loss, image, tables, grads, g_uv, all_grads
-            del params, gt
+                if mode == "packed":
+                    adam_in = (grads, g_uv, mask)
+                del loss, image, mask, tables, grads, g_uv, all_grads
+            state = init_state(params)  # the parameters are not used again
+            for it in ADAM_BITS_ITERS:
+                step.apply_adam(state, *adam_in, it, st)
+                log(f"[bits] {label}: the state after apply_adam at iteration {it}, "
+                    f"{int(adam_in[2].sum())} rows stepped: sha256 "
+                    f"{digest(state_tensors(state).values())}")
+            del params, gt, state, adam_in
             torch.cuda.empty_cache()
     finally:
         render.segment_sum = real
+
+
+ADAM_TITLE = ("[19] masked Adam (csrc/adam.cu) against its plain version at [9]'s 1M start "
+              "and [15a]'s 4.25M scene")
+ADAM_TIMING_ITERS = 20  # [19]: timed calls of each version
+
+
+def adam_table(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> list:
+    """[19] and ``--adam``: at each of ``one_call_scenes``, the packed
+    gradient call's mask and gradients step the state of its parameters
+    (``apply_adam`` once at iteration 3000, so the moments are not zero);
+    then, each group in turn, the kernel (``masked_adam_update_``) and
+    its plain version from copies of one start, bit-equal, and each timed
+    on the state (``graph_ms``: as in the step's graph, no host work
+    between launches; a group's arrays may stay in the L2 from one call to
+    the next); then a step's six groups in order, and ``apply_adam``
+    whole, through each. Prints every group's and the step's ms beside
+    ``kernel_bound``'s; returns each scene's sums (the first the 1M
+    scene's). Any group not bit-equal raises."""
+    from gsplat_tpu_torch.kernels.adam import masked_adam_update_, masked_adam_update_plain
+    from gsplat_tpu_torch.train import step
+    from gsplat_tpu_torch.train.state import PARAM_DIMS, init_state
+
+    out = []
+    for label, params, cm, st, gt, bg in one_call_scenes(dev, n, scale_n):
+        _, _, mask, _, grads, g_uv = step.compute_loss_and_grads(
+            params, cm.view, cm.proj, cm.campos, gt, bg, st)
+        state = init_state(params)
+        step.apply_adam(state, grads, g_uv, mask, 3000, st)
+        it = torch.full((), 3001.0, device=dev)
+        bias1 = 1.0 - torch.pow(torch.full((), 0.9, device=dev), it + 1.0)
+        bias2 = 1.0 - torch.pow(torch.full((), 0.999, device=dev), it + 1.0)
+        rates = {"xyz": torch.full((), st.scene_extent * st.base_lr * st.xyz_lr_init,
+                                   device=dev),
+                 **{k: st.base_lr * getattr(st, f"{k}_lr")
+                    for k in ("rgb", "opacity", "scale", "quat", "sh")}}
+        rows, stepped = mask.shape[0], int(mask.sum())
+        sums = dict(stepped=0, rows=0)
+        calls = {masked_adam_update_: [], masked_adam_update_plain: []}
+        for name in PARAM_DIMS:
+            group = (getattr(state.params, name).detach(), grads[name], state.adam_m[name],
+                     state.adam_v[name])
+            width = group[0].numel() // rows
+            with torch.no_grad():
+                copies = [[t.clone() for t in group] for _ in range(2)]
+                for update, (p, g, m, v) in zip((masked_adam_update_, masked_adam_update_plain),
+                                                copies):
+                    update(p, g, m, v, mask, rates[name], bias1, bias2)
+                torch.cuda.synchronize()
+                same = all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(*copies))
+                del copies
+                args = (*group, mask, rates[name], bias1, bias2)
+                for update, fns in calls.items():
+                    fns.append(functools.partial(update, *args))
+                ms, plain_ms = (graph_ms(fns[-1], ADAM_TIMING_ITERS) for fns in calls.values())
+            bound = kernel_bound("masked_adam", stepped=stepped * width, rows=rows)
+            log(f"  {label}, {name} ({rows} x {width}, {stepped} rows stepped): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}); bit-equal {same}")
+            if not same:
+                raise AssertionError(f"[19] {label} {name}: the kernel differs from the plain "
+                                     f"update")
+            sums["stepped"] += stepped * width
+            sums["rows"] += rows
+        bound = kernel_bound("masked_adam", stepped=sums["stepped"], rows=sums["rows"])
+        sums.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], label=label)
+        with torch.no_grad():
+            sums["ms"], sums["plain_ms"] = (
+                graph_ms(lambda fns=fns: [fn() for fn in fns], ADAM_TIMING_ITERS)
+                for fns in calls.values())
+        whole = {}
+        for path, update in (("kernel", masked_adam_update_), ("plain", masked_adam_update_plain)):
+            step.masked_adam_update_ = update
+            try:
+                whole[path] = graph_ms(lambda: step.apply_adam(state, grads, g_uv, mask, it, st),
+                                       ADAM_TIMING_ITERS)
+            finally:
+                step.masked_adam_update_ = masked_adam_update_
+        sums.update(apply_adam_ms=whole["kernel"], apply_adam_plain_ms=whole["plain"])
+        log(f"  {label}: a step's {len(PARAM_DIMS)} groups, kernel {sums['ms']:.4f} ms, plain "
+            f"{sums['plain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms ({sums['stepped']} "
+            f"elements stepped); apply_adam whole: kernel {whole['kernel']:.4f} ms, plain "
+            f"{whole['plain']:.4f} ms")
+        out.append(sums)
+        del params, gt, state, grads, g_uv, mask, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def sfm_cloud(arrays: dict, n: int, seed: int):
@@ -2708,7 +2863,7 @@ SCALE_TITLE = ("[15] the configuration's ceiling: the 4.25M-Gaussian train step 
 SCALE_STEP_LAUNCHES = {"segment_expand": 2, "radix_sort": 1, "radix_sort/tile": 1,
                        "rasterize_forward": 1, "rasterize_forward/packed": 1,
                        "rasterize_backward": 1, "rasterize_backward/packed": 1,
-                       "segment_sum": 1, "segment_sum/packed": 1}
+                       "segment_sum": 1, "segment_sum/packed": 1, "masked_adam": ADAM_GROUPS}
 
 
 def add_launches(total: dict, launches: dict) -> None:
@@ -3495,7 +3650,8 @@ def graph_equality_slice(cams, gts, st, st_c, dev) -> tuple:
         log(f"  (d) {mode}: {GRAPH_STEPS - 2} replays under set_sync_debug_mode('error'), "
             f"{captures} capture; launches of the graph's run {got}")
         if (min(got[k] for k in base) <= 0 or {k: got[k] for k in packed_keys} != want_packed
-                or got["radix_sort/tile"] != GRAPH_STEPS or captures != 1):
+                or got["radix_sort/tile"] != GRAPH_STEPS or captures != 1
+                or got["masked_adam"] != ADAM_GROUPS * GRAPH_STEPS):
             failed.append(f"(d) {mode} launches {got}, captures {captures}")
         del runs, state, ref_state
     return failed, launches
@@ -3544,8 +3700,6 @@ def failed_capture_slice(cams, gts, st_c, dev) -> list:
 def eager_factories():
     """For a ``with`` block: the trainer's step and render factories
     replaced by eager callables at the same statics (no graph)."""
-    import functools
-
     from gsplat_tpu_torch.train import step as step_mod
     from gsplat_tpu_torch.train import trainer as trainer_mod
 
@@ -3913,7 +4067,8 @@ def nccl_graph_slice(dev, n: int = 1_000_000) -> dict:
             log(f"  (b) {kind}: launches of the {NCCL_STEPS - 2} replays {got}")
             if diff or not same or captures != 1:
                 failed.append(f"(a) {kind}")
-            if min(got[k] for k in want) <= 0 or got["radix_sort/tile"] != NCCL_STEPS - 2:
+            if (min(got[k] for k in want) <= 0 or got["radix_sort/tile"] != NCCL_STEPS - 2
+                    or got["masked_adam"] != ADAM_GROUPS * (NCCL_STEPS - 2)):
                 failed.append(f"(b) {kind} launches {got}")
             del runs, e_state, g_state
             state, box = init_state(params_from_jax(*start, dev)), [fresh_monitor(dev)]
@@ -3984,6 +4139,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--bits"]:
         bits(dev)
+        return 0
+    if sys.argv[1:] == ["--adam"]:
+        log(ADAM_TITLE)
+        adam_table(dev)
         return 0
     if sys.argv[1:] == ["--scale-profile"]:
         scale_profile(dev)
@@ -4152,6 +4311,11 @@ def main() -> int:
     log(NCCL_TITLE)
     nccl = nccl_graph_slice(dev)
 
+    # 19. Masked Adam: the kernel against its plain version, per group and
+    # a step, at the 1M and the 4.25M state.
+    log(ADAM_TITLE)
+    adam_1m, adam_scale = adam_table(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -4212,6 +4376,16 @@ def main() -> int:
         launches_nccl_graph=0,
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                              "bound_by")}))
+    # Masked Adam replaces no TPU kernel (XLA glue in the reference): a
+    # step's groups summed; launches from [9]'s packed run.
+    kernels.append(dict(
+        name="masked_adam", route="cuda", source="gsplat_tpu_torch/csrc/adam.cu",
+        replaces="none: XLA glue, gsplat_tpu/ops/adam.py", launches=pk["masked_adam"],
+        launches_per_step=pk["masked_adam"] / TRAIN_STEPS,
+        launches_scale=at_scale["masked_adam"], launches_nccl_graph=at_nccl["masked_adam"],
+        scale={k: adam_scale[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: adam_1m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "apply_adam_ms",
+                                   "apply_adam_plain_ms")}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -64,12 +64,17 @@ SIGNATURES = {
     "gs_segment_sum_packed": [_P, _P, _P, _I, _P],
     # times, slot, stamp, stamps, ring, advance, stream (utils/profiling.py)
     "gs_stage_stamp": [_P, _P, _I, _I, _I, _I, _P],
+    # param, grad, m, v, mask, n, d, bias1, bias2, lr (a device float or
+    # null), -lr, B1, 1 - B1, B2, 1 - B2, EPS, stream
+    "gs_masked_adam": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P,
+                       *[ctypes.c_float] * 6, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
     "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
     "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
+    "masked_adam": 0,
 }
 
 _lock = threading.Lock()

@@ -57,6 +57,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.adam import masked_adam_update_
 from ..ops import adam as adam_ops
 from ..ops import covariance, projection
 from ..ops import sh as sh_ops
@@ -281,9 +282,12 @@ def apply_adam(
     """Masked Adam update and densification accumulators, in place.
 
     The reference returns a new state; updating in place here saves a copy
-    of the parameters and moments. The xyz learning rate decays
-    exponentially and is scaled by ``scene_extent``; with ``l_max == 0``
-    SH is not optimized. ``iteration`` is a number or a () device tensor
+    of the parameters and moments: each group steps in one
+    ``kernels/adam.py::masked_adam_update_`` call (on the card, one launch
+    of ``csrc/adam.cu``; the bias corrections and the xyz rate stay device
+    tensors, so a graph's replay steps at its own iteration). The xyz
+    learning rate decays exponentially and is scaled by ``scene_extent``;
+    with ``l_max == 0`` SH is not optimized. ``iteration`` is a number or a () device tensor
     (a CUDA graph's input). ``visible_count`` (N_cap,) int32 and ``g_norm``
     (N_cap,), the per-camera visibility counts and uv-gradient norms summed
     over a camera batch, generalize the accumulators to data-parallel
@@ -307,14 +311,8 @@ def apply_adam(
     for name in PARAM_DIMS:
         if name == "sh" and st.l_max == 0:
             continue  # l_max = 0: SH is not optimized
-        param = getattr(state.params, name)
-        p, m, v = adam_ops.masked_adam_update(
-            param, grads[name], state.adam_m[name], state.adam_v[name],
-            mask, lrs[name], bias1, bias2,
-        )
-        param.copy_(p)
-        state.adam_m[name].copy_(m)
-        state.adam_v[name].copy_(v)
+        masked_adam_update_(getattr(state.params, name), grads[name], state.adam_m[name],
+                            state.adam_v[name], mask, lrs[name], bias1, bias2)
     if g_norm is None:
         g_norm = torch.sqrt(torch.sum(g_uv * g_uv, dim=1))
     state.uv_grad_accum.copy_(

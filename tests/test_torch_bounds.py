@@ -8,7 +8,7 @@ bounds that chip_smoke.py reports, and of the port's default device.
 - the segment expand's wrapper returns the buffer the kernel wrote (a
   stand-in library), and its ITEMS_PER_BLOCK is csrc/expand.cu's share;
 - ``chip_smoke.kernel_bound`` and ``chip_smoke.pair_pixel_counts`` give
-  hand-counted bytes, operations and pair-pixels;
+  hand-counted bytes, operations and pair-pixels (masked Adam's too);
 - the density step's Morton re-sort sorts its 31-bit codes (4 passes of
   8/8/8/7 bits) through the radix sort's ``"morton"`` call site, counted
   apart from the tile sort;
@@ -250,6 +250,15 @@ def test_kernel_bound_hand_counted():
     # words in and 36 bytes out a Gaussian; 9 adds a pair.
     r = chip_smoke.kernel_bound("segment_sum", gaussians=2, pairs=3)
     assert (r["bytes"], r["ops"], r["bound_by"]) == (3 * 36 + 3 * 4 + 2 * 36, 27, "bytes")
+
+
+def test_kernel_bound_masked_adam_hand_counted():
+    # Masked Adam: a stepped element reads param, grad, m and v (16 bytes)
+    # and writes param, m and v (12 bytes); each row's mask byte is read; 15
+    # operations a stepped element. 3 rows of width 4, 2 of them stepped.
+    r = chip_smoke.kernel_bound("masked_adam", stepped=8, rows=3)
+    assert (r["bytes"], r["ops"], r["bound_by"]) == (8 * 28 + 3, 8 * 15, "bytes")
+    assert r["bound_ms"] == pytest.approx(1e3 * 227 / 3.35e12)
 
 
 def test_kernel_bound_packed_hand_counted():

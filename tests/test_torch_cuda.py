@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, and one train step
-against the port's CPU path, on the card.
+against the port's CPU path, on the card (masked Adam bit-equal to its
+plain version, alone, through ``apply_adam`` and through a graph's
+replays).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -17,6 +19,9 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import expand_edge_counts  # noqa: E402
 from gsplat_tpu_torch.kernels import _build, packing  # noqa: E402
+from gsplat_tpu_torch.kernels.adam import (  # noqa: E402
+    masked_adam_update_, masked_adam_update_plain,
+)
 from gsplat_tpu_torch.kernels.expand import segment_expand, segment_expand_plain  # noqa: E402
 from gsplat_tpu_torch.kernels.rasterize import (  # noqa: E402
     rasterize_backward, rasterize_backward_plain, rasterize_forward,
@@ -824,3 +829,168 @@ def test_stage_clock_in_the_graph(dev, kind):
     stamped = sum(sum(stages.values()) for stages in times.values())
     timed = sum(e0.elapsed_time(e1) for e0, e1 in events)
     assert stamped == pytest.approx(timed, rel=0.03), (stamped, timed)
+
+
+def _adam_group(dev, n, tail, mask_kind, seed):
+    """One parameter group on the card: p, g (10 % NaN), m, v (N, *tail)
+    f32 and a (N,) mask of ``mask_kind``."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) + tail
+    g = rng.normal(size=shape).astype(np.float32)
+    g[rng.uniform(size=shape) < 0.1] = np.nan
+    arrays = dict(p=rng.normal(size=shape), g=g, m=0.1 * rng.normal(size=shape),
+                  v=rng.uniform(0, 0.1, size=shape))
+    mask = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+            "random": rng.uniform(size=n) < 0.4, "alternate": np.arange(n) % 2 == 0}[mask_kind]
+    out = {k: torch.from_numpy(np.asarray(a, np.float32)).to(dev) for k, a in arrays.items()}
+    return out, torch.from_numpy(mask).to(dev)
+
+
+def _adam_scalars(dev, it):
+    """bias1, bias2 and the xyz rate as apply_adam makes them at ``it``."""
+    it = torch.full((), float(it), device=dev)
+    bias1 = 1.0 - torch.pow(torch.full((), 0.9, device=dev), it + 1.0)
+    bias2 = 1.0 - torch.pow(torch.full((), 0.999, device=dev), it + 1.0)
+    return bias1, bias2, 4.0 * 1e-3 * 0.16 * torch.pow(torch.full((), 0.01, device=dev),
+                                                       it / 7000.0)
+
+
+def _bit_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("mask_kind", ["all", "none", "random", "alternate"])
+@pytest.mark.parametrize("n", [8192, 4099])
+@pytest.mark.parametrize("tail", [(), (3,), (4,), (15, 3)], ids=["n", "n3", "n4", "n15x3"])
+def test_masked_adam_kernel_bit_equal_to_plain(dev, tail, n, mask_kind, lr_kind):
+    # The kernel against the plain update on the same card inputs, NaN
+    # gradients included: bit for bit, rows off the mask untouched.
+    group, mask = _adam_group(dev, n, tail, mask_kind, seed=n + len(tail))
+    bias1, bias2, xyz_lr = _adam_scalars(dev, 0 if lr_kind == "float" else 3001)
+    lr = 1e-3 * 2.5 if lr_kind == "float" else xyz_lr
+    kern = {k: t.clone() for k, t in group.items()}
+    plain = {k: t.clone() for k, t in group.items()}
+    before = _build.launches["masked_adam"]
+    masked_adam_update_(*(kern[k] for k in "pgmv"), mask, lr, bias1, bias2)
+    masked_adam_update_plain(*(plain[k] for k in "pgmv"), mask, lr, bias1, bias2)
+    torch.cuda.synchronize()
+    assert _build.launches["masked_adam"] == before + 1
+    for k in "pmv":
+        assert _bit_equal(kern[k], plain[k]), k
+        assert _bit_equal(kern[k][~mask], group[k][~mask]), k
+    assert torch.isfinite(kern["p"]).all()
+
+
+def test_masked_adam_kernel_other_width_and_unaligned(dev):
+    # A row width with no specialisation (5) takes the runtime divisor;
+    # arrays one float past a 16-byte boundary are refused.
+    group, mask = _adam_group(dev, 4099, (5,), "random", seed=7)
+    bias1, bias2, lr = _adam_scalars(dev, 12)
+    kern = {k: t.clone() for k, t in group.items()}
+    plain = {k: t.clone() for k, t in group.items()}
+    masked_adam_update_(*(kern[k] for k in "pgmv"), mask, lr, bias1, bias2)
+    masked_adam_update_plain(*(plain[k] for k in "pgmv"), mask, lr, bias1, bias2)
+    torch.cuda.synchronize()
+    for k in "pmv":
+        assert _bit_equal(kern[k], plain[k]), k
+    shifted = torch.empty(group["p"].numel() + 1, device=dev)[1:].view(group["p"].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        masked_adam_update_(shifted, *(kern[k] for k in "gmv"), mask, lr, bias1, bias2)
+
+
+def _adam_state(dev, n, seed):
+    from gsplat_tpu_torch.train import state as t_state
+
+    rng = np.random.default_rng(seed)
+    groups = {"p": {}, "g": {}, "m": {}, "v": {}}
+    for name in t_state.PARAM_DIMS:
+        shape = t_state._param_shape(name, n)
+        g = rng.normal(size=shape).astype(np.float32)
+        g[rng.uniform(size=shape) < 0.1] = np.nan
+        groups["p"][name] = rng.normal(size=shape).astype(np.float32)
+        groups["g"][name] = g
+        groups["m"][name] = (0.1 * rng.normal(size=shape)).astype(np.float32)
+        groups["v"][name] = rng.uniform(0, 0.1, size=shape).astype(np.float32)
+    mask = rng.uniform(size=n) < 0.5
+    acc = rng.uniform(0, 3, n).astype(np.float32)
+    dur = rng.integers(0, 9, n).astype(np.int32)
+    g_uv = rng.normal(size=(n, 2)).astype(np.float32)
+    return groups, mask, acc, dur, g_uv
+
+
+@pytest.mark.parametrize("iteration", [0, "tensor 4999"])
+@pytest.mark.parametrize("l_max", [0, 3])
+def test_apply_adam_kernel_bit_equal_to_plain(dev, monkeypatch, l_max, iteration):
+    """``apply_adam`` over a whole state on the card, through the kernel
+    (one launch a stepped group) and through the plain update: every
+    tensor of the two states bit-identical."""
+    import dataclasses
+
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    n = 4099
+    groups, mask, acc, dur, g_uv = _adam_state(dev, n, seed=l_max)
+    _, _, _, st, _ = _capped_scene(dev)
+    st = dataclasses.replace(st, l_max=l_max)
+    it = torch.tensor(4999, device=dev) if iteration == "tensor 4999" else iteration
+    states = []
+    for update in (masked_adam_update_, masked_adam_update_plain):
+        monkeypatch.setattr(t_step, "masked_adam_update_", update)
+        state = t_state.state_from_jax(groups["p"], groups["m"], groups["v"], np.ones(n, bool),
+                                       acc, dur, dev)
+        before = _build.launches["masked_adam"]
+        t_step.apply_adam(state, {k: torch.from_numpy(a).to(dev) for k, a in groups["g"].items()},
+                          torch.from_numpy(g_uv).to(dev), torch.from_numpy(mask).to(dev), it, st)
+        torch.cuda.synchronize()
+        launched = _build.launches["masked_adam"] - before
+        states.append(t_state.state_to_numpy(state))
+        assert launched == ((6 if l_max else 5) if update is masked_adam_update_ else 0)
+    (s_k, s_p) = states
+    for group in ("params", "adam_m", "adam_v"):
+        for name in s_k[group]:
+            assert np.array_equal(s_k[group][name].view(np.int32),
+                                  s_p[group][name].view(np.int32)), (group, name)
+    for name in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(s_k[name], s_p[name])
+
+
+def test_monitored_graph_replays_adam_bit_equal_to_eager_plain(dev, monkeypatch):
+    """The graphed monitored step (an eager call, a capture, then replays at
+    iterations 2 and 3) against ``monitored_train_step`` eagerly with the
+    plain update: metrics, monitor and every tensor of the state
+    bit-identical, so the replays read each iteration's bias corrections
+    and xyz rate from device memory; one kernel launch a group a step."""
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    steps = 4
+    runs = []
+    for graphed in (True, False):
+        if not graphed:
+            monkeypatch.setattr(t_step, "masked_adam_update_", masked_adam_update_plain)
+        state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+        monitor, out = t_step.fresh_monitor(dev), []
+        step = t_step.get_monitored_train_step(st)
+        _build.reset_launches()
+        for it in range(steps):
+            args = (state, *cam_t[it % 2], gt, 0.1 * it, 3000 + it)
+            if graphed:
+                state, m, monitor = step(*args, monitor)
+            else:
+                state, m, monitor = t_step.monitored_train_step(*args, monitor, st)
+            out.append(torch.cat([torch.stack([m.loss, m.psnr]), monitor]))
+        torch.cuda.synchronize()
+        runs.append((torch.stack(out).cpu(), t_state.state_to_numpy(state),
+                     _build.launches["masked_adam"]))
+        t_step.release_graphs()
+    (o_g, s_g, n_g), (o_e, s_e, n_e) = runs
+    assert n_g == 6 * steps and n_e == 0
+    assert _bit_equal(o_g, o_e)
+    for group in ("params", "adam_m", "adam_v"):
+        for name in s_e[group]:
+            np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
+    for name in ("alive", "uv_grad_accum", "accum_dur"):
+        np.testing.assert_array_equal(s_g[name], s_e[name])

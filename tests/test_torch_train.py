@@ -6,6 +6,9 @@ Same numpy inputs through the JAX package and the port, at f32:
   zero-padded backward) on images whose edges carry structure;
 - ``masked_adam_update`` and ``apply_adam`` on identical inputs, with NaN
   gradients, half the rows masked, ``l_max`` 0 and 3;
+- the port's in-place update ``kernels/adam.py::masked_adam_update_`` on
+  CPU tensors (the plain update written back, no kernel launch), its
+  argument checks and its kernel's f32 constants;
 - the per-Gaussian chain's autograd gradients against ``jax.vjp`` of
   ``gsplat_tpu.train.step._per_gaussian``;
 - ``state_from_jax`` -> ``state_to_numpy`` keeps a JAX ``TrainState``;
@@ -35,6 +38,8 @@ from gsplat_tpu.ops.render import pack_attrs as j_pack_attrs  # noqa: E402
 from gsplat_tpu.ops.render import rasterize as j_rasterize  # noqa: E402
 from gsplat_tpu.train import state as j_state  # noqa: E402
 from gsplat_tpu.train import step as j_step  # noqa: E402
+from gsplat_tpu_torch.kernels import _build  # noqa: E402
+from gsplat_tpu_torch.kernels import adam as k_adam  # noqa: E402
 from gsplat_tpu_torch.ops import adam as t_adam  # noqa: E402
 from gsplat_tpu_torch.ops import loss as t_loss  # noqa: E402
 from gsplat_tpu_torch.train import state as t_state  # noqa: E402
@@ -170,6 +175,64 @@ def test_apply_adam_matches_jax(l_max, iteration):
         np.testing.assert_array_equal(got["params"]["sh"], data["sh"]["p"])
     _close(got["uv_grad_accum"], j_new.uv_grad_accum, rtol=1e-6, atol_rel=0)
     np.testing.assert_array_equal(got["accum_dur"], np.asarray(j_new.accum_dur))
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("lr", [0.01, "tensor"])
+def test_masked_adam_update_in_place_on_cpu_is_plain(name, lr):
+    # The in-place wrapper on CPU tensors: the plain update and its copies,
+    # bit for bit, and no kernel launch.
+    data, mask = _adam_inputs(11)
+    d = {k: _t(v) for k, v in data[name].items()}
+    lr = torch.tensor(0.01) if lr == "tensor" else lr
+    bias1, bias2 = torch.tensor(0.271), torch.tensor(0.00299)
+    want = t_adam.masked_adam_update(d["p"], d["g"], d["m"], d["v"], _t(mask), lr, bias1, bias2)
+    before = dict(_build.launches)
+    ptrs = [d[k].data_ptr() for k in "pmv"]
+    k_adam.masked_adam_update_(d["p"], d["g"], d["m"], d["v"], _t(mask), lr, bias1, bias2)
+    assert _build.launches == before and _build.launches["masked_adam"] == 0
+    assert [d[k].data_ptr() for k in "pmv"] == ptrs  # written in place
+    for got, ref in zip((d["p"], d["m"], d["v"]), want):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_masked_adam_kernel_constants_are_f32_roundings():
+    # The kernel's B1, 1 - B1, B2, 1 - B2 and EPS: the float32 roundings of
+    # the Python doubles that torch's scalar path rounds in the plain update.
+    doubles = (t_adam.B1, 1.0 - t_adam.B1, t_adam.B2, 1.0 - t_adam.B2, t_adam.EPS)
+    assert [c.value for c in k_adam._CONSTANTS] == [float(np.float32(d)) for d in doubles]
+
+
+def _bad_adam_args(case):
+    p, g, m, v = (torch.zeros(8, 3) for _ in range(4))
+    mask, lr, b1, b2 = torch.ones(8, dtype=torch.bool), 0.01, torch.tensor(0.1), torch.tensor(0.2)
+    if case == "grad shape":
+        g = torch.zeros(8, 4)
+    elif case == "mask shape":
+        mask = torch.ones(9, dtype=torch.bool)
+    elif case == "float64 moment":
+        m = torch.zeros(8, 3, dtype=torch.float64)
+    elif case == "float64 bias":
+        b2 = torch.tensor(0.2, dtype=torch.float64)
+    elif case == "int mask":
+        mask = torch.ones(8, dtype=torch.int32)
+    elif case == "non-contiguous param":
+        p = torch.zeros(3, 8).t()
+    elif case == "non-contiguous grad":
+        g = torch.zeros(8, 6)[:, ::2]
+    return p, g, m, v, mask, lr, b1, b2
+
+
+@pytest.mark.parametrize("case", [
+    "grad shape", "mask shape", "float64 moment", "float64 bias", "int mask",
+    "non-contiguous param", "non-contiguous grad"])
+def test_masked_adam_update_rejects_bad_arguments(case):
+    args = _bad_adam_args(case)
+    before = [t.clone() for t in args[:4]]
+    with pytest.raises(ValueError, match="masked_adam"):
+        k_adam.masked_adam_update_(*args)
+    for t, b in zip(args[:4], before):  # nothing was written
+        assert torch.equal(t, b)
 
 
 # ---------------------------------------------------------------- scene
