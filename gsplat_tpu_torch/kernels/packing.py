@@ -24,6 +24,8 @@ rounding to gathered pair rows, as the kernels do when they stage a pair.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 RGB_E5_BIAS = 20
@@ -31,6 +33,26 @@ GRAD_E5_BIAS = 24
 F16_CLAMP = 16384.0
 GRAD_WORDS = 4  # int32 words of one packed gradient row
 _LO32 = 0xFFFFFFFF
+_packed = True
+
+
+def packed() -> bool:
+    """The package's mode, which ``build_tile_tables`` and ``rasterize``
+    read where their caller passes no flag: True (the reference's default
+    packed mode), or False inside ``exact_mode()`` (its exact f32 mode)."""
+    return _packed
+
+
+@contextlib.contextmanager
+def exact_mode():
+    """For a ``with`` block: the package in the reference's exact f32 mode,
+    restored on exit (``train.step`` exports it)."""
+    global _packed
+    saved, _packed = _packed, False
+    try:
+        yield
+    finally:
+        _packed = saved
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:

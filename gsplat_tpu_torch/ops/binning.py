@@ -49,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import packing
 from ..kernels.expand import segment_expand
 from ..kernels.sort import radix_sort
 
@@ -360,7 +361,7 @@ def build_tile_tables(
     num_tiles_y: int,
     tile_size: int,
     row_limit: int | None = None,
-    bf16_colors: bool = True,
+    bf16_colors: bool | None = None,
     depth_rank: torch.Tensor | None = None,
     pair_cap: int | None = None,
     row_cap: int | None = None,
@@ -375,7 +376,8 @@ def build_tile_tables(
         lie past the image's (``parallel/tile_parallel.py``).
       bf16_colors: the reference's default packed mode (f16 tile-relative
         u, v, bf16 conic and opacity, e5s9 colour), recorded on the tables
-        for the rasterizers; False is its exact f32 mode.
+        for the rasterizers; False is its exact f32 mode; None reads
+        ``kernels.packing.packed()``.
       depth_rank: optional (N,) int32 dense depth rank (0 = nearest, e.g.
         the argsort of the argsort of z): the reference's exact-ordering
         mode. The rank replaces the quantized depth in the sort key, so a
@@ -389,6 +391,7 @@ def build_tile_tables(
         the rows and candidates past a capacity are dropped as the
         reference drops them (``_capped``).
     """
+    bf16_colors = packing.packed() if bf16_colors is None else bf16_colors
     num_tiles = num_tiles_x * num_tiles_y
     n = uv.shape[0]
     if depth_rank is not None:

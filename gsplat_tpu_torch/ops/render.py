@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import packing
 from ..kernels.rasterize import background, rasterize_backward, rasterize_forward
 from ..kernels.segsum import segment_sum
 from ..utils import profiling
@@ -135,7 +136,7 @@ def rasterize(
     height: int,
     tile: int,
     grad_scale_wh: tuple[int, int] | None = None,
-    bf16_grads: bool = True,
+    bf16_grads: bool | None = None,
 ) -> RenderOutput:
     """Render the image from binning's ``tables`` (same uv as binned);
     differentiable with respect to uv, conic, rgb and opacity_logit.
@@ -143,7 +144,8 @@ def rasterize(
 
     The pairs are rounded to the packed stream where ``tables.bf16_colors``
     says so; ``bf16_grads`` carries the per-pair gradient rows as packed
-    words (the reference's default), False as float32 rows.
+    words (the reference's default), False as float32 rows; None reads
+    ``kernels.packing.packed()``.
     ``grad_scale_wh`` (W, H) replaces the padded grid in the uv-gradient
     scale (0.5 W, 0.5 H), as the reference's tile-sharded step passes the
     global image's unpadded size for a strip (ROADMAP R10)."""
@@ -155,7 +157,8 @@ def rasterize(
     out = _Rasterize.apply(
         attrs, tables.splat_gid, tables.tile_start, tables.tile_count,
         tables.pair_cand, tables.pair_start, background(bg, uv.device), num_tiles_x,
-        num_tiles_y, tile, grad_scale, bool(tables.bf16_colors), bool(bf16_grads),
+        num_tiles_y, tile, grad_scale, bool(tables.bf16_colors),
+        packing.packed() if bf16_grads is None else bool(bf16_grads),
     )
     # Cropping outside the Function: autograd gives the padded pixels zero
     # cotangents, as the reference's tiles_to_image does.

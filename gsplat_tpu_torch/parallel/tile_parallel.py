@@ -22,6 +22,11 @@ The uv-gradient scale is the global image's unpadded (W, H), as in the
 reference (``grad_scale_wh``): where the tile grid pads the image, the uv
 gradient differs from the single-camera step's by W / W_pad and H / H_pad
 (ROADMAP R10).
+
+The single step's pieces (``probed_forward``, ``tile_tables``,
+``probed_grads``) make the step, which stamps every stage of the
+``"step"`` clock: the all-gather falls in ``loss``, ``sum_over_ranks`` in
+``adam``.
 """
 
 from __future__ import annotations
@@ -32,12 +37,13 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from ..ops.binning import build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
-from ..train.state import PARAM_DIMS, GaussianParams, TrainState
+from ..train.state import GaussianParams, TrainState
 from ..train.step import (
-    StepMetrics, StepStatics, _as_f32, _per_gaussian, apply_adam, factory_callable)
+    StepMetrics, StepStatics, apply_adam, factory_callable, probed_forward, probed_grads,
+    tile_tables)
+from ..utils import profiling
 from . import comm
 
 
@@ -78,40 +84,28 @@ def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torc
     d, n_ranks = dist.get_rank(group), dist.get_world_size(group)
     rows_local = strip_rows(st, n_ranks)
     h_local = rows_local * st.tile
-    dev = params.xyz.device
-    view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
-    names = list(PARAM_DIMS)
-    leaves = [getattr(params, name) for name in names]
     with torch.enable_grad():
-        uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
-                               requires_grad=True)
-        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
-        uv = uv + uv_probe
-        uv_l = uv - _strip_shift(dev, float(d * h_local))
-        tables = build_tile_tables(
-            uv_l.detach(), z.detach(), radius, mask,
-            num_tiles_x=st.num_tiles_x, num_tiles_y=rows_local, tile_size=st.tile,
-            row_limit=min(max(st.num_tiles_y - d * rows_local, 0), rows_local),
-            pair_cap=st.pair_cap or None, row_cap=st.row_cap or None,
-        )
+        probe, uv, conic, rgb, mask, radius, z = probed_forward(params, view, proj, campos, st)
+        uv_l = uv - _strip_shift(params.xyz.device, float(d * h_local))
+        tables = tile_tables(
+            uv_l.detach(), z.detach(), radius, mask, st, rows=rows_local,
+            row_limit=min(max(st.num_tiles_y - d * rows_local, 0), rows_local))
         strip = rasterize(
             uv_l, conic, rgb, params.opacity, tables, bg,
             width=st.width, height=h_local, tile=st.tile,
             grad_scale_wh=(st.width, st.height),
         ).image
+        profiling.stage_done("raster_fwd")
         image = comm.all_gather_rows(strip, group)[: st.height].detach().requires_grad_(True)
         loss = fused_loss(image, gt_image, st.ssim_frac)
         (d_image,) = torch.autograd.grad(loss, image)
         d_strip = torch.zeros_like(strip)
         mine = d_image[d * h_local:(d + 1) * h_local]
         d_strip[: mine.shape[0]] = mine
-        got = torch.autograd.grad(strip, leaves + [uv_probe], grad_outputs=d_strip,
-                                  allow_unused=True)
-    grads = {name: torch.zeros_like(leaf) if g is None else g
-             for name, leaf, g in zip(names, leaves, got)}
+        grads, g_uv = probed_grads(strip, params, probe, grad_outputs=d_strip)
     image = image.detach()
     summed, (g_uv,), scalars, visible_count, counts = comm.sum_over_ranks(
-        grads, [got[-1]], [loss.detach(), compute_psnr(image, gt_image)], mask,
+        grads, [g_uv], [loss.detach(), compute_psnr(image, gt_image)], mask,
         [tables.num_pairs, tables.overflow, tables.row_overflow], group)
     # Every rank computed the same loss; rank 0's slot is the one all read.
     overflow, row_overflow = counts[1:].amax(dim=1)

@@ -7,10 +7,9 @@ colour, exact tile binning, the forward rasterizer, the fused SSIM+L1
 loss, then autograd back through the rasterizer's custom backward (backward
 kernel, segment sum) and the per-Gaussian maths, and a
 visibility-masked Adam update. As in the reference, the steps call
-``build_tile_tables`` and ``rasterize`` with their defaults, the packed
-mode (``ops/render.py``); ``exact_mode()`` binds those two functions to
-``bf16_colors=False`` / ``bf16_grads=False`` in every module that calls
-them (``MODE_CALL_SITES``), which gives the exact f32 mode.
+``build_tile_tables`` and ``rasterize`` with their defaults, which follow
+the package's mode (``kernels/packing.py``): packed by default, the exact
+f32 mode inside ``exact_mode()``.
 
 ``StepStatics(pair_cap=0)`` (the default) sizes binning exactly: two
 host reads a frame, and the step runs eagerly. A pair cap bins at the
@@ -32,10 +31,6 @@ dp and tp factories of ``parallel`` are callables of the same kind
 (``factory_callable``), captured only where their process group's
 collectives can be (NCCL).
 
-The uv-gradient statistic of densification comes from a zero probe added
-to uv before rasterization: its gradient is exactly the reference's
-scaled ``grad_uv``.
-
 The step and the render stamp the tracer's stage clock
 (``utils/profiling.py``): a step's stages are geometry, sh, binning,
 raster_fwd, loss, raster_bwd (stamped inside ``_Rasterize.backward``),
@@ -49,15 +44,14 @@ work.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-import importlib
 from typing import NamedTuple
 
 import torch
 
 from ..kernels.adam import masked_adam_update_
+from ..kernels.packing import exact_mode, packed  # noqa: F401  (exact_mode: exported here)
 from ..ops import adam as adam_ops
 from ..ops import covariance, projection
 from ..ops import sh as sh_ops
@@ -66,34 +60,6 @@ from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
 from ..utils import profiling
 from .state import PARAM_DIMS, GaussianParams, TrainState
-
-# The package's modules that call build_tile_tables and rasterize, the two
-# functions that take the mode: exact_mode rebinds them there.
-MODE_CALL_SITES = ("gsplat_tpu_torch.train.step", "gsplat_tpu_torch.parallel.tile_parallel")
-
-
-@contextlib.contextmanager
-def exact_mode():
-    """For a ``with`` block: the package in the reference's exact f32 mode.
-
-    The default is the packed mode. As the reference's own tests reach
-    exact mode, ``build_tile_tables`` and ``rasterize`` are bound to
-    ``bf16_colors=False`` and ``bf16_grads=False`` in each module of
-    ``MODE_CALL_SITES``, so ``render_image``, ``train_step``,
-    ``dp_train_step``, ``tp_train_step`` and the Trainer run exact; they
-    are restored on exit."""
-    from ..ops import binning, render
-
-    mods = [importlib.import_module(name) for name in MODE_CALL_SITES]
-    saved = [(m, m.build_tile_tables, m.rasterize) for m in mods]
-    for m in mods:
-        m.build_tile_tables = functools.partial(binning.build_tile_tables, bf16_colors=False)
-        m.rasterize = functools.partial(render.rasterize, bf16_grads=False)
-    try:
-        yield
-    finally:
-        for m, tables, raster in saved:
-            m.build_tile_tables, m.rasterize = tables, raster
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +109,10 @@ class StepStatics:
 
 
 def _per_gaussian(params: GaussianParams, view, proj, campos, st: StepStatics):
-    """Dense per-Gaussian forward: (uv, conic, rgb, mask, radius, z)."""
+    """Dense per-Gaussian forward: (uv, conic, rgb, mask, radius, z).
+    ``view``/``proj`` (4, 4) and ``campos`` (3,) may be numpy arrays or
+    tensors; they are moved to the parameters' device."""
+    view, proj, campos = (_as_f32(x, params.xyz.device) for x in (view, proj, campos))
     xyz_c = projection.world_to_camera(params.xyz, view)
     uv = projection.project_to_screen(xyz_c, proj, st.width, st.height)
     mask = (
@@ -170,11 +139,14 @@ def _as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _tables(uv, z, radius, mask, st: StepStatics) -> TileTables:
+def tile_tables(uv, z, radius, mask, st: StepStatics, rows: int | None = None,
+                row_limit: int | None = None) -> TileTables:
+    """Binning at the statics' caps, over ``rows`` tile rows (default the
+    image's; a tile-parallel strip's) to ``row_limit``; stamps ``binning``."""
     tables = build_tile_tables(
         uv, z, radius, mask,
-        num_tiles_x=st.num_tiles_x, num_tiles_y=st.num_tiles_y, tile_size=st.tile,
-        pair_cap=st.pair_cap or None, row_cap=st.row_cap or None,
+        num_tiles_x=st.num_tiles_x, num_tiles_y=rows or st.num_tiles_y, tile_size=st.tile,
+        row_limit=row_limit, pair_cap=st.pair_cap or None, row_cap=st.row_cap or None,
     )
     profiling.stage_done("binning")
     return tables
@@ -190,11 +162,9 @@ def render_image(
     tensors; they are moved to the parameters' device. ``bg`` is a number
     or a () float32 tensor. Stamps the ``"render"`` stage clock.
     """
-    dev = params.xyz.device
-    with profiling.stage_clock("render", dev):
-        view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
+    with profiling.stage_clock("render", params.xyz.device):
         uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
-        tables = _tables(uv, z, radius, mask, st)
+        tables = tile_tables(uv, z, radius, mask, st)
         out = rasterize(
             uv, conic, rgb, params.opacity, tables, bg,
             width=st.width, height=st.height, tile=st.tile,
@@ -211,6 +181,31 @@ class StepMetrics(NamedTuple):
     row_overflow: torch.Tensor | None = None  # required row capacity
 
 
+def probed_forward(params: GaussianParams, view, proj, campos, st: StepStatics):
+    """``_per_gaussian`` with a zero uv probe added to uv (its gradient is
+    the reference's scaled ``grad_uv``), called under ``enable_grad``:
+    (probe, uv, conic, rgb, mask, radius, z)."""
+    probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=params.xyz.device,
+                        requires_grad=True)
+    uv, *rest = _per_gaussian(params, view, proj, campos, st)
+    return (probe, uv + probe, *rest)
+
+
+def probed_grads(outputs: torch.Tensor, params: GaussianParams, probe: torch.Tensor,
+                 grad_outputs=None):
+    """Back-propagate ``outputs`` (times ``grad_outputs``) to the parameters
+    and the uv probe: ({name: gradient, zeros where a parameter is unused,
+    as for SH bands above ``l_max``}, the probe's (N_cap, 2) gradient).
+    Stamps ``per_gaussian_bwd``."""
+    leaves = [getattr(params, name) for name in PARAM_DIMS]
+    got = torch.autograd.grad(outputs, leaves + [probe], grad_outputs=grad_outputs,
+                              allow_unused=True)
+    grads = {name: torch.zeros_like(leaf) if g is None else g
+             for name, leaf, g in zip(PARAM_DIMS, leaves, got)}
+    profiling.stage_done("per_gaussian_bwd")
+    return grads, got[-1]
+
+
 def compute_loss_and_grads(
     params: GaussianParams, view, proj, campos, gt_image: torch.Tensor,
     bg, st: StepStatics,
@@ -218,37 +213,23 @@ def compute_loss_and_grads(
     """Forward and backward for one camera.
 
     Returns (loss, image, mask, tables, grads, g_uv): ``grads`` maps each
-    parameter name to its gradient (zeros where a parameter is unused, as
-    for SH bands above ``l_max``); ``g_uv`` (N_cap, 2) is the gradient of
-    the uv probe. Dead capacity rows may carry NaN gradients, which
-    ``apply_adam`` scrubs. Stamps the ``"step"`` stage clock (in a step,
-    the step's clock).
+    parameter name to its gradient (``probed_grads``); ``g_uv`` (N_cap, 2)
+    is the gradient of the uv probe. Dead capacity rows may carry NaN
+    gradients, which ``apply_adam`` scrubs. Stamps the ``"step"`` stage
+    clock (in a step, the step's clock).
     """
-    dev = params.xyz.device
-    with profiling.stage_clock("step", dev):
-        view, proj, campos = (_as_f32(x, dev) for x in (view, proj, campos))
-        names = list(PARAM_DIMS)
-        leaves = [getattr(params, name) for name in names]
-        with torch.enable_grad():
-            uv_probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
-                                   requires_grad=True)
-            uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
-            uv = uv + uv_probe
-            tables = _tables(uv.detach(), z.detach(), radius, mask, st)
-            out = rasterize(
-                uv, conic, rgb, params.opacity, tables, bg,
-                width=st.width, height=st.height, tile=st.tile,
-            )
-            profiling.stage_done("raster_fwd")
-            # "loss" ends, and "raster_bwd" is stamped, in _Rasterize.backward
-            loss = fused_loss(out.image, gt_image, st.ssim_frac)
-            got = torch.autograd.grad(loss, leaves + [uv_probe], allow_unused=True)
-        grads = {
-            name: torch.zeros_like(leaf) if g is None else g
-            for name, leaf, g in zip(names, leaves, got)
-        }
-        profiling.stage_done("per_gaussian_bwd")
-    return loss.detach(), out.image.detach(), mask, tables, grads, got[-1]
+    with profiling.stage_clock("step", params.xyz.device), torch.enable_grad():
+        probe, uv, conic, rgb, mask, radius, z = probed_forward(params, view, proj, campos, st)
+        tables = tile_tables(uv.detach(), z.detach(), radius, mask, st)
+        out = rasterize(
+            uv, conic, rgb, params.opacity, tables, bg,
+            width=st.width, height=st.height, tile=st.tile,
+        )
+        profiling.stage_done("raster_fwd")
+        # "loss" ends, and "raster_bwd" is stamped, in _Rasterize.backward
+        loss = fused_loss(out.image, gt_image, st.ssim_frac)
+        grads, g_uv = probed_grads(loss, params, probe)
+    return loss.detach(), out.image.detach(), mask, tables, grads, g_uv
 
 
 def _device_scalar(x, device) -> torch.Tensor:
@@ -386,13 +367,6 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
             + [state.uv_grad_accum, state.accum_dur])
 
 
-def _mode_key() -> tuple:
-    """What ``exact_mode`` binds here now: a graph captured in one mode is
-    not replayed in the other."""
-    return tuple(tuple(sorted(getattr(fn, "keywords", {}).items()))
-                 for fn in (build_tile_tables, rasterize))
-
-
 def _tensors_of(out) -> list[torch.Tensor]:
     if isinstance(out, torch.Tensor):
         return [out]
@@ -433,7 +407,7 @@ class _Graphed:
         ``inputs`` maps names to device tensors or numbers."""
         from ..kernels import _build
 
-        key = (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors), _mode_key())
+        key = (tuple((t.data_ptr(), tuple(t.shape)) for t in tensors), packed())
         if self.graph is None or self.key != key:
             self.free()
             dev = tensors[0].device

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, and one train step
 against the port's CPU path, on the card (masked Adam bit-equal to its
 plain version, alone, through ``apply_adam`` and through a graph's
-replays).
+replays; a graph captured in the packed mode captured again, not replayed,
+under ``exact_mode()``).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -11,6 +12,8 @@ it runs on a GPU host that has only PyTorch:
 
 (``--noconftest``: tests/conftest.py imports JAX.)
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -709,6 +712,37 @@ def test_graph_replay_bit_equal_to_eager_capped_step(dev):
         np.testing.assert_array_equal(s_g[name], s_e[name])
     assert l_g == l_e and l_g["radix_sort/tile"] == 5 and min(
         l_g[k] for k in l_g if k != "radix_sort/morton" and not k.endswith("/packed")) > 0
+
+
+def test_exact_mode_captures_its_own_graph(dev):
+    """``get_train_step``'s graph, captured in the packed mode, is not
+    replayed under ``exact_mode()`` at the same statics and state: the
+    exact calls run eagerly, capture a second graph and replay it, and
+    their losses and state are bit-identical to ``train_step``'s, eagerly
+    in each mode, over three packed and three exact steps."""
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    runs, captures = [], t_step.graph_captures()
+    for graphed in (False, True):
+        state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+        step, out = t_step.get_train_step(st), []
+        for it in range(6):
+            args = (state, *cam_t[it % 2], gt, 0.1 * it, it)
+            with exact_mode() if it >= 3 else contextlib.nullcontext():
+                state, m = step(*args) if graphed else t_step.train_step(*args, st)
+            out.append(torch.stack([m.loss, m.num_pairs.float()]))
+            if graphed and it in (2, 5):
+                assert t_step.graph_captures() == captures + it // 3 + 1
+        torch.cuda.synchronize()
+        runs.append((torch.stack(out).cpu(), t_state.state_to_numpy(state)))
+        t_step.release_graphs()
+    (m_e, s_e), (m_g, s_g) = runs
+    assert torch.equal(m_e.view(torch.int32), m_g.view(torch.int32))
+    for group in ("params", "adam_m", "adam_v"):
+        for name in s_e[group]:
+            np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
 
 
 @pytest.mark.parametrize("kind", ["dp", "tp"])

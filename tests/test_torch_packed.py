@@ -25,8 +25,10 @@ tests/test_torch_render.py (64x48) and tests/test_torch_train.py (64x40).
   package's default (packed, MXU on) jitted ``train_step``.
 - ``render_image``, ``train_step`` and the ``Trainer`` run the packed mode
   when given no flags (``dp_train_step`` and ``tp_train_step``: see
-  tests/test_torch_parallel.py); ``exact_mode`` rebinds every module of
-  the package that calls ``build_tile_tables`` or ``rasterize``.
+  tests/test_torch_parallel.py); under ``exact_mode``, ``render_image``,
+  ``train_step`` and ``tp_train_step`` (a one-rank gloo group) make only
+  exact rasterizer calls, and the mode is packed again after a block
+  that raised.
 
 The reference's packed kernels evaluate colour sums, the backward's pixel
 moments and suffix sums as bf16 matrix products on the TPU's MXU; the port
@@ -464,35 +466,28 @@ def test_entry_points_default_to_packed(tmp_path):
         assert [(p, g) for _, p, g in modes.calls] == [(False, None), (False, False)]
 
 
-def _mode_callers():
-    """The package's modules whose code calls ``build_tile_tables`` or
-    ``rasterize`` (by name or attribute), from their syntax trees."""
-    import ast
-    from pathlib import Path
+def test_exact_mode_reaches_every_entry_point_and_restores_packed():
+    from gsplat_tpu_torch import parallel
+    from gsplat_tpu_torch.parallel.launch import free_port
 
-    import gsplat_tpu_torch
-
-    root = Path(gsplat_tpu_torch.__file__).parent
-    out = set()
-    for path in root.rglob("*.py"):
-        for node in ast.walk(ast.parse(path.read_text())):
-            f = getattr(node, "func", None) if isinstance(node, ast.Call) else None
-            name = getattr(f, "id", None) or getattr(f, "attr", None)
-            if name in ("build_tile_tables", "rasterize"):
-                rel = path.relative_to(root.parent).with_suffix("")
-                out.add(".".join(rel.parts))
-    return out
-
-
-def test_exact_mode_rebinds_every_caller():
-    import importlib
-
-    assert _mode_callers() == set(t_step.MODE_CALL_SITES)
-    mods = [importlib.import_module(m) for m in t_step.MODE_CALL_SITES]
-    before = [(m.build_tile_tables, m.rasterize) for m in mods]
-    with exact_mode():
-        for m in mods:
-            assert m.build_tile_tables.keywords == dict(bf16_colors=False)
-            assert m.rasterize.keywords == dict(bf16_grads=False)
-    assert [(m.build_tile_tables, m.rasterize) for m in mods] == before
-    assert before[0] == (build_tile_tables, rasterize)
+    params, alive, cm, _, t_st, _ = _scene(64, 40, 300, 320)
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            modes = _Modes(mp)
+            with exact_mode():
+                img, tables = t_step.render_image(t_state.params_from_jax(params, alive, "cpu"),
+                                                  cm.view, cm.proj, cm.campos, BG, t_st)
+                for step in (t_step.train_step, parallel.tp_train_step):
+                    state = t_state.init_state(t_state.params_from_jax(params, alive, "cpu"))
+                    step(state, cm.view, cm.proj, cm.campos, img, BG, 0, t_st)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not tables.bf16_colors
+    assert [(p, g) for _, p, g in modes.calls] == [(False, None)] + 2 * [(False, None),
+                                                                         (False, False)]
+    with pytest.raises(RuntimeError, match="inside"):
+        with exact_mode():
+            assert not packing.packed()
+            raise RuntimeError("inside")
+    assert packing.packed()

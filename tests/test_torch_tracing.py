@@ -7,7 +7,8 @@ profiler records; inside a CPU torch.profiler session it lands in the
 profiler's own events within 1 ms of its in-memory start and end, with its
 parent and thread. The plain stage clock (``time.time_ns()`` into a CPU
 ring) gives a train step eight stages and a render four, all >= 0, summing
-to the call's host wall time within 5 %, and changes no output bit. A tiny
+to the call's host wall time within 5 %, and changes no output bit; so
+does the tp step's on a one-rank gloo group, every stage stamped. A tiny
 ``Trainer.train`` under a profiler records every span of the trainer, its
 loader and its step, each under ``trainer.train``. This file imports no
 JAX module of its own.
@@ -295,6 +296,35 @@ def test_dp_step_stamps_its_own_clock_and_counts_its_reduced_bytes(monkeypatch):
             state.params.capacity)
         # the single-camera step's clock is left as it was
         assert profiling.stage_times("step", "cpu") == steps_before
+    finally:
+        t_step.release_graphs()
+        torch.distributed.destroy_process_group()
+
+
+def test_tp_step_stamps_every_stage_of_the_step_clock():
+    from gsplat_tpu_torch import parallel
+    from gsplat_tpu_torch.parallel.launch import free_port
+
+    params, alive, cam_t, st, gt = _scene(n=300)
+    st = t_step.StepStatics(**{**st.__dict__, "pair_cap": 1 << 16, "row_cap": 1 << 14})
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
+    try:
+        state = _state(params, alive)
+        tp = parallel.get_monitored_tp_train_step(st)
+        monitor = t_step.fresh_monitor("cpu")
+        tp(state, *cam_t, gt, 0.0, 0, monitor)  # warm
+        profiling.clear()
+        walls = []
+        for it in range(1, 4):
+            t0 = time.perf_counter_ns()
+            state, _, monitor = tp(state, *cam_t, gt, 0.0, it, monitor)
+            walls.append((time.perf_counter_ns() - t0) / 1e6)
+        got = profiling.stage_times("step", "cpu")
+        assert len(got) == 3
+        for wall, stages in zip(walls, (got[s] for s in sorted(got))):
+            assert tuple(stages) == profiling.STAGES["step"]
+            assert all(ms >= 0 for ms in stages.values()), stages
+            assert sum(stages.values()) == pytest.approx(wall, rel=0.05)
     finally:
         t_step.release_graphs()
         torch.distributed.destroy_process_group()
