@@ -266,6 +266,14 @@ words), and its exact f32 mode where named
     version from copies of one start, bit-equal, and each timed in a CUDA
     graph (``graph_ms``) beside ``kernel_bound``; then a step's six groups
     in order and ``apply_adam`` whole, through each.
+20. holds the SH colour kernels (``kernels/sh.py``, ``csrc/sh.cu``)
+    against their plain versions at the 1M and 4.25M capacities
+    (``sh_table``: 2^20 and 6,291,456 rows at l_max 3, the colour gradient
+    a strided view of (N, 9) attribute rows): the forward against
+    ``ops/sh.py::sh_to_rgb``, the backward against
+    ``sh_to_rgb_backward_plain``, then each timed in a CUDA graph beside
+    ``kernel_bound`` and the plain chain (the forward, and the forward
+    with autograd's backward, as the step ran them before the kernels).
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -361,6 +369,10 @@ show a mode, and the update, bit for bit unchanged.
     python3 chip_smoke.py --adam
 
 runs [1] and [19] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --sh
+
+runs [1] and [20] alone, with its checks (no result line).
 """
 
 from __future__ import annotations
@@ -448,6 +460,11 @@ UNPACK_GRAD_OPS = 21
 # above: the NaN select 1; m' 3; v' 4; the two bias divisions 2; the square
 # root and + EPS 2; -lr m^ and its division 2; p + step 1.
 ADAM_OPS = 15
+# SH colour (csrc/sh.cu), f32 bytes a row: the forward reads xyz, dc and 45
+# SH floats and writes rgb; the backward reads xyz, the SH floats and the
+# colour gradient and writes the gradients of xyz, dc and sh.
+SH_FORWARD_BYTES = 4 * (3 + 3 + 45 + 3)
+SH_BACKWARD_BYTES = 4 * (3 + 45 + 3 + 3 + 3 + 45)
 
 
 def kernel_bound(name: str, packed: bool = False, **work) -> dict:
@@ -464,10 +481,12 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     pairs; masked_adam ``stepped``, the elements of the rows that step,
     and ``rows``, the mask bytes read, both summed over the groups: a
     stepped element reads param, grad and both moments and writes param
-    and moments, 28 bytes). ``packed``: the packed mode's rasterizers also
-    round each pair up to every tile's deepest n_splats (``reached``), K2
-    writes 16-byte word rows and packs those it reaches, K4 reads and
-    unpacks every row.
+    and moments, 28 bytes; sh_forward and sh_backward ``rows``, bytes
+    only, SH_FORWARD_BYTES and SH_BACKWARD_BYTES a row: their hundred-odd
+    operations a row take < 4 % of its byte time). ``packed``: the packed
+    mode's rasterizers also round each pair up to every tile's deepest
+    n_splats (``reached``), K2 writes 16-byte word rows and packs those it
+    reaches, K4 reads and unpacks every row.
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -499,6 +518,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     elif name == "masked_adam":
         nbytes = 28 * work["stepped"] + work["rows"]
         ops = ADAM_OPS * work["stepped"]
+    elif name in ("sh_forward", "sh_backward"):
+        nbytes = (SH_FORWARD_BYTES if name == "sh_forward" else SH_BACKWARD_BYTES) * work["rows"]
+        ops = 0
     else:
         raise ValueError(f"no bound for {name}")
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -2523,6 +2545,82 @@ def adam_table(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> list:
     return out
 
 
+SH_TITLE = ("[20] SH colour (csrc/sh.cu) against its plain version at the 1M and 4.25M "
+            "capacities")
+SH_ROWS = (1 << 20, 6_291_456)  # [20]: the 1M and 4.25M cells' capacities
+SH_TIMING_ITERS = 10  # [20]: calls a timed graph holds
+
+
+def sh_inputs(dev, n: int, seed: int = 0):
+    """[20] and the card tests: xyz around [9]'s scene centre, dc, sh
+    (N, 15, 3) and a colour gradient as a strided view: the r g b columns
+    of (N, 9) attribute rows."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    xyz = f32(rng.normal(size=(n, 3)) * [2.0, 1.4, 2.5] + [0.0, 0.0, 4.0])
+    dc, sh = f32(rng.normal(size=(n, 3))), f32(0.3 * rng.normal(size=(n, 15, 3)))
+    return xyz, dc, sh, f32(rng.normal(size=(n, 9)))[:, 6:9]
+
+
+def sh_table(dev, rows=SH_ROWS, l_max: int = 3) -> list:
+    """[20] and ``--sh``: at each count of ``rows``, the forward kernel
+    against ``ops/sh.py::sh_to_rgb`` and the backward kernel against
+    ``sh_to_rgb_backward_plain`` (rtol 1e-5 / 1e-4 and 1e-5 of each
+    tensor's largest value, as tests/test_torch_cuda.py holds them), then
+    each timed in a CUDA graph (``graph_ms``) beside ``kernel_bound`` and
+    the plain chain: its forward, and its forward with autograd's backward
+    (the step's SH before the kernels). Returns a dict a count; a kernel
+    outside its tolerance raises."""
+    from gsplat_tpu_torch.kernels import sh as k_sh
+    from gsplat_tpu_torch.ops import sh as sh_ops
+
+    campos = torch.as_tensor(views()[0].campos, dtype=torch.float32, device=dev)
+    out = []
+    for n in rows:
+        xyz, dc, sh, g = sh_inputs(dev, n)
+        leaves = [t.clone().requires_grad_() for t in (xyz, dc, sh)]
+        with torch.no_grad():
+            rgb = k_sh.sh_to_rgb(xyz, dc, sh, campos, l_max)
+            plain_rgb = sh_ops.sh_to_rgb(xyz, dc, sh, campos, l_max)
+            grads = k_sh._backward_launch(g, xyz, sh, campos, l_max)
+            plain = k_sh.sh_to_rgb_backward_plain(g, xyz, sh, campos, l_max)
+        errs = {}
+        for name, got, want, rtol in (("rgb", rgb, plain_rgb, 1e-5),
+                                      ("grad_xyz", grads[0], plain[0], 1e-4),
+                                      ("grad_dc", grads[1], plain[1], 1e-6),
+                                      ("grad_sh", grads[2], plain[2], 1e-5)):
+            scale = float(want.abs().max())
+            errs[name] = float((got - want).abs().max()) / scale
+            torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * scale)
+        del rgb, plain_rgb, grads, plain
+
+        def plain_both():
+            rgb = sh_ops.sh_to_rgb(*leaves, campos, l_max)
+            torch.autograd.grad(rgb, leaves, grad_outputs=g)
+
+        with torch.no_grad():
+            fwd = graph_ms(lambda: k_sh.sh_to_rgb(xyz, dc, sh, campos, l_max), SH_TIMING_ITERS)
+            bwd = graph_ms(lambda: k_sh._backward_launch(g, xyz, sh, campos, l_max),
+                           SH_TIMING_ITERS)
+            plain_fwd = graph_ms(lambda: sh_ops.sh_to_rgb(xyz, dc, sh, campos, l_max),
+                                 SH_TIMING_ITERS)
+        plain_fwd_bwd = graph_ms(plain_both, SH_TIMING_ITERS)
+        res = dict(rows=n, ms=fwd, backward_ms=bwd, plain_ms=plain_fwd,
+                   plain_backward_ms=plain_fwd_bwd - plain_fwd,
+                   bound_ms=kernel_bound("sh_forward", rows=n)["bound_ms"],
+                   backward_bound_ms=kernel_bound("sh_backward", rows=n)["bound_ms"],
+                   max_rel_err=errs)
+        log(f"  {n} rows, l_max {l_max}: forward {fwd:.4f} ms (bound {res['bound_ms']:.4f}, "
+            f"plain {plain_fwd:.4f}); backward {bwd:.4f} ms (bound "
+            f"{res['backward_bound_ms']:.4f}, plain autograd {res['plain_backward_ms']:.4f}; "
+            f"plain forward + backward {plain_fwd_bwd:.4f}); largest error / largest value "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        out.append(res)
+        del xyz, dc, sh, g, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
 def sfm_cloud(arrays: dict, n: int, seed: int):
     """An SfM-like cloud of ``scene_arrays``' first n Gaussians: their
     centres plus N(0, 0.05^2) jitter, float64, with uint8 colours."""
@@ -4144,6 +4242,10 @@ def main() -> int:
         log(ADAM_TITLE)
         adam_table(dev)
         return 0
+    if sys.argv[1:] == ["--sh"]:
+        log(SH_TITLE)
+        sh_table(dev)
+        return 0
     if sys.argv[1:] == ["--scale-profile"]:
         scale_profile(dev)
         return 0
@@ -4316,6 +4418,11 @@ def main() -> int:
     log(ADAM_TITLE)
     adam_1m, adam_scale = adam_table(dev)
 
+    # 20. SH colour: the forward and backward kernels against their plain
+    # versions at the 1M and 4.25M capacities.
+    log(SH_TITLE)
+    sh_1m, sh_scale = sh_table(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -4386,6 +4493,17 @@ def main() -> int:
         scale={k: adam_scale[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         **{k: adam_1m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "apply_adam_ms",
                                    "apply_adam_plain_ms")}))
+    # SH colour replaces no TPU kernel either (XLA glue in the reference):
+    # the forward and the backward at the 1M capacity, launches from [9].
+    for name, sfx in (("sh_forward", ""), ("sh_backward", "backward_")):
+        pick = lambda r, sfx=sfx: {  # noqa: E731
+            "ms": r[f"{sfx}ms"], "plain_ms": r[f"plain_{sfx}ms"],
+            "bound_ms": r[f"{sfx}bound_ms"], "bound_by": "bytes"}
+        kernels.append(dict(
+            name=name, route="cuda", source="gsplat_tpu_torch/csrc/sh.cu",
+            replaces="none: XLA glue, gsplat_tpu/ops/sh.py", launches=pk[name],
+            launches_per_step=pk[name] / TRAIN_STEPS, launches_scale=at_scale[name],
+            launches_nccl_graph=at_nccl[name], scale=pick(sh_scale), **pick(sh_1m)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -68,13 +68,19 @@ SIGNATURES = {
     # null), -lr, B1, 1 - B1, B2, 1 - B2, EPS, stream
     "gs_masked_adam": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P,
                        *[ctypes.c_float] * 6, _P],
+    # rgb, xyz, dc, sh, campos (a device (3,)), n, l_max, stream
+    "gs_sh_forward": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # grad_xyz, grad_dc, grad_sh, g, g's row and column strides, xyz, sh,
+    # campos, n, l_max, stream
+    "gs_sh_backward": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P,
+                       ctypes.c_longlong, _I, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
     "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
     "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
-    "masked_adam": 0,
+    "masked_adam": 0, "sh_forward": 0, "sh_backward": 0,
 }
 
 _lock = threading.Lock()

@@ -51,10 +51,10 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.adam import masked_adam_update_
+from ..kernels.sh import sh_to_rgb
 from ..kernels.packing import exact_mode, packed  # noqa: F401  (exact_mode: exported here)
 from ..ops import adam as adam_ops
 from ..ops import covariance, projection
-from ..ops import sh as sh_ops
 from ..ops.binning import TileTables, build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
@@ -129,7 +129,7 @@ def _per_gaussian(params: GaussianParams, view, proj, campos, st: StepStatics):
         sigma, jac, view, st.mh_dist, opacity_logit=params.opacity
     )
     profiling.stage_done("geometry")
-    rgb = sh_ops.sh_to_rgb(params.xyz, params.rgb, params.sh, campos, st.l_max)
+    rgb = sh_to_rgb(params.xyz, params.rgb, params.sh, campos, st.l_max)
     profiling.stage_done("sh")
     z = xyz_c[:, 2]
     return uv, conic, rgb, mask, radius, z

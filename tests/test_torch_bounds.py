@@ -8,7 +8,8 @@ bounds that chip_smoke.py reports, and of the port's default device.
 - the segment expand's wrapper returns the buffer the kernel wrote (a
   stand-in library), and its ITEMS_PER_BLOCK is csrc/expand.cu's share;
 - ``chip_smoke.kernel_bound`` and ``chip_smoke.pair_pixel_counts`` give
-  hand-counted bytes, operations and pair-pixels (masked Adam's too);
+  hand-counted bytes, operations and pair-pixels (masked Adam's and the
+  SH colour kernels' too);
 - the density step's Morton re-sort sorts its 31-bit codes (4 passes of
   8/8/8/7 bits) through the radix sort's ``"morton"`` call site, counted
   apart from the tile sort;
@@ -259,6 +260,17 @@ def test_kernel_bound_masked_adam_hand_counted():
     r = chip_smoke.kernel_bound("masked_adam", stepped=8, rows=3)
     assert (r["bytes"], r["ops"], r["bound_by"]) == (8 * 28 + 3, 8 * 15, "bytes")
     assert r["bound_ms"] == pytest.approx(1e3 * 227 / 3.35e12)
+
+
+def test_kernel_bound_sh_hand_counted():
+    # SH colour, bytes a row: the forward reads xyz 12, dc 12 and sh 180
+    # and writes rgb 12; the backward reads xyz 12, sh 180 and the colour
+    # gradient 12 and writes grad_xyz 12, grad_dc 12 and grad_sh 180.
+    r = chip_smoke.kernel_bound("sh_forward", rows=10)
+    assert (r["bytes"], r["ops"], r["bound_by"]) == (10 * 216, 0, "bytes")
+    r = chip_smoke.kernel_bound("sh_backward", rows=6_291_456)
+    assert (r["bytes"], r["bound_by"]) == (6_291_456 * 408, "bytes")
+    assert r["bound_ms"] == pytest.approx(1e3 * 6_291_456 * 408 / 3.35e12)
 
 
 def test_kernel_bound_packed_hand_counted():

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, and one train step
 against the port's CPU path, on the card (masked Adam bit-equal to its
 plain version, alone, through ``apply_adam`` and through a graph's
-replays; a graph captured in the packed mode captured again, not replayed,
-under ``exact_mode()``).
+replays; the SH colour kernels close to their plain versions, and in a
+graph replayed with another camera; a graph captured in the packed mode
+captured again, not replayed, under ``exact_mode()``).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -20,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import expand_edge_counts  # noqa: E402
+from chip_smoke import expand_edge_counts, sh_inputs  # noqa: E402
 from gsplat_tpu_torch.kernels import _build, packing  # noqa: E402
 from gsplat_tpu_torch.kernels.adam import (  # noqa: E402
     masked_adam_update_, masked_adam_update_plain,
@@ -1028,3 +1029,108 @@ def test_monitored_graph_replays_adam_bit_equal_to_eager_plain(dev, monkeypatch)
             np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
     for name in ("alive", "uv_grad_accum", "accum_dur"):
         np.testing.assert_array_equal(s_g[name], s_e[name])
+
+
+def _sh_close(got, want, rtol):
+    # The kernels compute in f32 in another order of summation than cuBLAS's
+    # batched products and torch's elementwise chain (and contract to FMA):
+    # rtol and 1e-5 of the tensor's largest value.
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1_000_003])
+@pytest.mark.parametrize("l_max", [0, 1, 2, 3])
+def test_sh_kernels_close_to_plain(dev, l_max, n):
+    """The forward kernel against ``ops/sh.py::sh_to_rgb`` and the backward
+    kernel against ``sh_to_rgb_backward_plain`` on the same card inputs (a
+    ragged count too), the colour gradient a strided view that is not
+    copied; grad_sh zero past l_max, grad_xyz zero at l_max 0; one launch of
+    each kernel."""
+    from gsplat_tpu_torch.kernels import sh as k_sh
+    from gsplat_tpu_torch.ops import sh as sh_ops
+
+    xyz, dc, sh, g = sh_inputs(dev, n, seed=l_max)
+    campos = torch.tensor([0.3, -0.2, -1.0], device=dev)
+    assert not g.is_contiguous()
+    leaves = [t.clone().requires_grad_() for t in (xyz, dc, sh)]
+    before = dict(_build.launches)
+    rgb = k_sh.sh_to_rgb(*leaves, campos, l_max)
+    grads = torch.autograd.grad(rgb, leaves, grad_outputs=g)
+    torch.cuda.synchronize()
+    assert (_build.launches["sh_forward"] - before["sh_forward"],
+            _build.launches["sh_backward"] - before["sh_backward"]) == (1, 1)
+    _sh_close(rgb.detach(), sh_ops.sh_to_rgb(xyz, dc, sh, campos, l_max), rtol=1e-5)
+    want = k_sh.sh_to_rgb_backward_plain(g, xyz, sh, campos, l_max)
+    for name, got, ref, rtol in zip(("xyz", "dc", "sh"), grads, want, (1e-4, 1e-6, 1e-5)):
+        assert got.shape == ref.shape and got.is_contiguous(), name
+        _sh_close(got, ref, rtol)
+    k = sh_ops.num_sh_coeffs(l_max)
+    assert (grads[2][:, k - 1:] == 0).all()
+    assert (grads[0] == 0).all() == (l_max == 0)
+
+
+def test_sh_kernel_rejects_unaligned_sh(dev):
+    from gsplat_tpu_torch.kernels import sh as k_sh
+
+    xyz, dc, sh, _ = sh_inputs(dev, 1000, seed=0)
+    shifted = torch.empty(sh.numel() + 1, device=dev)[1:].view(sh.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        k_sh.sh_to_rgb(xyz, dc, shifted, torch.zeros(3, device=dev), 3)
+
+
+def test_sh_graph_replay_takes_the_new_camera(dev):
+    """The forward and backward kernels captured in one CUDA graph with the
+    camera in a static buffer: after a copy of another camera, a replay
+    gives that camera's colours and gradients (as the plain versions compute
+    them there), so the kernels read campos from device memory."""
+    from gsplat_tpu_torch.kernels import sh as k_sh
+    from gsplat_tpu_torch.ops import sh as sh_ops
+
+    xyz, dc, sh, g = sh_inputs(dev, 100_003, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (xyz, dc, sh)]
+    campos = torch.tensor([0.3, -0.2, -1.0], device=dev)
+
+    def run():
+        rgb = k_sh.sh_to_rgb(*leaves, campos, 3)
+        return (rgb.detach(), *torch.autograd.grad(rgb, leaves, grad_outputs=g))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for cam in ([1.5, 0.0, 0.2], [-0.7, 1.1, -2.0]):
+        campos.copy_(torch.tensor(cam, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        _sh_close(out[0], sh_ops.sh_to_rgb(xyz, dc, sh, campos, 3), rtol=1e-5)
+        want = k_sh.sh_to_rgb_backward_plain(g, xyz, sh, campos, 3)
+        for got, ref, rtol in zip(out[1:], want, (1e-4, 1e-6, 1e-5)):
+            _sh_close(got, ref, rtol)
+    del graph
+
+
+def test_graphed_step_and_render_launch_sh_once(dev):
+    """On the main path: the graphed monitored step launches one SH forward
+    and one SH backward a step, the graphed render one forward a view."""
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+    monitor, step, render = t_step.fresh_monitor(dev), t_step.get_monitored_train_step(st), \
+        t_step.get_render_fn(st)
+    _build.reset_launches()
+    for it in range(4):
+        state, _, monitor = step(state, *cam_t[it % 2], gt, 0.1 * it, it, monitor)
+    torch.cuda.synchronize()
+    assert (_build.launches["sh_forward"], _build.launches["sh_backward"]) == (4, 4)
+    _build.reset_launches()
+    for it in range(4):
+        render(state.params, *cam_t[it % 2], 0.1)
+    torch.cuda.synchronize()
+    t_step.release_graphs()
+    assert (_build.launches["sh_forward"], _build.launches["sh_backward"]) == (4, 0)

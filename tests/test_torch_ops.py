@@ -7,6 +7,7 @@ functions and matrix-product summation order may round differently).
 No Pallas kernel is involved.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -23,6 +24,8 @@ from gsplat_tpu.ops import projection as j_proj  # noqa: E402
 from gsplat_tpu.ops import sh as j_sh  # noqa: E402
 from gsplat_tpu.train import state as j_state  # noqa: E402
 from gsplat_tpu.train import step as j_step  # noqa: E402
+from gsplat_tpu_torch.kernels import _build  # noqa: E402
+from gsplat_tpu_torch.kernels import sh as k_sh  # noqa: E402
 from gsplat_tpu_torch.ops import camera as t_camera  # noqa: E402
 from gsplat_tpu_torch.ops import covariance as t_cov  # noqa: E402
 from gsplat_tpu_torch.ops import loss as t_loss  # noqa: E402
@@ -147,6 +150,136 @@ def test_sh_matches_jax(points, l_max):
         j_sh.sh_to_rgb(jnp.asarray(points["xyz"]), jnp.asarray(points["dc"]),
                        jnp.asarray(points["sh"]), jnp.asarray(campos), l_max),
     )
+
+
+@pytest.mark.parametrize("l_max", [0, 1, 2, 3])
+def test_sh_wrapper_on_cpu_matches_jax(points, l_max):
+    # kernels/sh.py on CPU tensors is ops/sh.py's function, launching nothing.
+    campos = np.array([0.3, -0.2, -1.0], np.float32)
+    args = (_t(points["xyz"]), _t(points["dc"]), _t(points["sh"]), _t(campos), l_max)
+    before = dict(_build.launches)
+    got = k_sh.sh_to_rgb(*args)
+    assert _build.launches == before
+    assert torch.equal(got, t_sh.sh_to_rgb(*args))
+    _close(got, j_sh.sh_to_rgb(jnp.asarray(points["xyz"]), jnp.asarray(points["dc"]),
+                               jnp.asarray(points["sh"]), jnp.asarray(campos), l_max))
+
+
+def _sh_autograd(points, campos, g, l_max, dtype):
+    """Autograd through ops/sh.py: (grad_xyz, grad_dc, grad_sh), zeros where
+    a leaf is unused (as probed_grads fills them)."""
+    leaves = [torch.from_numpy(points[k]).to(dtype).requires_grad_() for k in ("xyz", "dc", "sh")]
+    rgb = t_sh.sh_to_rgb(*leaves, campos, l_max)
+    got = torch.autograd.grad(rgb, leaves, grad_outputs=g, allow_unused=True)
+    return [torch.zeros_like(x) if d is None else d for x, d in zip(leaves, got)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("l_max", [0, 1, 2, 3])
+def test_sh_backward_plain_equals_autograd(points, l_max, dtype):
+    # The backward kernel's maths in plain PyTorch (grad_d through the
+    # basis' derivatives, then through the normalisation) against autograd
+    # through the forward, zeros past l_max included. f64: the formulas to
+    # 1e-12; f32: another order of the same sums, rtol 1e-5 and 1e-6 of each
+    # gradient's largest value, as every parity test here.
+    campos = torch.tensor([0.3, -0.2, -1.0], dtype=dtype)
+    g = torch.from_numpy(np.random.default_rng(l_max).normal(size=(N, 3))).to(dtype)
+    want = _sh_autograd(points, campos, g, l_max, dtype)
+    got = k_sh.sh_to_rgb_backward_plain(
+        g, torch.from_numpy(points["xyz"]).to(dtype), torch.from_numpy(points["sh"]).to(dtype),
+        campos, l_max)
+    k = t_sh.num_sh_coeffs(l_max)
+    for name, a, b in zip(("xyz", "dc", "sh"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        if dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))
+        else:
+            _close(a, b)
+    assert (got[2][:, k - 1:] == 0).all()
+    assert (got[0] == 0).all() == (l_max == 0)
+
+
+class _ShLib:
+    """Stands in for the kernel library on CPU tensors, under csrc/sh.cu's
+    contract: the forward's colours and the backward's three gradients land
+    in the buffers passed, ``g`` read at the strides passed."""
+
+    def __init__(self):
+        self.g_strides = []
+
+    @staticmethod
+    def _read(ptr, shape):
+        count = int(np.prod(shape))
+        return torch.from_numpy(
+            np.frombuffer(ctypes.string_at(ptr, 4 * count), np.float32).reshape(shape).copy())
+
+    @staticmethod
+    def _write(ptr, t):
+        a = np.ascontiguousarray(t.detach().numpy(), dtype=np.float32)
+        ctypes.memmove(ptr, a.ctypes.data, a.nbytes)
+
+    def gs_sh_forward(self, rgb, xyz, dc, sh, campos, n, l_max, stream):
+        self._write(rgb, t_sh.sh_to_rgb(self._read(xyz, (n, 3)), self._read(dc, (n, 3)),
+                                        self._read(sh, (n, 15, 3)), self._read(campos, (3,)),
+                                        l_max))
+        return 0
+
+    def gs_sh_backward(self, gx, gd, gs, g, g_row, g_col, xyz, sh, campos, n, l_max, stream):
+        self.g_strides.append((g_row, g_col))
+        flat = self._read(g, ((n - 1) * g_row + 2 * g_col + 1,)).numpy()
+        gg = torch.from_numpy(np.lib.stride_tricks.as_strided(
+            flat, (n, 3), (4 * g_row, 4 * g_col)).copy())
+        out = k_sh.sh_to_rgb_backward_plain(gg, self._read(xyz, (n, 3)),
+                                            self._read(sh, (n, 15, 3)),
+                                            self._read(campos, (3,)), l_max)
+        for ptr, t in zip((gx, gd, gs), out):
+            self._write(ptr, t)
+        return 0
+
+
+@pytest.mark.parametrize("l_max", [0, 3])
+def test_sh_function_routes_kernel_buffers(points, monkeypatch, l_max):
+    # The CUDA path's autograd.Function over a stand-in library: one forward
+    # and one backward launch, the colour gradient passed as a strided view
+    # (the r g b columns of (N, 9) attribute rows), and each gradient
+    # routed to its leaf (autograd's through ops/sh.py as the yardstick).
+    lib = _ShLib()
+    monkeypatch.setattr(_build, "build", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(_build, "launches", dict(_build.launches))
+    campos = torch.tensor([0.3, -0.2, -1.0])
+    leaves = [_t(points[k]).requires_grad_() for k in ("xyz", "dc", "sh")]
+    rgb = k_sh._ShToRgb.apply(*leaves, campos, l_max)
+    assert torch.equal(rgb, t_sh.sh_to_rgb(*[x.detach() for x in leaves], campos, l_max))
+    w = torch.from_numpy(np.random.default_rng(7).normal(size=(N, 9)).astype(np.float32))
+    rows = torch.cat([torch.ones((N, 6)), rgb], dim=1)  # [u v c00 c01 c11 opa r g b]
+    got = torch.autograd.grad((rows * w).sum(), leaves)
+    assert lib.g_strides == [(9, 1)]
+    assert (_build.launches["sh_forward"], _build.launches["sh_backward"]) == (1, 1)
+    want = k_sh.sh_to_rgb_backward_plain(w[:, 6:], *[x.detach() for x in leaves[::2]],
+                                         campos, l_max)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["dtype", "sh shape", "rows", "campos", "strided", "l_max"])
+def test_sh_wrapper_rejects_bad_arguments(points, case):
+    args = dict(xyz=_t(points["xyz"]), dc=_t(points["dc"]), sh=_t(points["sh"]),
+                campos=torch.tensor([0.3, -0.2, -1.0]), l_max=3)
+    if case == "dtype":
+        args["dc"] = args["dc"].double()
+    elif case == "sh shape":
+        args["sh"] = args["sh"][:, :8]
+    elif case == "rows":
+        args["xyz"] = args["xyz"][:-1]
+    elif case == "campos":
+        args["campos"] = args["campos"][None]
+    elif case == "strided":
+        args["xyz"] = torch.cat([args["xyz"]] * 2, dim=1)[:, ::2]
+    else:
+        args["l_max"] = 4
+    with pytest.raises(ValueError, match="sh_to_rgb"):
+        k_sh.sh_to_rgb(**args)
 
 
 def test_psnr_matches_jax():
