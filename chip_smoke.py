@@ -373,6 +373,10 @@ runs [1] and [19] alone, with its checks (no result line).
     python3 chip_smoke.py --sh
 
 runs [1] and [20] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --mip
+
+runs [1] and [21] alone, with its checks (no result line).
 """
 
 from __future__ import annotations
@@ -486,7 +490,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     operations a row take < 4 % of its byte time). ``packed``: the packed
     mode's rasterizers also round each pair up to every tile's deepest
     n_splats (``reached``), K2 writes 16-byte word rows and packs those it
-    reaches, K4 reads and unpacks every row.
+    reaches, K4 reads and unpacks every row. ``filter3d``: ``rows`` (the
+    capacity walked) and ``tests`` (alive Gaussians x cameras), at
+    FILTER3D_ROW_BYTES a row and FILTER3D_TEST_OPS a test.
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -521,6 +527,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     elif name in ("sh_forward", "sh_backward"):
         nbytes = (SH_FORWARD_BYTES if name == "sh_forward" else SH_BACKWARD_BYTES) * work["rows"]
         ops = 0
+    elif name == "filter3d":  # xyz, alive and the depth a row; every test's operations
+        nbytes = FILTER3D_ROW_BYTES * work["rows"]
+        ops = FILTER3D_TEST_OPS * work["tests"]
     else:
         raise ValueError(f"no bound for {name}")
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -1407,7 +1416,7 @@ def train_slice(cams, st, dev):
             packed_keys = [k for k in launches if k.endswith("/packed")]
             want = {k: launches[k.split("/")[0]] if mode == "packed" else 0 for k in packed_keys}
             base = {k: v for k, v in launches.items()
-                    if k != "radix_sort/morton" and k not in packed_keys}
+                    if k not in ("radix_sort/morton", SWEEP_LAUNCHES) and k not in packed_keys}
             if min(base.values()) <= 0 or {k: launches[k] for k in packed_keys} != want:
                 raise AssertionError(f"a kernel of the {mode} path never launched, or in the "
                                      f"other mode: {launches}")
@@ -1699,7 +1708,7 @@ def trainer_slice(dev, n: int = 1_000_000, width=WIDTH, height=HEIGHT) -> dict:
         failed.append("density steps")
     if launches["radix_sort/morton"] != len(infos):
         failed.append("radix_sort/morton launches")
-    if min(launches.values()) <= 0:
+    if min(v for k, v in launches.items() if k != SWEEP_LAUNCHES) <= 0:
         failed.append(f"a kernel never launched: {launches}")
     if tr.l_max != 3:
         failed.append("l_max")
@@ -2258,7 +2267,8 @@ def parallel_slice(dev, n: int = 1_000_000, width: int = WIDTH, height: int = HE
     failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
     for o in outs:
         log(f"  rank {o['rank']} launches on the dp/tp path: {o['launches']}")
-        if torch.device(dev).type == "cuda" and min(o["launches"].values()) <= 0:
+        if torch.device(dev).type == "cuda" and min(
+                v for k, v in o["launches"].items() if k != SWEEP_LAUNCHES) <= 0:
             failed.append(f"rank {o['rank']}: a kernel never launched")
     t = outs[0]["times"]
     med = lambda xs: statistics.median(xs[1:] if len(xs) > 1 else xs)  # noqa: E731
@@ -2619,6 +2629,89 @@ def sh_table(dev, rows=SH_ROWS, l_max: int = 3) -> list:
         del xyz, dc, sh, g, leaves
         torch.cuda.empty_cache()
     return out
+
+
+MIP_TITLE = ("[21] Mip-Splatting's 3D-filter sweep (csrc/filter3d.cu) against its plain "
+             "version at 2^20 rows x 161 cameras")
+MIP_PHOTOS, MIP_SPLIT = 185, 8  # the sweep's poses: 185 on the circle less every 8th
+MIP_TIMING_CALLS = 20
+SWEEP_LAUNCHES = "filter3d"  # the sweep's _build.launches: no step or render launches it
+# csrc/filter3d.cu: 29 FP32 operations a test (9 multiplies and 9 adds of
+# the transform, the depth test, the four bounds' products and tests, the
+# minimum and its select); 17 bytes a row (xyz, the alive byte, the depth).
+FILTER3D_TEST_OPS, FILTER3D_ROW_BYTES = 29, 17
+
+
+def mip_cameras(width=WIDTH, height=HEIGHT) -> list:
+    """[21]: the Mip cell's sweep poses, ``trainer_cameras``' circle at
+    MIP_PHOTOS centres less every MIP_SPLIT-th, as CameraMatrices."""
+    from gsplat_tpu_torch.ops.camera import build_camera_matrices
+
+    cams, images = trainer_cameras(width, height, MIP_PHOTOS)
+    f = cams[1].params[0]
+    return [build_camera_matrices(im.qvec, im.tvec, width, height, f, f)
+            for i, im in enumerate(images.values()) if i % MIP_SPLIT]
+
+
+def mip_table(dev, n: int = 1_000_000) -> dict:
+    """[21] and ``--mip``: the sweep kernel (``kernels/filter3d.py``) against
+    ``ops/mip.py::nearest_depth_plain`` on the CPU, and the filter of
+    ``update_filter_3d_`` against ``filter_3d_plain``, bit for bit, at [9]'s
+    scene of n Gaussians (capacity 2^20) and ``mip_cameras``, with rows
+    planted on each screen margin, at the depth floor and behind every
+    camera; then the kernel and the whole ``update_filter_3d_`` timed
+    (MIP_TIMING_CALLS calls between CUDA events) beside ``kernel_bound``
+    and the plain loop on the card. A mismatch raises."""
+    from gsplat_tpu_torch.kernels import filter3d
+    from gsplat_tpu_torch.ops import mip
+    from gsplat_tpu_torch.train.state import with_filter_3d
+
+    cams = mip_cameras()
+    params = with_filter_3d(scene_params(n, 0, dev))
+    xyz, alive = params.xyz.detach(), params.alive
+    table = mip.camera_table(cams, dev)
+    with torch.no_grad():  # planted rows: on camera 0's margins, at its floor, behind all
+        view = torch.as_tensor(cams[0].view, device=dev)
+        r, t = view[:3, :3], view[:3, 3]
+        k = table[0].tolist()
+        z = 5.0  # on each bound (x_lo, x_hi, y_lo, y_hi over the focal length) at depth z
+        planted = [(k[14] * z, 0.0, z), (k[15] * z, 0.0, z), (0.0, k[16] * z, z),
+                   (0.0, k[17] * z, z), (0.0, 0.0, mip.DEPTH_FLOOR), (0.0, 0.0, 0.0)]
+        cam_pts = torch.tensor(planted, dtype=torch.float32, device=dev)
+        xyz[:len(planted)] = (cam_pts - t) @ r  # camera -> world: R^T (x_c - t)
+        xyz[len(planted)] = torch.tensor([0.0, 0.0, -50.0], device=dev)  # behind every camera
+    got = filter3d.nearest_depth(xyz, alive, table)
+    want = mip.nearest_depth_plain(xyz.cpu(), alive.cpu(), table.cpu())
+    if not torch.equal(got.cpu(), want):
+        bad = int((got.cpu() != want).sum())
+        raise AssertionError(f"[21] the sweep kernel differs from its plain version in {bad} rows")
+    mip.update_filter_3d_(params, table)
+    if not torch.equal(params.filter_3d.cpu(), mip.filter_3d_plain(xyz.cpu(), alive.cpu(),
+                                                                   table.cpu())):
+        raise AssertionError("[21] the filter differs from its plain version")
+    seen = int(torch.isfinite(want).sum())
+    tests = int(alive.sum()) * len(cams)
+
+    def calls(fn):
+        def many():
+            for _ in range(MIP_TIMING_CALLS):
+                fn()
+        return cuda_ms(many, 5) / MIP_TIMING_CALLS
+
+    with torch.no_grad():
+        kernel = calls(lambda: filter3d.nearest_depth(xyz, alive, table))
+        update = calls(lambda: mip.update_filter_3d_(params, table))
+        plain = cuda_ms(lambda: mip.nearest_depth_plain(xyz, alive, table), 3)
+    bound = kernel_bound("filter3d", rows=int(alive.shape[0]), tests=tests)
+    res = dict(rows=int(alive.shape[0]), cameras=len(cams), seen=seen, kernel_ms=kernel,
+               update_ms=update, plain_ms=plain, bound_ms=bound["bound_ms"],
+               bound_by=bound["bound_by"], bound_pct=100.0 * bound["bound_ms"] / kernel)
+    log(f"  {res['rows']} rows x {len(cams)} cameras, {seen} seen: bit-equal to the plain "
+        f"version; kernel {kernel:.4f} ms, update_filter_3d_ {update:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({res['bound_pct']:.1f} %), the "
+        f"plain loop on the card {plain:.2f} ms")
+    log("MIP " + json.dumps(res))
+    return res
 
 
 def sfm_cloud(arrays: dict, n: int, seed: int):
@@ -3744,7 +3837,8 @@ def graph_equality_slice(cams, gts, st, st_c, dev) -> tuple:
         got = launches[mode]
         packed_keys = [k for k in got if k.endswith("/packed")]
         want_packed = {k: got[k.split("/")[0]] if mode == "packed" else 0 for k in packed_keys}
-        base = [k for k in got if k != "radix_sort/morton" and k not in packed_keys]
+        base = [k for k in got if k not in ("radix_sort/morton", SWEEP_LAUNCHES)
+                and k not in packed_keys]
         log(f"  (d) {mode}: {GRAPH_STEPS - 2} replays under set_sync_debug_mode('error'), "
             f"{captures} capture; launches of the graph's run {got}")
         if (min(got[k] for k in base) <= 0 or {k: got[k] for k in packed_keys} != want_packed
@@ -4157,7 +4251,7 @@ def nccl_graph_slice(dev, n: int = 1_000_000) -> dict:
             same = torch.equal(bits_of(g_steps), bits_of(e_steps)) and torch.equal(
                 bits_of(g_mon), bits_of(e_mon))
             got = launches[kind]
-            want = [k for k in got if k != "radix_sort/morton"]  # the packed path's
+            want = [k for k in got if k not in ("radix_sort/morton", SWEEP_LAUNCHES)]  # packed
             log(f"  (a) {kind}: graph vs eager at the caps over {NCCL_STEPS} steps: losses, "
                 f"counts and monitor bit-identical {same}, state tensors differing {diff}; "
                 f"{captures} capture; monitor {g_mon.tolist()}; pairs a step "
@@ -4245,6 +4339,10 @@ def main() -> int:
     if sys.argv[1:] == ["--sh"]:
         log(SH_TITLE)
         sh_table(dev)
+        return 0
+    if sys.argv[1:] == ["--mip"]:
+        log(MIP_TITLE)
+        mip_table(dev)
         return 0
     if sys.argv[1:] == ["--scale-profile"]:
         scale_profile(dev)
@@ -4422,6 +4520,10 @@ def main() -> int:
     # versions at the 1M and 4.25M capacities.
     log(SH_TITLE)
     sh_1m, sh_scale = sh_table(dev)
+
+    # 21. Mip-Splatting's 3D-filter sweep against its plain version.
+    log(MIP_TITLE)
+    mip_table(dev)
 
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact

@@ -6,7 +6,8 @@ Parses the config, reads the three COLMAP ``.bin`` files from
 SfM points (points3D.bin through the native parser of ``io/native.py``,
 built at first use), trains, and writes ``<output_dir>/checkpoint.npz`` and
 ``<output_dir>/trained.ply``. Same flags as the reference: ``--resume
-ckpt.npz``, ``--max-iters N``, and ``--dp N`` (a batch of N cameras a
+ckpt.npz``, ``--max-iters N``, ``--mip`` (Mip-Splatting, as the config's
+``mip_splatting: true``; the PLY then carries ``filter_3D``) and ``--dp N`` (a batch of N cameras a
 step) or ``--tp N`` (each step's camera split into N strips of tile rows),
 which start N local ranks, one process each, as the reference's one
 command uses N local devices: on the card rank r runs on ``cuda:r`` over
@@ -24,7 +25,7 @@ from pathlib import Path
 import torch
 
 USAGE = ("Usage: python -m gsplat_tpu_torch.cli <config.yaml> <dataset_root> "
-         "[--resume ckpt.npz] [--dp N] [--tp N] [--max-iters N]")
+         "[--resume ckpt.npz] [--dp N] [--tp N] [--max-iters N] [--mip]")
 
 
 def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> int:
@@ -48,7 +49,9 @@ def main(argv: list[str] | None = None, device: torch.device | str = "cuda") -> 
         del argv[i : i + 2]
         return val, None
 
-    vals = {}
+    vals = {"--mip": "--mip" in argv}
+    if vals["--mip"]:
+        argv.remove("--mip")
     for name, cast in (("--resume", str), ("--dp", int), ("--tp", int),
                        ("--max-iters", int)):
         vals[name], err = take_flag(name, cast)
@@ -88,13 +91,14 @@ def _run(argv: list[str], vals: dict, device, rank: int = 0) -> int:
     """Read, initialize, train and write, as rank ``rank`` of ``--dp``/
     ``--tp`` ranks (or alone)."""
     say = print if rank == 0 else (lambda *a, **k: None)
-    from .config import parse_config
+    from .config import parse_config, parse_mip
     from .io import native
     from .io.colmap import read_cameras_binary, read_images_binary
     from .train.init import initialize_gaussians
     from .train.trainer import Trainer
 
     config = parse_config(argv[0])
+    mip = vals["--mip"] or parse_mip(argv[0])
     root = Path(argv[1]) / config.dataset_path
     sparse = root / "sparse" / "0"
 
@@ -109,7 +113,7 @@ def _run(argv: list[str], vals: dict, device, rank: int = 0) -> int:
     say(f"Initialized {gaussians.num} gaussians in {time.time() - t0:.2f}s")
 
     trainer = Trainer(config, gaussians, images, cameras, device=device,
-                      dp=vals["--dp"] or 0, tp=vals["--tp"] or 0)
+                      dp=vals["--dp"] or 0, tp=vals["--tp"] or 0, mip=mip)
     if vals["--resume"] is not None:
         trainer.load_checkpoint(vals["--resume"])
         say(f"Resumed from {vals['--resume']} at iteration {trainer.iter}")

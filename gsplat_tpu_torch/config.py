@@ -9,7 +9,8 @@ YAML 1.1's implicit rules as PyYAML's ``SafeLoader`` resolves it (null,
 bool, int, float, else a string; quoted scalars are strings), and then
 the reference's ``_coerce`` casts it to the field's type: ``1e-3`` (a
 string in YAML 1.1) becomes a float, ``30000.0`` an int, and an int given
-to a ``str`` field stays an int, as in the reference.
+to a ``str`` field stays an int, as in the reference. ``parse_mip`` reads
+the port's one key outside the reference's schema, ``mip_splatting``.
 """
 
 from __future__ import annotations
@@ -226,6 +227,17 @@ def parse_config(filename: str | Path) -> ConfigParameters:
             raise KeyError(f"Missing required parameter in YAML file: {key}")
     kwargs = {key: _coerce(key, value) for key, value in raw.items() if key in _TYPES}
     return ConfigParameters(**kwargs)
+
+
+def parse_mip(filename: str | Path) -> bool:
+    """Whether a flat YAML config turns Mip-Splatting on: its optional key
+    ``mip_splatting`` (YAML 1.1 true, yes or on). The key lies outside
+    ``ConfigParameters``, so the reference's fields, and ``config_hash``,
+    stay the reference's."""
+    value = _read_flat_yaml(Path(filename)).get("mip_splatting", False)
+    if isinstance(value, str):
+        return value.strip().lower() in ("true", "1", "yes", "on")
+    return bool(value)
 
 
 def _coerce(key: str, value: Any) -> Any:

@@ -3,7 +3,9 @@
 
 Binary little-endian, per-vertex float properties
 ``x y z nx ny nz f_dc_0..2 f_rest_* opacity scale_0..2 rot_0..3``, normals
-written as zeros, quaternions normalized before saving.
+written as zeros, quaternions normalized before saving; a Mip-Splatting
+model adds ``filter_3D`` last, as its published PLY does (the raw opacity
+and scales stay as they are).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ def save_ply(
     scale: np.ndarray,
     quaternion: np.ndarray,
     sh: np.ndarray | None = None,
+    filter_3d: np.ndarray | None = None,
 ) -> None:
     """Write Gaussians to a binary little-endian PLY.
 
@@ -30,6 +33,8 @@ def save_ply(
       xyz: (N, 3) float. rgb: (N, 3) SH-DC coefficients. opacity: (N,) logits.
       scale: (N, 3) log-scales. quaternion: (N, 4) (w, x, y, z), normalized on
         write. sh: optional (N, K) higher-band coefficients (row-flattened).
+      filter_3d: optional (N,) Mip-Splatting 3D filter, the ``filter_3D``
+        property.
     """
     xyz = np.asarray(xyz, dtype=np.float32)
     rgb = np.asarray(rgb, dtype=np.float32)
@@ -50,6 +55,8 @@ def save_ply(
     props += [f"f_rest_{i}" for i in range(num_sh)]
     props += ["opacity", "scale_0", "scale_1", "scale_2",
               "rot_0", "rot_1", "rot_2", "rot_3"]
+    if filter_3d is not None:
+        props.append("filter_3D")
     header += [f"property float {p}" for p in props]
     header.append("end_header")
 
@@ -57,6 +64,8 @@ def save_ply(
     if num_sh:
         cols.append(sh)
     cols += [opacity[:, None], scale, quat]
+    if filter_3d is not None:
+        cols.append(np.asarray(filter_3d, dtype=np.float32).reshape(n, 1))
     data = np.concatenate(cols, axis=1).astype("<f4")
 
     with open(path, "wb") as f:
@@ -67,7 +76,8 @@ def save_ply(
 def load_ply(path: str | Path):
     """Read a PLY written by :func:`save_ply`.
 
-    Returns dict with xyz, rgb, opacity, scale, quaternion, sh (or None).
+    Returns dict with xyz, rgb, opacity, scale, quaternion, sh (or None)
+    and filter_3d (or None).
     """
     with open(path, "rb") as f:
         props: list[str] = []
@@ -95,4 +105,5 @@ def load_ply(path: str | Path):
         "scale": data[:, [col["scale_0"], col["scale_1"], col["scale_2"]]],
         "quaternion": data[:, [col[f"rot_{i}"] for i in range(4)]],
         "sh": sh,
+        "filter_3d": data[:, col["filter_3D"]] if "filter_3D" in col else None,
     }

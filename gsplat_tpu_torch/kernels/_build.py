@@ -74,13 +74,19 @@ SIGNATURES = {
     # campos, n, l_max, stream
     "gs_sh_backward": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P,
                        ctypes.c_longlong, _I, _P],
+    # depth, far (an int32 scratch), xyz, alive, cameras (a device (cams, 18)
+    # table), n, cams, stream
+    "gs_nearest_depth": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # out (the filter, in place), far, xyz, alive, cameras, n, cams, sqrt of
+    # the filter's variance, stream
+    "gs_filter_3d": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
 }
 
 launches = {
     "segment_expand": 0, "radix_sort": 0, "radix_sort/tile": 0, "radix_sort/morton": 0,
     "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
     "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
-    "masked_adam": 0, "sh_forward": 0, "sh_backward": 0,
+    "masked_adam": 0, "sh_forward": 0, "sh_backward": 0, "filter3d": 0,
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,8 @@
   the binning record [r_major r_minor sin cos ell_scale] with the
   opacity-aware cut radius. The same scalarized formulas as the reference,
   in the same order, so the f32 results agree to rounding.
+- ``mip_conic_and_radius``: the same with Mip-Splatting's 2D Mip filter in
+  place of the 0.3 dilation, and its opacity factor (``ops/mip.py``).
 """
 
 from __future__ import annotations
@@ -57,23 +59,9 @@ def sigma_from_quat_scale(quat: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return torch.stack([s_xx, s_xy, s_xz, s_yy, s_yz, s_zz], dim=1)
 
 
-def conic_and_radius(
-    sigma: torch.Tensor,
-    jac: torch.Tensor,
-    view: torch.Tensor,
-    mh_dist: float,
-    opacity_logit: torch.Tensor | None = None,
-):
-    """2D conic (inverse screen covariance) and binning radius record.
-
-    Returns:
-      conic: (N, 3) [c00 c01 c11] of inv(J W Sigma (J W)^T + 0.3 I).
-      radius: (N, 5) [r_major r_minor sin_theta cos_theta ell_scale],
-        detached. With ``opacity_logit`` the cut radius shrinks to the
-        alpha = 1/255 isocontour, ``sqrt(2 ln(255 sigmoid(o)))`` sigmas;
-        ``ell_scale`` is that isocontour (padded as in the reference) in
-        units of the OBB radius, capped at 2.
-    """
+def _screen_cov(sigma: torch.Tensor, jac: torch.Tensor, view: torch.Tensor):
+    """The screen covariance ``J W Sigma (J W)^T`` as its three columns
+    (c00, c01, c11), undilated."""
     w3 = view[:3, :3]
     j00, j02 = jac[:, 0], jac[:, 2]
     j11, j12 = jac[:, 4], jac[:, 5]
@@ -92,10 +80,14 @@ def conic_and_radius(
 
     s_m0 = _sig_row(m0)
     s_m1 = _sig_row(m1)
-    cov00 = m0[0] * s_m0[0] + m0[1] * s_m0[1] + m0[2] * s_m0[2] + 0.3
-    cov01 = m0[0] * s_m1[0] + m0[1] * s_m1[1] + m0[2] * s_m1[2]
-    cov11 = m1[0] * s_m1[0] + m1[1] * s_m1[1] + m1[2] * s_m1[2] + 0.3
+    return (m0[0] * s_m0[0] + m0[1] * s_m0[1] + m0[2] * s_m0[2],
+            m0[0] * s_m1[0] + m0[1] * s_m1[1] + m0[2] * s_m1[2],
+            m1[0] * s_m1[0] + m1[1] * s_m1[1] + m1[2] * s_m1[2])
 
+
+def _conic_radius(cov00, cov01, cov11, r_cut, mh_dist: float):
+    """Conic and binning record of the dilated screen covariance, the cut
+    radius ``r_cut`` in sigmas."""
     det = cov00 * cov11 - cov01 * cov01
     inv_det = 1.0 / det
     conic = torch.stack(
@@ -106,13 +98,6 @@ def conic_and_radius(
     lam_term = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     lam1 = mid + lam_term
     lam2 = mid - lam_term
-    if opacity_logit is not None:
-        # alpha = sigmoid(o) exp(-d^2/2) >= 1/255 <=> d^2 <= 2 ln(255 sigmoid(o))
-        softplus = torch.logaddexp(-opacity_logit, torch.zeros_like(opacity_logit))
-        t = 2.0 * (_LOG255 - softplus)
-        r_cut = torch.sqrt(torch.clamp(t, min=0.0))
-    else:
-        r_cut = torch.full_like(mid, math.sqrt(2.0 * _LOG255))
     cut = torch.clamp(r_cut, max=mh_dist)
     r_major = torch.ceil(cut * torch.sqrt(torch.clamp(lam1, min=0.0)))
     r_minor = torch.ceil(cut * torch.sqrt(torch.clamp(lam2, min=0.0)))
@@ -126,3 +111,70 @@ def conic_and_radius(
         [r_major, r_minor, torch.sin(theta), torch.cos(theta), ell_scale], dim=1
     )
     return conic, radius.detach()
+
+
+def _log_opacity_cut(log_opacity_255: torch.Tensor) -> torch.Tensor:
+    """alpha = opacity exp(-d^2/2) >= 1/255 <=> d^2 <= 2 ln(255 opacity):
+    the cut radius in sigmas from ln(255 opacity)."""
+    return torch.sqrt(torch.clamp(2.0 * log_opacity_255, min=0.0))
+
+
+def conic_and_radius(
+    sigma: torch.Tensor,
+    jac: torch.Tensor,
+    view: torch.Tensor,
+    mh_dist: float,
+    opacity_logit: torch.Tensor | None = None,
+):
+    """2D conic (inverse screen covariance) and binning radius record.
+
+    Returns:
+      conic: (N, 3) [c00 c01 c11] of inv(J W Sigma (J W)^T + 0.3 I).
+      radius: (N, 5) [r_major r_minor sin_theta cos_theta ell_scale],
+        detached. With ``opacity_logit`` the cut radius shrinks to the
+        alpha = 1/255 isocontour, ``sqrt(2 ln(255 sigmoid(o)))`` sigmas;
+        ``ell_scale`` is that isocontour (padded as in the reference) in
+        units of the OBB radius, capped at 2.
+    """
+    c00, cov01, c11 = _screen_cov(sigma, jac, view)
+    cov00 = c00 + 0.3
+    cov11 = c11 + 0.3
+    if opacity_logit is not None:
+        softplus = torch.logaddexp(-opacity_logit, torch.zeros_like(opacity_logit))
+        r_cut = _log_opacity_cut(_LOG255 - softplus)
+    else:
+        r_cut = torch.full_like(cov00, math.sqrt(2.0 * _LOG255))
+    return _conic_radius(cov00, cov01, cov11, r_cut, mh_dist)
+
+
+def mip_conic_and_radius(
+    sigma: torch.Tensor,
+    jac: torch.Tensor,
+    view: torch.Tensor,
+    mh_dist: float,
+    opacity_logit: torch.Tensor,
+    opacity_scale_3d: torch.Tensor,
+    kernel: float,
+):
+    """Mip-Splatting's 2D Mip filter (``ops/mip.py``): the conic of
+    ``J W Sigma (J W)^T + kernel I``, the opacity factor
+    ``sqrt(det0 / (det1 + 1e-6) + 1e-6)`` (0 where either determinant is
+    at its 1e-6 floor) and the binning record, whose cut radius is the
+    1/255 isocontour of the filtered opacity ``sigmoid(o)
+    opacity_scale_3d`` times that factor.
+
+    Returns (conic (N, 3), radius (N, 5) detached, the opacity scale
+    ``opacity_scale_3d`` x the 2D factor (N,))."""
+    c00, cov01, c11 = _screen_cov(sigma, jac, view)
+    det0 = torch.clamp(c00 * c11 - cov01 * cov01, min=1e-6)
+    cov00 = c00 + kernel
+    cov11 = c11 + kernel
+    det1 = torch.clamp(cov00 * cov11 - cov01 * cov01, min=1e-6)
+    coef = torch.sqrt(det0 / (det1 + 1e-6) + 1e-6)
+    coef = torch.where((det0 <= 1e-6) | (det1 <= 1e-6), torch.zeros_like(coef), coef)
+    opacity_scale = opacity_scale_3d * coef
+    with torch.no_grad():
+        softplus = torch.logaddexp(-opacity_logit, torch.zeros_like(opacity_logit))
+        r_cut = _log_opacity_cut(_LOG255 - softplus + torch.log(opacity_scale))
+    conic, radius = _conic_radius(cov00, cov01, cov11, r_cut, mh_dist)
+    return conic, radius, opacity_scale

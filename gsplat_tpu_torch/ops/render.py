@@ -95,13 +95,18 @@ def pack_attrs(
     conic: torch.Tensor,
     rgb: torch.Tensor,
     opacity_logit: torch.Tensor,
+    opacity_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Per-Gaussian (N, 9) attribute rows [u v c00 c01 c11 opa r g b].
+    """Per-Gaussian (N, 9) attribute rows [u v c00 c01 c11 opa r g b],
+    ``opa = sigmoid(opacity_logit)``, times ``opacity_scale`` (N,) where
+    given (Mip-Splatting's filters, ``ops/mip.py``).
 
     Differentiable: autograd through the sigmoid gives the opacity chain
     o (1 - o) of the backward's d/d(opa) row.
     """
     opa = torch.sigmoid(opacity_logit)
+    if opacity_scale is not None:
+        opa = opa * opacity_scale
     return torch.stack(
         [uv[:, 0], uv[:, 1], conic[:, 0], conic[:, 1], conic[:, 2], opa,
          rgb[:, 0], rgb[:, 1], rgb[:, 2]],
@@ -137,9 +142,11 @@ def rasterize(
     tile: int,
     grad_scale_wh: tuple[int, int] | None = None,
     bf16_grads: bool | None = None,
+    opacity_scale: torch.Tensor | None = None,
 ) -> RenderOutput:
     """Render the image from binning's ``tables`` (same uv as binned);
-    differentiable with respect to uv, conic, rgb and opacity_logit.
+    differentiable with respect to uv, conic, rgb and opacity_logit (and
+    ``opacity_scale``, which multiplies the opacity where given).
     ``bg`` is the background, a () float32 tensor or a number.
 
     The pairs are rounded to the packed stream where ``tables.bf16_colors``
@@ -151,7 +158,7 @@ def rasterize(
     global image's unpadded size for a strip (ROADMAP R10)."""
     num_tiles_x = (width + tile - 1) // tile
     num_tiles_y = (height + tile - 1) // tile
-    attrs = pack_attrs(uv, conic, rgb, opacity_logit)
+    attrs = pack_attrs(uv, conic, rgb, opacity_logit, opacity_scale)
     grad_scale = None if grad_scale_wh is None else (
         0.5 * grad_scale_wh[0], 0.5 * grad_scale_wh[1])
     out = _Rasterize.apply(

@@ -81,11 +81,14 @@ def tp_loss_and_grads(params: GaussianParams, view, proj, campos, gt_image: torc
     """This rank's strip forward, the whole image's loss, this rank's strip
     backward, then the sums over the strips. ``bg`` is a number or a ()
     float32 device tensor."""
+    if st.mip:
+        raise ValueError("the tile-parallel step does not run Mip-Splatting (MipStepStatics)")
     d, n_ranks = dist.get_rank(group), dist.get_world_size(group)
     rows_local = strip_rows(st, n_ranks)
     h_local = rows_local * st.tile
     with torch.enable_grad():
-        probe, uv, conic, rgb, mask, radius, z = probed_forward(params, view, proj, campos, st)
+        probe, uv, conic, rgb, mask, radius, z, _ = probed_forward(
+            params, view, proj, campos, st)
         uv_l = uv - _strip_shift(params.xyz.device, float(d * h_local))
         tables = tile_tables(
             uv_l.detach(), z.detach(), radius, mask, st, rows=rows_local,

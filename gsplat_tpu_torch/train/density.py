@@ -27,6 +27,11 @@ applies rewrites the state's tensors in place (``copy_`` under
 place. A step that needs a larger capacity changes nothing in the state it
 was given, so the caller can grow it and run the step again.
 
+Mip-Splatting's ``filter_3d`` moves with its rows (a clone or split child
+takes its parent's); the trainer recomputes it after the step. The
+opacity prune reads the raw opacity, as the published code's
+``densify_and_prune`` does.
+
 ``morton_sort`` orders the rows by their Morton codes with the radix sort
 (``kernels/sort.py``, call site ``"morton"``); being stable, it gives the
 reference's stable argsort.
@@ -41,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.sort import radix_sort
+from ..ops import mip
 from ..ops.morton import KEY_BITS, morton_codes
 from .state import PARAM_DIMS, TrainState
 
@@ -176,6 +182,9 @@ def _rebuild(state, keep, clone, split, exp_scale, noise0, noise1, ds) -> None:
             new[first_child:] = torch.log(e / ds.split_scale_factor).repeat_interleave(2, dim=0)
         t[:total] = new
         t[total:] = 0
+    if p.filter_3d is not None:  # the trainer sweeps again after the step
+        p.filter_3d[:total] = p.filter_3d[src]
+        p.filter_3d[total:] = 0
     for moments in (state.adam_m, state.adam_v):
         for m in moments.values():
             m[:n_keep] = m[keep_i]
@@ -193,6 +202,8 @@ def morton_sort(state: TrainState) -> TrainState:
     tensors = [getattr(state.params, name) for name in PARAM_DIMS]
     tensors += [*state.adam_m.values(), *state.adam_v.values(), state.alive,
                 state.uv_grad_accum, state.accum_dur]
+    if state.params.filter_3d is not None:
+        tensors.append(state.params.filter_3d)
     for t in tensors:
         t.copy_(t[order])
     return state
@@ -201,11 +212,21 @@ def morton_sort(state: TrainState) -> TrainState:
 @torch.no_grad()
 def reset_opacity(state: TrainState, reset_value: float) -> TrainState:
     """Alive opacities := logit(reset_value); the opacity moments and the
-    accumulators are zeroed. In place."""
-    logit = math.log(reset_value) - math.log(1.0 - reset_value)
+    accumulators are zeroed. In place.
+
+    With Mip-Splatting's ``filter_3d`` the reset is the published one
+    (``reset_opacity`` of its ``gaussian_model.py``): the filtered opacity
+    ``sigmoid(o) c`` (``c`` the 3D filter's factor) becomes ``min(sigmoid(o)
+    c, reset_value)`` and the raw one that over ``c``."""
     op = state.params.opacity
-    op.copy_(torch.where(state.alive, torch.tensor(logit, dtype=torch.float32,
-                                                    device=op.device), op))
+    if state.params.filter_3d is not None:
+        coef = mip.opacity_scale_3d(state.params.scale, state.params.filter_3d)
+        target = torch.clamp(torch.sigmoid(op) * coef, max=reset_value) / coef
+        new = torch.log(target) - torch.log(1.0 - target)
+    else:
+        logit = math.log(reset_value) - math.log(1.0 - reset_value)
+        new = torch.tensor(logit, dtype=torch.float32, device=op.device)
+    op.copy_(torch.where(state.alive, new, op))
     state.adam_m["opacity"].zero_()
     state.adam_v["opacity"].zero_()
     state.uv_grad_accum.zero_()

@@ -80,6 +80,9 @@ class GaussianParams(nn.Module):
     Attributes mirror the reference's ``params`` dict: ``xyz (N,3)``,
     ``rgb (N,3)`` (SH band 0), ``opacity (N,)`` (logits), ``scale (N,3)``
     (log-scales), ``quat (N,4)`` (w,x,y,z), ``sh (N,15,3)``.
+    ``filter_3d`` is Mip-Splatting's (N,) 3D filter (``ops/mip.py``), a
+    buffer that Adam does not step, or None for plain 3DGS
+    (``with_filter_3d`` adds it).
     """
 
     def __init__(self, capacity: int, device: torch.device | str = "cuda"):
@@ -93,10 +96,20 @@ class GaussianParams(nn.Module):
         self.register_buffer(
             "alive", torch.zeros((capacity,), dtype=torch.bool, device=device)
         )
+        self.register_buffer("filter_3d", None)
 
     @property
     def capacity(self) -> int:
         return int(self.alive.shape[0])
+
+
+def with_filter_3d(params: GaussianParams) -> GaussianParams:
+    """``params`` with a zero ``filter_3d`` buffer if it has none (the
+    trainer fills it with a sweep before a step reads it)."""
+    if params.filter_3d is None:
+        params.filter_3d = torch.zeros((params.capacity,), dtype=torch.float32,
+                                       device=params.alive.device)
+    return params
 
 
 def params_from_jax(
@@ -254,6 +267,8 @@ def grow_state(state: TrainState, new_cap: int) -> TrainState:
         for name in PARAM_DIMS:
             getattr(params, name)[:old] = getattr(state.params, name)
         params.alive[:old] = state.alive
+    if state.params.filter_3d is not None:
+        with_filter_3d(params).filter_3d[:old] = state.params.filter_3d
     return TrainState(
         params=params,
         adam_m={k: pad(v) for k, v in state.adam_m.items()},

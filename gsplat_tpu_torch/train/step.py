@@ -54,7 +54,7 @@ from ..kernels.adam import masked_adam_update_
 from ..kernels.sh import sh_to_rgb
 from ..kernels.packing import exact_mode, packed  # noqa: F401  (exact_mode: exported here)
 from ..ops import adam as adam_ops
-from ..ops import covariance, projection
+from ..ops import covariance, mip, projection
 from ..ops.binning import TileTables, build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
@@ -70,6 +70,7 @@ class StepStatics:
     binning exactly (eager), and a pair cap with ``row_cap`` 0 derives the
     row cap from it as the reference does. Its ``chunk`` and
     ``interpret`` are gone: the kernels pick their own blocking.
+    ``MipStepStatics`` holds the same fields for Mip-Splatting's step.
     """
 
     width: int
@@ -107,11 +108,44 @@ class StepStatics:
     def num_tiles_y(self) -> int:
         return (self.height + self.tile - 1) // self.tile
 
+    @property
+    def mip(self) -> bool:
+        """Whether the step is Mip-Splatting's (``MipStepStatics``)."""
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class MipStepStatics(StepStatics):
+    """StepStatics of Mip-Splatting's step and render (``ops/mip.py``): the
+    parameters' ``filter_3d`` and the 2D Mip filter in place of 3DGS's 0.3
+    dilation. The fields are StepStatics'; the type is the static switch,
+    so a Mip step and a plain step of equal fields are two graphs."""
+
+    @property
+    def mip(self) -> bool:
+        return True
+
+
+def mip_statics(st: StepStatics) -> MipStepStatics:
+    """``st``'s fields as Mip-Splatting's statics."""
+    return MipStepStatics(**dataclasses.asdict(st))
+
 
 def _per_gaussian(params: GaussianParams, view, proj, campos, st: StepStatics):
-    """Dense per-Gaussian forward: (uv, conic, rgb, mask, radius, z).
-    ``view``/``proj`` (4, 4) and ``campos`` (3,) may be numpy arrays or
-    tensors; they are moved to the parameters' device."""
+    """Dense per-Gaussian forward of plain 3DGS: (uv, conic, rgb, mask,
+    radius, z). ``view``/``proj`` (4, 4) and ``campos`` (3,) may be numpy
+    arrays or tensors; they are moved to the parameters' device."""
+    if st.mip:
+        raise ValueError("_per_gaussian has no opacity scale: Mip-Splatting's statics take "
+                         "_geometry")
+    return _geometry(params, view, proj, campos, st)[:6]
+
+
+def _geometry(params: GaussianParams, view, proj, campos, st: StepStatics):
+    """``_per_gaussian`` and the opacity's scale: (uv, conic, rgb, mask,
+    radius, z, opacity_scale). ``opacity_scale`` (N,) multiplies the
+    opacity under ``st.mip`` (the 3D filter's factor times the 2D Mip
+    filter's); None otherwise."""
     view, proj, campos = (_as_f32(x, params.xyz.device) for x in (view, proj, campos))
     xyz_c = projection.world_to_camera(params.xyz, view)
     uv = projection.project_to_screen(xyz_c, proj, st.width, st.height)
@@ -125,14 +159,24 @@ def _per_gaussian(params: GaussianParams, view, proj, campos, st: StepStatics):
         xyz_c, st.focal_x, st.focal_y, st.tan_fovx, st.tan_fovy
     )
     sigma = covariance.sigma_from_quat_scale(params.quat, params.scale)
-    conic, radius = covariance.conic_and_radius(
-        sigma, jac, view, st.mh_dist, opacity_logit=params.opacity
-    )
+    opacity_scale = None
+    if st.mip:
+        if params.filter_3d is None:
+            raise ValueError("Mip-Splatting statics need the parameters' filter_3d "
+                             "(train/state.py::with_filter_3d)")
+        conic, radius, opacity_scale = covariance.mip_conic_and_radius(
+            mip.filtered_sigma(sigma, params.filter_3d), jac, view, st.mh_dist,
+            params.opacity, mip.opacity_scale_3d(params.scale, params.filter_3d),
+            mip.KERNEL_2D)
+    else:
+        conic, radius = covariance.conic_and_radius(
+            sigma, jac, view, st.mh_dist, opacity_logit=params.opacity
+        )
     profiling.stage_done("geometry")
     rgb = sh_to_rgb(params.xyz, params.rgb, params.sh, campos, st.l_max)
     profiling.stage_done("sh")
     z = xyz_c[:, 2]
-    return uv, conic, rgb, mask, radius, z
+    return uv, conic, rgb, mask, radius, z, opacity_scale
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -163,11 +207,12 @@ def render_image(
     or a () float32 tensor. Stamps the ``"render"`` stage clock.
     """
     with profiling.stage_clock("render", params.xyz.device):
-        uv, conic, rgb, mask, radius, z = _per_gaussian(params, view, proj, campos, st)
+        uv, conic, rgb, mask, radius, z, opacity_scale = _geometry(
+            params, view, proj, campos, st)
         tables = tile_tables(uv, z, radius, mask, st)
         out = rasterize(
             uv, conic, rgb, params.opacity, tables, bg,
-            width=st.width, height=st.height, tile=st.tile,
+            width=st.width, height=st.height, tile=st.tile, opacity_scale=opacity_scale,
         )
     return out.image, tables
 
@@ -182,12 +227,12 @@ class StepMetrics(NamedTuple):
 
 
 def probed_forward(params: GaussianParams, view, proj, campos, st: StepStatics):
-    """``_per_gaussian`` with a zero uv probe added to uv (its gradient is
+    """``_geometry`` with a zero uv probe added to uv (its gradient is
     the reference's scaled ``grad_uv``), called under ``enable_grad``:
-    (probe, uv, conic, rgb, mask, radius, z)."""
+    (probe, uv, conic, rgb, mask, radius, z, opacity_scale)."""
     probe = torch.zeros((params.capacity, 2), dtype=torch.float32, device=params.xyz.device,
                         requires_grad=True)
-    uv, *rest = _per_gaussian(params, view, proj, campos, st)
+    uv, *rest = _geometry(params, view, proj, campos, st)
     return (probe, uv + probe, *rest)
 
 
@@ -219,11 +264,12 @@ def compute_loss_and_grads(
     clock (in a step, the step's clock).
     """
     with profiling.stage_clock("step", params.xyz.device), torch.enable_grad():
-        probe, uv, conic, rgb, mask, radius, z = probed_forward(params, view, proj, campos, st)
+        probe, uv, conic, rgb, mask, radius, z, opacity_scale = probed_forward(
+            params, view, proj, campos, st)
         tables = tile_tables(uv.detach(), z.detach(), radius, mask, st)
         out = rasterize(
             uv, conic, rgb, params.opacity, tables, bg,
-            width=st.width, height=st.height, tile=st.tile,
+            width=st.width, height=st.height, tile=st.tile, opacity_scale=opacity_scale,
         )
         profiling.stage_done("raster_fwd")
         # "loss" ends, and "raster_bwd" is stamped, in _Rasterize.backward
@@ -360,8 +406,15 @@ def fresh_monitor(device: torch.device | str = "cuda") -> torch.Tensor:
     return monitor
 
 
+def _param_tensors(params: GaussianParams) -> list[torch.Tensor]:
+    """The tensors a graph of ``params`` reads: the parameters, ``alive``
+    and, for Mip-Splatting, ``filter_3d``."""
+    return ([getattr(params, name) for name in PARAM_DIMS] + [params.alive]
+            + ([] if params.filter_3d is None else [params.filter_3d]))
+
+
 def _state_tensors(state: TrainState) -> list[torch.Tensor]:
-    return ([getattr(state.params, name) for name in PARAM_DIMS] + [state.alive]
+    return (_param_tensors(state.params)
             + [state.adam_m[name] for name in PARAM_DIMS]
             + [state.adam_v[name] for name in PARAM_DIMS]
             + [state.uv_grad_accum, state.accum_dur])
@@ -503,7 +556,7 @@ class _Factory:
             def render(view, proj, campos, bg):
                 return render_image(params, view, proj, campos, bg, st)[0]
 
-            tensors = [getattr(params, name) for name in PARAM_DIMS] + [params.alive]
+            tensors = _param_tensors(params)
             inputs = dict(view=_on(view, dev), proj=_on(proj, dev), campos=_on(campos, dev),
                           bg=bg)
             # The image lives in the graph's pool: the caller gets its own.

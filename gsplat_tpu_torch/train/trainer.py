@@ -49,6 +49,17 @@ draws and the images are those of a loader without it. The cache turns
 itself off where the decoded training set would pass a quarter of the
 device's free memory, and the loader then decodes every draw.
 
+``Trainer(..., mip=True)`` trains Mip-Splatting (``ops/mip.py``): the
+state carries ``filter_3d``, the steps and renders run its filtered
+geometry (``MipStepStatics``), and the camera sweep of the training
+split (``sweep_filter_3d``) runs when ``train`` starts, after each
+density step, and every ``FILTER_INTERVAL`` iterations once
+densification has ended but for the run's last ``FILTER_INTERVAL``, the
+published schedule. The opacity reset is the published one
+(``density.reset_opacity``); the opacity prune reads the raw opacity, as
+the published code's does. The PLY carries ``filter_3D``; a checkpoint
+does not (``train`` sweeps first).
+
 Traced (``utils/profiling.py``, while a torch.profiler session records),
 a ``train`` call is the span ``trainer.train``, the parent of its
 loader's spans (``loader.wait``, ``loader.decode``, ``loader.close``;
@@ -75,6 +86,7 @@ from ..io import images as image_io
 from ..io.colmap import Camera, Image, compute_max_diagonal
 from ..io.ply import save_ply
 from ..ops.camera import CameraMatrices, build_camera_matrices
+from ..ops import mip as mip_ops
 from ..ops.loss import compute_psnr
 from ..parallel import require_world
 from ..parallel.data_parallel import get_monitored_dp_train_step
@@ -88,10 +100,11 @@ from .init import GaussianData
 from .progress import ProgressBar
 from .state import (
     grow_state, num_active, round_capacity, round_pair_cap, round_row_cap,
-    state_from_gaussians, to_gaussian_data,
+    state_from_gaussians, to_gaussian_data, with_filter_3d,
 )
 from .step import (
-    StepStatics, fresh_monitor, get_monitored_train_step, get_render_fn, release_graphs,
+    MipStepStatics, StepStatics, fresh_monitor, get_monitored_train_step, get_render_fn,
+    release_graphs,
 )
 
 
@@ -125,21 +138,29 @@ class Trainer:
         device: torch.device | str = "cuda",
         dp: int = 0,
         tp: int = 0,
+        mip: bool = False,
     ):
         """``dp``/``tp`` above 1: this process is one rank of a process
         group of that many ranks (``parallel.initialize_multihost``), which
-        must exist; 0 or 1 trains alone. They exclude each other."""
+        must exist; 0 or 1 trains alone. They exclude each other. ``mip``
+        trains Mip-Splatting (alone or under dp; tp refuses it)."""
         self.device = require_device(device)
         self.dp = int(dp) if dp and dp > 1 else 0
         self.tp = int(tp) if tp and tp > 1 else 0
         if self.dp and self.tp:
             raise ValueError("dp and tp modes are mutually exclusive")
+        self.mip = bool(mip)
+        if self.mip and self.tp:
+            raise ValueError("the tile-parallel trainer (tp) does not run Mip-Splatting")
         self.rank = require_world(self.dp or self.tp) if (self.dp or self.tp) else 0
         self.config = config
         self.images = images
         self.cameras = cameras
         self.state = state_from_gaussians(gaussians, self.device,
                                           max_gaussians=config.max_gaussians)
+        if self.mip:
+            with_filter_3d(self.state.params)
+        self._sweep_table = None  # the 3D filter's camera table, made at the first sweep
         self.iter = 0
         self.l_max = 0
         # scene extent for the density thresholds and the xyz learning
@@ -199,7 +220,7 @@ class Trainer:
 
     def _statics(self, cm: CameraMatrices) -> StepStatics:
         c = self.config
-        return StepStatics(
+        return (MipStepStatics if self.mip else StepStatics)(
             width=cm.width, height=cm.height, tile=c.tile_size, l_max=self.l_max,
             focal_x=cm.focal_x, focal_y=cm.focal_y,
             tan_fovx=cm.tan_fovx, tan_fovy=cm.tan_fovy,
@@ -316,6 +337,23 @@ class Trainer:
         if row_overflow > self.row_cap:
             self.row_cap = round_row_cap(row_overflow + (row_overflow >> shift))
 
+    def sweep_filter_3d(self) -> None:
+        """Mip-Splatting's 3D filter from the training split's cameras,
+        written into the state in place (every rank of dp the same)."""
+        if self._sweep_table is None:
+            self._sweep_table = mip_ops.camera_table(
+                [self._matrices(img) for img in self.train_images], self.device)
+        mip_ops.update_filter_3d_(self.state.params, self._sweep_table)
+
+    def _filter_due(self) -> bool:
+        """The published schedule past densification (whose steps sweep
+        themselves): every ``FILTER_INTERVAL`` iterations, but not in the
+        run's last ``FILTER_INTERVAL``."""
+        c = self.config
+        return (self.mip and self.iter % mip_ops.FILTER_INTERVAL == 0
+                and self.iter >= c.adaptive_control_end
+                and self.iter < c.num_iters - mip_ops.FILTER_INTERVAL)
+
     def _maybe_add_sh_band(self, iteration: int) -> None:
         c = self.config
         if (
@@ -341,6 +379,8 @@ class Trainer:
             eval_interval = 3000 if c.strict_reference else max(c.test_eval_interval, 1)
             monitor = fresh_monitor(self.device)
             window_start = self.iter
+            if self.mip:
+                self.sweep_filter_3d()  # a fresh or a resumed state
             try:
                 while self.iter < num_iters:
                     self._maybe_add_sh_band(self.iter)
@@ -376,6 +416,8 @@ class Trainer:
 
                     if densify:
                         self._density_step()
+                    elif self._filter_due():
+                        self.sweep_filter_3d()
 
                     if (
                         self.iter > c.reset_opacity_start
@@ -395,7 +437,7 @@ class Trainer:
     def _density_step(self) -> DensityInfo:
         """Prune/clone/split (growing the capacity and running again when
         it does not fit), then the Morton re-sort, which runs whether or
-        not the step applied."""
+        not the step applied, and for Mip-Splatting the 3D filter's sweep."""
         with profiling.span("trainer.density"):
             ds = self._density_statics()
             seed = self.config.seed
@@ -408,6 +450,8 @@ class Trainer:
                 new_state, info = adaptive_density_step(
                     self.state, ds, *split_noise(self.state, seed, self.iter))
             self.state = morton_sort(new_state)
+            if self.mip:
+                self.sweep_filter_3d()
             return info
 
     # ------------------------------------------------------------------
@@ -484,7 +528,10 @@ class Trainer:
         sh = None
         if g.sh is not None and g.sh.size:
             sh = g.sh.reshape(g.num, -1)
-        save_ply(filename, g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh)
+        filter_3d = self.state.params.filter_3d
+        if filter_3d is not None:
+            filter_3d = filter_3d[self.state.alive].cpu().numpy()
+        save_ply(filename, g.xyz, g.rgb, g.opacity, g.scale, g.quaternion, sh, filter_3d)
 
     def save_checkpoint(self, path: str | Path) -> None:
         """Write the state, iteration, SH band and capacities (rank 0
@@ -505,6 +552,8 @@ class Trainer:
                 stacklevel=2,
             )
         self.state, self.iter, self.l_max = ck.state, ck.iteration, ck.l_max
+        if self.mip:  # the checkpoint holds no filter: train() sweeps first
+            with_filter_3d(self.state.params)
         if ck.pair_cap:
             self.pair_cap = ck.pair_cap
         # 0: a checkpoint from before the row cap, sized as the reference does

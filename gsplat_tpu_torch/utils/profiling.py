@@ -18,7 +18,9 @@ tracing was on, since the last ``clear()``.
 
 **The stage clock.** ``stage_clock(kind, device)`` around one call of the
 train step (kind ``"step"``), the data-parallel step (``"dp"``: the step's
-stages with ``allreduce`` before ``adam``) or the render (``"render"``)
+stages with ``allreduce`` before ``adam``), the render (``"render"``) or
+Mip-Splatting's 3D-filter sweep (``"mip"``: one stage, ``filter3d``; its
+call is the span ``mip.filter3d``, ``ops/mip.py::update_filter_3d_``)
 stamps the call's start, each ``stage_done(stage)`` inside it stamps the
 end of a stage, and its exit stamps the end of the last stage and advances
 the clock's slot. On the card a stamp is a one-thread kernel
@@ -61,6 +63,7 @@ STAGES = {
     "dp": ("geometry", "sh", "binning", "raster_fwd", "loss", "raster_bwd",
            "per_gaussian_bwd", "allreduce", "adam"),
     "render": ("geometry", "sh", "binning", "raster_fwd"),
+    "mip": ("filter3d",),
 }
 RING = 4096  # calls a ring keeps, per kind and device
 
@@ -251,13 +254,13 @@ def stage_done(stage: str) -> None:
         ring.stamp(ring.index[stage])
 
 
-def issue_span(kind: str, device: torch.device):
-    """The ``<kind>.issue`` span of one call, carrying the slot that the
-    call's stamps write."""
+def issue_span(kind: str, device: torch.device, name: str | None = None):
+    """The span ``name`` (default ``<kind>.issue``) of one call, carrying
+    the slot that the call's stamps write."""
     if not _profiler._is_profiler_enabled:
         return _NOOP
     ring = _rings.get((kind, device))
-    return _Open(f"{kind}.issue", None, ring.issued if ring is not None else 0)
+    return _Open(name or f"{kind}.issue", None, ring.issued if ring is not None else 0)
 
 
 @contextlib.contextmanager

@@ -3,7 +3,9 @@ against the port's CPU path, on the card (masked Adam bit-equal to its
 plain version, alone, through ``apply_adam`` and through a graph's
 replays; the SH colour kernels close to their plain versions, and in a
 graph replayed with another camera; a graph captured in the packed mode
-captured again, not replayed, under ``exact_mode()``).
+captured again, not replayed, under ``exact_mode()``; Mip-Splatting's 3D
+filter sweep bit-equal to its plain version, and a graphed Mip step that
+reads each sweep's filter).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -711,8 +713,11 @@ def test_graph_replay_bit_equal_to_eager_capped_step(dev):
             np.testing.assert_array_equal(s_g[group][name], s_e[group][name])
     for name in ("alive", "uv_grad_accum", "accum_dur"):
         np.testing.assert_array_equal(s_g[name], s_e[name])
+    # every kernel of the step launched: not the density step's Morton sort
+    # nor Mip-Splatting's sweep, which no step runs
     assert l_g == l_e and l_g["radix_sort/tile"] == 5 and min(
-        l_g[k] for k in l_g if k != "radix_sort/morton" and not k.endswith("/packed")) > 0
+        l_g[k] for k in l_g
+        if k not in ("radix_sort/morton", "filter3d") and not k.endswith("/packed")) > 0
 
 
 def test_exact_mode_captures_its_own_graph(dev):
@@ -1134,3 +1139,70 @@ def test_graphed_step_and_render_launch_sh_once(dev):
     torch.cuda.synchronize()
     t_step.release_graphs()
     assert (_build.launches["sh_forward"], _build.launches["sh_backward"]) == (4, 0)
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_filter3d_kernel_bit_equal_to_plain(dev, n):
+    """The 3D filter's sweep (Mip-Splatting) at 161 cameras, the bench's
+    poses: bit-equal to its plain version on the CPU, dead rows and rows
+    no camera sees +inf, one launch; the filter made from it bit-equal."""
+    from chip_smoke import mip_cameras
+    from gsplat_tpu_torch.kernels import filter3d
+    from gsplat_tpu_torch.ops import mip
+
+    rng = np.random.default_rng(n)
+    xyz = torch.from_numpy((rng.normal(size=(n, 3)) * [2.0, 1.4, 3.0] + [0, 0, 6.0])
+                           .astype(np.float32))
+    xyz[:5] = torch.tensor([0.0, 0.0, -60.0])  # behind every camera
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.9)
+    table = mip.camera_table(mip_cameras(), "cpu")
+    assert table.shape[0] == 161
+    before = _build.launches["filter3d"]
+    got = filter3d.nearest_depth(xyz.to(dev), alive.to(dev), table.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launches["filter3d"] == before + 1
+    want = mip.nearest_depth_plain(xyz, alive, table)
+    assert torch.equal(got.cpu(), want)
+    assert torch.isinf(want[:5]).all() and torch.isinf(want[~alive]).all()
+    out = torch.full((n,), -1.0, device=dev)
+    filter3d.filter_3d_(out, xyz.to(dev), alive.to(dev), table.to(dev))
+    assert torch.equal(out.cpu(), mip.filter_3d_plain(xyz, alive, table))
+
+
+def test_mip_graph_replay_reads_the_swept_filter(dev):
+    """Mip-Splatting's graphed monitored step: a sweep between replays
+    writes filter_3d in place and the next replay reads it, with no second
+    capture, bit-equal to the eager step on a copy of the state."""
+    from gsplat_tpu_torch.ops import mip
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    from gsplat_tpu_torch.ops.camera import build_camera_matrices
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    st = t_step.mip_statics(st)
+
+    def fresh():
+        s = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+        t_state.with_filter_3d(s.params)
+        return s
+
+    graphed, eager = fresh(), fresh()
+    cams = [build_camera_matrices(np.array([1.0, 0, 0, 0]), np.array(t), 96, 56, 81.6, 81.6)
+            for t in ([0.0, 0.0, 0.0], [0.3, 0.0, 0.5])]
+    table = mip.camera_table(cams, dev)
+    step = t_step.get_monitored_train_step(st)
+    monitor = t_step.fresh_monitor(dev)
+    captures = t_step.graph_captures()
+    for it in range(6):
+        if it % 2 == 0:
+            for s in (graphed, eager):
+                mip.update_filter_3d_(s.params, table[: 1 + it // 4])
+        graphed, m, monitor = step(graphed, *cam_t[it % 2], gt, 0.1, it, monitor)
+        eager, e = t_step.train_step(eager, *cam_t[it % 2], gt, 0.1, it, st)
+        torch.cuda.synchronize()
+        assert torch.equal(m.loss, e.loss), it
+    assert t_step.graph_captures() == captures + 1
+    for name in t_state.PARAM_DIMS:
+        assert torch.equal(getattr(graphed.params, name), getattr(eager.params, name)), name
+    t_step.release_graphs()

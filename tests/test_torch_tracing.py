@@ -396,13 +396,14 @@ def test_trainer_spans_under_a_profiler(tmp_path):
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 READERS = [m for m in BENCH["per_layer"] if m["source"] in ("program_span", "program_counter")]
-KIND = {"trainer": "trainer", "train": "train", "render": "render", "dp": "dp"}
+KIND = {"trainer": "trainer", "train": "train", "render": "render", "dp": "dp", "mip": "train"}
 DUR_MS = {"loader.wait": [2.0, 3.0], "loader.decode": [10.0, 20.0, 30.0],
           "trainer.step": [1.5, 0.5], "trainer.monitor_read": [4.0],
           "trainer.dump": [100.0], "trainer.density": [40.0, 8.0],
           "step.issue": [0.25, 0.5, 0.75], "render.issue": [0.5, 0.5],
-          "dp.issue": [0.5, 0.5, 0.5]}
-SLOTS = {"step.issue": [5, 6, 7], "render.issue": [2, 3], "dp.issue": [5, 6, 7]}
+          "dp.issue": [0.5, 0.5, 0.5], "mip.filter3d": [0.3, 0.3]}
+SLOTS = {"step.issue": [5, 6, 7], "render.issue": [2, 3], "dp.issue": [5, 6, 7],
+         "mip.filter3d": [1, 2]}
 UNITS = 4
 RANKS, REDUCED = 4, 4 * 264_241_232  # the window's comm.reduced_bytes: UNITS calls
 
@@ -419,6 +420,7 @@ def _store():
                     for s in (4, 5, 6, 7)} for kind in ("step", "dp")}
     times["render"] = {s: {st: float(2 * s + i) for i, st in
                            enumerate(profiling.STAGES["render"])} for s in (1, 2, 3)}
+    times["mip"] = {s: {"filter3d": 0.25 * s} for s in (0, 1, 2)}  # the sweeps: slots 1, 2
     counts = {"step.eager": 1, "step.captures": 2, "loader.hits": 3, "loader.misses": 1,
               "other": 7, "comm.reduced_bytes": REDUCED}
     return SimpleNamespace(spans=lambda: spans, counters=lambda: dict(counts),
@@ -433,6 +435,8 @@ def _expected(name):
         return 3
     if metric == "loader_hit_pct":
         return 75.0
+    if metric == "filter3d_ms":  # the median of the window's two sweeps' stage
+        return (0.25 + 0.5) / 2
     span = {"loader_wait_ms": "loader.wait", "step_issue_ms": "trainer.step",
             "monitor_read_ms": "trainer.monitor_read", "dump_ms": "trainer.dump",
             "density_ms": "trainer.density"}.get(metric)
