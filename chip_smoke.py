@@ -274,6 +274,14 @@ words), and its exact f32 mode where named
     ``sh_to_rgb_backward_plain``, then each timed in a CUDA graph beside
     ``kernel_bound`` and the plain chain (the forward, and the forward
     with autograd's backward, as the step ran them before the kernels).
+22. holds the covariance kernels (``kernels/covariance.py``,
+    ``csrc/covariance.cu``) against the plain ops at the 1M and 4.25M
+    capacities, for plain 3DGS and Mip-Splatting (``covariance_table``:
+    ``covariance_inputs`` at 2^20 and 6,291,456 rows): the forward bit for
+    bit (the rows whose radius differs counted), the backward against
+    float64 autograd through the plain ops beside the plain float32 chain,
+    then each timed in a CUDA graph beside ``kernel_bound`` and the plain
+    chain (the forward, and the forward with autograd's backward).
 
 Beside each kernel's time at the 1M view it prints the plain version's,
 the one PyTorch call that computes the same function (``library_ms``:
@@ -362,9 +370,12 @@ runs [1] and prints, in packed and in exact mode, the sha256 of one
 gradient call's segment-sum output and of its target, image, loss and
 gradients, at [9]'s 1M start and at [15a]'s 4.25M scene, then of the
 whole state after ``apply_adam`` steps it with the packed call's
-gradients at iterations 3000 and 3001, with the ``gsplat_tpu_torch`` that
-the import path finds first, as above: equal digests of two checkouts
-show a mode, and the update, bit for bit unchanged.
+gradients at iterations 3000 and 3001, and of each call's forward (image,
+loss, tile tables) apart, then of a Mip-Splatting render and gradient call
+at the 1M start, with the ``gsplat_tpu_torch`` that the import path finds
+first, as above: equal digests of two checkouts show a mode, and the
+update, bit for bit unchanged; equal forward digests show the forward
+unchanged where the gradients' rounding moved.
 
     python3 chip_smoke.py --adam
 
@@ -377,6 +388,10 @@ runs [1] and [20] alone, with its checks (no result line).
     python3 chip_smoke.py --mip
 
 runs [1] and [21] alone, with its checks (no result line).
+
+    python3 chip_smoke.py --covariance
+
+runs [1] and [22] alone, with its checks (no result line).
 """
 
 from __future__ import annotations
@@ -469,6 +484,15 @@ ADAM_OPS = 15
 # colour gradient and writes the gradients of xyz, dc and sh.
 SH_FORWARD_BYTES = 4 * (3 + 3 + 45 + 3)
 SH_BACKWARD_BYTES = 4 * (3 + 45 + 3 + 3 + 3 + 45)
+# Covariance (csrc/covariance.cu), f32 bytes a row: the forward reads xyz_c,
+# quat, scale and the opacity logit and writes the conic and the radius
+# record; the backward reads the conic's gradient, xyz_c, quat and scale and
+# writes their gradients. Mip-Splatting adds the filter to each pass, the
+# opacity scale to the forward's writes and its gradient to the backward's
+# reads.
+COVARIANCE_FORWARD_BYTES = 4 * (3 + 4 + 3 + 1 + 3 + 5)
+COVARIANCE_BACKWARD_BYTES = 4 * (3 + 3 + 4 + 3 + 3 + 4 + 3)
+COVARIANCE_MIP_BYTES = 4 * 2  # each pass, under Mip-Splatting
 
 
 def kernel_bound(name: str, packed: bool = False, **work) -> dict:
@@ -493,6 +517,9 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
     reaches, K4 reads and unpacks every row. ``filter3d``: ``rows`` (the
     capacity walked) and ``tests`` (alive Gaussians x cameras), at
     FILTER3D_ROW_BYTES a row and FILTER3D_TEST_OPS a test.
+    ``covariance_forward`` and ``covariance_backward``: ``rows`` and ``mip``,
+    bytes only (COVARIANCE_*_BYTES a row; its few hundred FP32 operations a
+    row stay below the byte time).
     Returns bytes, ops, bound_ms and bound_by ("bytes" or "operations").
     """
     pix = TILE * TILE
@@ -526,6 +553,11 @@ def kernel_bound(name: str, packed: bool = False, **work) -> dict:
         ops = ADAM_OPS * work["stepped"]
     elif name in ("sh_forward", "sh_backward"):
         nbytes = (SH_FORWARD_BYTES if name == "sh_forward" else SH_BACKWARD_BYTES) * work["rows"]
+        ops = 0
+    elif name in ("covariance_forward", "covariance_backward"):
+        row = COVARIANCE_FORWARD_BYTES if name == "covariance_forward" else \
+            COVARIANCE_BACKWARD_BYTES
+        nbytes = (row + (COVARIANCE_MIP_BYTES if work.get("mip") else 0)) * work["rows"]
         ops = 0
     elif name == "filter3d":  # xyz, alive and the depth a row; every test's operations
         nbytes = FILTER3D_ROW_BYTES * work["rows"]
@@ -2422,7 +2454,10 @@ def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
     each scene, the packed call's gradients step a fresh state of its
     parameters through ``apply_adam`` at ADAM_BITS_ITERS, the digest of
     every tensor of the state printed after each: equal digests show the
-    update unchanged to the bit."""
+    update unchanged to the bit. Each call's forward (image, loss and tile
+    tables) has a digest of its own, and ``mip_bits`` adds a Mip-Splatting
+    render and gradient call: equal forward digests show the geometry, and
+    with it binning's pair set, unchanged where the gradients are not."""
     import hashlib
 
     from gsplat_tpu_torch.ops import render
@@ -2452,7 +2487,8 @@ def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
                 all_grads = [gt, image, loss.reshape(1), g_uv] + [grads[k] for k in sorted(grads)]
                 log(f"[bits] {label}, {mode} mode: loss {float(loss)!r}, pairs "
                     f"{int(tables.num_pairs)}; segment sum sha256 {digest(sums)}, gradients "
-                    f"sha256 {digest(all_grads)}")
+                    f"sha256 {digest(all_grads)}; forward (image, loss, tile tables) sha256 "
+                    f"{digest([image, loss.reshape(1), *tables_of(tables)])}")
                 if mode == "packed":
                     adam_in = (grads, g_uv, mask)
                 del loss, image, mask, tables, grads, g_uv, all_grads
@@ -2464,8 +2500,39 @@ def bits(dev, n: int = 1_000_000, scale_n: int = 4_250_000) -> None:
                     f"{digest(state_tensors(state).values())}")
             del params, gt, state, adam_in
             torch.cuda.empty_cache()
+        mip_bits(dev, n, digest)
     finally:
         render.segment_sum = real
+
+
+def tables_of(tables) -> list:
+    """--bits: binning's pair set and tile ranges, the forward's bits that
+    the rest of the step reads."""
+    return [tables.splat_gid, tables.tile_start, tables.tile_count]
+
+
+def mip_bits(dev, n: int, digest) -> None:
+    """--bits under Mip-Splatting: [9]'s 1M start with the 3D filter of a
+    sweep over ``mip_cameras``, view 0 in packed mode: the digests of a
+    render (image and tile tables) and of one gradient call's image, loss
+    and gradients."""
+    from gsplat_tpu_torch.ops import mip
+    from gsplat_tpu_torch.train import step
+    from gsplat_tpu_torch.train.state import with_filter_3d
+
+    cm = views()[0]
+    st = step.mip_statics(statics(cm))
+    params = with_filter_3d(scene_params(n, seed=0, device=dev, perturb_seed=1))
+    mip.update_filter_3d_(params, mip.camera_table(mip_cameras(), dev))
+    image, tables = step.render_image(params, cm.view, cm.proj, cm.campos, BG, st)
+    log(f"[bits] {n} (1M view), Mip-Splatting: render sha256 "
+        f"{digest([image, *tables_of(tables)])}")
+    gt = image.flip(0).contiguous()
+    loss, image, _, tables, grads, g_uv = step.compute_loss_and_grads(
+        params, cm.view, cm.proj, cm.campos, gt, BG, st)
+    log(f"[bits] {n} (1M view), Mip-Splatting, packed mode: loss {float(loss)!r}; forward "
+        f"sha256 {digest([image, loss.reshape(1), *tables_of(tables)])}, gradients sha256 "
+        f"{digest([g_uv] + [grads[k] for k in sorted(grads)])}")
 
 
 ADAM_TITLE = ("[19] masked Adam (csrc/adam.cu) against its plain version at [9]'s 1M start "
@@ -2570,6 +2637,44 @@ def sh_inputs(dev, n: int, seed: int = 0):
     xyz = f32(rng.normal(size=(n, 3)) * [2.0, 1.4, 2.5] + [0.0, 0.0, 4.0])
     dc, sh = f32(rng.normal(size=(n, 3))), f32(0.3 * rng.normal(size=(n, 15, 3)))
     return xyz, dc, sh, f32(rng.normal(size=(n, 9)))[:, 6:9]
+
+
+COVARIANCE_EDGE_ROWS = 12  # covariance_inputs: the rows planted on the edges
+
+
+def covariance_inputs(dev, n: int, seed: int = 0, mip: bool = False, view: int = 1) -> dict:
+    """[22] and the tests: the covariance kernels' inputs at ``views()[view]``
+    (its (4, 4) matrix and intrinsics, ``kw``): camera-space points around
+    [9]'s scene depth, quaternions, log-scales, opacity logits and, under
+    ``mip``, the 3D filter; the conic's gradient as a strided view (columns
+    2-4 of (N, 9) attribute rows) and the opacity scale's. The first
+    COVARIANCE_EDGE_ROWS rows sit on the edges: |z| < 1e-6 (both signs), x/z
+    and y/z past 1.3 tan-fov, z below the near plane and behind the camera, an
+    opacity logit that cuts the radius to 0, a filter of 0 and two Gaussians so
+    small that the Mip determinant det0 sits at its 1e-6 floor."""
+    rng = np.random.default_rng(seed)
+    cm = views()[view]
+    xyz = rng.normal(size=(n, 3)) * [1.5, 1.0, 1.5] + [0.0, 0.0, 5.0]
+    quat = rng.normal(size=(n, 4))
+    scale = np.log(rng.uniform(0.005, 0.2, (n, 3)))
+    opacity = rng.uniform(-4.0, 5.0, n)
+    filt = rng.uniform(0.0, 0.01, n)
+    lim_x = 1.3 * cm.tan_fovx
+    lim_y = 1.3 * cm.tan_fovy
+    xyz[:8] = [[0.1, 0.2, 3e-7], [0.1, -0.2, -5e-7], [3.0 * lim_x * 2.0, 0.1, 2.0],
+               [-0.1, -3.0 * lim_y * 2.0, 2.0], [4.0, 4.0, 1.0], [0.05, 0.02, 0.05],
+               [0.3, 0.1, -2.0], [0.2, -0.1, 3.0]]
+    opacity[7] = -30.0
+    filt[8:COVARIANCE_EDGE_ROWS] = 0.0
+    scale[8:10] = [[-12.0, -12.0, -12.0], [-12.0, -11.0, -10.0]]
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    return dict(
+        xyz_c=f32(xyz), quat=f32(quat), scale=f32(scale), opacity=f32(opacity),
+        filter_3d=f32(filt) if mip else None, view=f32(cm.view),
+        g_conic=f32(rng.normal(size=(n, 9)))[:, 2:5],
+        g_opacity_scale=f32(rng.normal(size=n)) if mip else None,
+        kw=dict(focal_x=cm.focal_x, focal_y=cm.focal_y, tan_fovx=cm.tan_fovx,
+                tan_fovy=cm.tan_fovy))
 
 
 def sh_table(dev, rows=SH_ROWS, l_max: int = 3) -> list:
@@ -2711,6 +2816,111 @@ def mip_table(dev, n: int = 1_000_000) -> dict:
         f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({res['bound_pct']:.1f} %), the "
         f"plain loop on the card {plain:.2f} ms")
     log("MIP " + json.dumps(res))
+    return res
+
+
+COVARIANCE_TITLE = ("[22] the covariance (csrc/covariance.cu) against the plain ops at the 1M "
+                    "and 4.25M capacities, plain 3DGS and Mip-Splatting")
+COVARIANCE_TIMING_ITERS = 10  # [22]: calls a timed graph holds
+
+
+def covariance_table(dev, rows=SH_ROWS) -> list:
+    """[22] and ``--covariance``: at each count of ``rows`` and for each
+    model, ``covariance_inputs`` through the kernels (the autograd Function)
+    and through the plain ops: the forward's outputs bit for bit (the rows
+    whose radius differs counted, and three orders of the quaternion's
+    squared norm counted where they differ from torch.sum on the card),
+    and each path's gradients against float64 autograd through the plain
+    ops (the worst leaf's distance over its norm); then the forward
+    kernel, the backward kernel, the plain forward and the plain forward
+    with autograd's backward each timed in a CUDA graph beside
+    ``kernel_bound``. Returns a dict a count and model; a forward that is
+    not bit-equal, or a backward further from float64 than 3x the plain
+    float32 chain, raises."""
+    from gsplat_tpu_torch.kernels import covariance as kc
+
+    def run(inp, kernel: bool):
+        leaves = [inp[k].clone().requires_grad_() for k in ("xyz_c", "quat", "scale")]
+        fn = kc.covariance if kernel else kc.covariance_plain
+        out = fn(*leaves, inp["opacity"], inp["view"], mh_dist=3.0,
+                 filter_3d=inp["filter_3d"], **inp["kw"])
+        outs = [out[0]] + ([out[2]] if out[2] is not None else [])
+        grads = [inp["g_conic"]] + ([inp["g_opacity_scale"]] if out[2] is not None else [])
+        return out, torch.autograd.grad(outs, leaves, grad_outputs=grads)
+
+    def gap(got, want) -> float:
+        return max(float((a.double() - b).norm() / b.norm()) for a, b in zip(got, want))
+
+    res = []
+    for n in rows:
+        for mip in (False, True):
+            inp = covariance_inputs(dev, n, seed=n, mip=mip)
+            consts = kc._consts(mh_dist=3.0, mip_model=mip, **inp["kw"])
+            args = (inp["xyz_c"], inp["quat"], inp["scale"])
+            out, grads = run(inp, True)
+            plain, plain_grads = run(inp, False)
+            radius_rows = int((out[1] != plain[1]).any(dim=1).sum())
+            same = [a is None or torch.equal(bits_of(a), bits_of(b))
+                    for a, b in zip(out, plain)]
+            q = inp["quat"] * inp["quat"]
+            orders = {"(a+c)+(b+d)": (q[:, 0] + q[:, 2]) + (q[:, 1] + q[:, 3]),
+                      "(a+b)+(c+d)": (q[:, 0] + q[:, 1]) + (q[:, 2] + q[:, 3]),
+                      "((a+b)+c)+d": ((q[:, 0] + q[:, 1]) + q[:, 2]) + q[:, 3]}
+            norm_rows = {k: int((v != torch.sum(q, dim=1)).sum()) for k, v in orders.items()}
+            del out, plain, q, orders
+            f64 = {k: v.double() if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+            truth = [g.double() for g in run(f64, False)[1]]
+            del f64
+            gaps = dict(kernel=gap(grads, truth), plain=gap(plain_grads, truth),
+                        kernel_vs_plain=gap(grads, [g.double() for g in plain_grads]))
+            del grads, plain_grads, truth
+            torch.cuda.empty_cache()
+            leaves = [t.clone().requires_grad_() for t in args]
+
+            def plain_both():
+                out = kc.covariance_plain(*leaves, inp["opacity"], inp["view"], mh_dist=3.0,
+                                          filter_3d=inp["filter_3d"], **inp["kw"])
+                outs = [out[0]] + ([out[2]] if mip else [])
+                gs = [inp["g_conic"]] + ([inp["g_opacity_scale"]] if mip else [])
+                torch.autograd.grad(outs, leaves, grad_outputs=gs)
+
+            fwd_args = (*args, inp["opacity"], inp["filter_3d"], inp["view"], consts)
+            bwd_args = (inp["g_conic"], inp["g_opacity_scale"], *args, inp["filter_3d"],
+                        inp["view"], consts)
+            with torch.no_grad():
+                fwd = graph_ms(lambda: kc._forward_launch(*fwd_args), COVARIANCE_TIMING_ITERS)
+                bwd = graph_ms(lambda: kc._backward_launch(*bwd_args),
+                               COVARIANCE_TIMING_ITERS)
+                plain_fwd = graph_ms(lambda: kc.covariance_plain(
+                    *args, inp["opacity"], inp["view"], mh_dist=3.0,
+                    filter_3d=inp["filter_3d"], **inp["kw"]), COVARIANCE_TIMING_ITERS)
+            plain_fwd_bwd = graph_ms(plain_both, COVARIANCE_TIMING_ITERS)
+            r = dict(rows=n, model="mip" if mip else "3dgs", radius_rows=radius_rows,
+                     bit_equal=dict(zip(("conic", "radius", "opacity_scale"), same)),
+                     norm_order_rows=norm_rows, grad_gaps=gaps, ms=fwd, backward_ms=bwd,
+                     plain_ms=plain_fwd, plain_backward_ms=plain_fwd_bwd - plain_fwd,
+                     bound_ms=kernel_bound("covariance_forward", rows=n, mip=mip)["bound_ms"],
+                     backward_bound_ms=kernel_bound("covariance_backward", rows=n,
+                                                    mip=mip)["bound_ms"])
+            r["floor_pct"] = 100.0 * r["bound_ms"] / fwd
+            r["backward_floor_pct"] = 100.0 * r["backward_bound_ms"] / bwd
+            log(f"  {n} rows, {r['model']}: forward {fwd:.4f} ms (bound {r['bound_ms']:.4f}, "
+                f"{r['floor_pct']:.1f} %; plain {plain_fwd:.4f}); backward {bwd:.4f} ms (bound "
+                f"{r['backward_bound_ms']:.4f}, {r['backward_floor_pct']:.1f} %; plain autograd "
+                f"{r['plain_backward_ms']:.4f}); radius rows differing {radius_rows}, bit-equal "
+                f"{r['bit_equal']}; torch.sum order rows differing {norm_rows}; gradients "
+                f"from float64: kernel {gaps['kernel']:.2e}, plain f32 {gaps['plain']:.2e}, "
+                f"kernel vs plain f32 {gaps['kernel_vs_plain']:.2e}")
+            log("COVARIANCE " + json.dumps(r))
+            res.append(r)
+            del inp, args, leaves, fwd_args, bwd_args
+            torch.cuda.empty_cache()
+    bad = [r for r in res if r["radius_rows"] or not all(r["bit_equal"].values())]
+    if bad:
+        raise AssertionError(f"[22] the forward kernel is not bit-equal to the plain ops: {bad}")
+    far = [r for r in res if r["grad_gaps"]["kernel"] > 3.0 * r["grad_gaps"]["plain"]]
+    if far:
+        raise AssertionError(f"[22] the backward kernel strays from float64: {far}")
     return res
 
 
@@ -4344,6 +4554,10 @@ def main() -> int:
         log(MIP_TITLE)
         mip_table(dev)
         return 0
+    if sys.argv[1:] == ["--covariance"]:
+        log(COVARIANCE_TITLE)
+        covariance_table(dev)
+        return 0
     if sys.argv[1:] == ["--scale-profile"]:
         scale_profile(dev)
         return 0
@@ -4525,6 +4739,11 @@ def main() -> int:
     log(MIP_TITLE)
     mip_table(dev)
 
+    # 22. The covariance: the forward and backward kernels against the plain
+    # ops at the 1M and 4.25M capacities, both models.
+    log(COVARIANCE_TITLE)
+    cov_res = covariance_table(dev)
+
     # Launches: [9]'s packed run (the main path) for the packed kernels and
     # those without a mode; its exact run (a path of its own) for the exact
     # rasterizers and segment sum.
@@ -4606,6 +4825,19 @@ def main() -> int:
             replaces="none: XLA glue, gsplat_tpu/ops/sh.py", launches=pk[name],
             launches_per_step=pk[name] / TRAIN_STEPS, launches_scale=at_scale[name],
             launches_nccl_graph=at_nccl[name], scale=pick(sh_scale), **pick(sh_1m)))
+    # The covariance replaces no TPU kernel (XLA glue in the reference):
+    # plain 3DGS at the 1M capacity, launches from [9].
+    cov_1m, cov_scale = (next(r for r in cov_res if r["rows"] == n and r["model"] == "3dgs")
+                         for n in SH_ROWS)
+    for name, sfx in (("covariance_forward", ""), ("covariance_backward", "backward_")):
+        pick = lambda r, sfx=sfx: {  # noqa: E731
+            "ms": r[f"{sfx}ms"], "plain_ms": r[f"plain_{sfx}ms"],
+            "bound_ms": r[f"{sfx}bound_ms"], "bound_by": "bytes"}
+        kernels.append(dict(
+            name=name, route="cuda", source="gsplat_tpu_torch/csrc/covariance.cu",
+            replaces="none: XLA glue, gsplat_tpu/ops/covariance.py", launches=pk[name],
+            launches_per_step=pk[name] / TRAIN_STEPS, launches_scale=at_scale[name],
+            launches_nccl_graph=at_nccl[name], scale=pick(cov_scale), **pick(cov_1m)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,17 @@ SIGNATURES = {
     # out (the filter, in place), far, xyz, alive, cameras, n, cams, sqrt of
     # the filter's variance, stream
     "gs_filter_3d": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P],
+    # conic, radius, opacity_scale (or null), xyz_c, quat, scale, opacity,
+    # filter_3d (or null), view (a device (4, 4)), n, mip, fx, fy, limx, limy,
+    # mh_dist, the screen dilation, ln 255, stream
+    "gs_covariance_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                              *[ctypes.c_float] * 7, _P],
+    # grad_xyz_c, grad_quat, grad_scale, g_conic, its row and column strides,
+    # g_opacity_scale (or null), xyz_c, quat, scale, filter_3d (or null), view,
+    # n, mip, the seven constants, stream
+    "gs_covariance_backward": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+                               _P, _P, _P, _P, ctypes.c_longlong, _I, *[ctypes.c_float] * 7,
+                               _P],
 }
 
 launches = {
@@ -87,6 +98,7 @@ launches = {
     "rasterize_forward": 0, "rasterize_forward/packed": 0, "rasterize_backward": 0,
     "rasterize_backward/packed": 0, "segment_sum": 0, "segment_sum/packed": 0,
     "masked_adam": 0, "sh_forward": 0, "sh_backward": 0, "filter3d": 0,
+    "covariance_forward": 0, "covariance_backward": 0,
 }
 
 _lock = threading.Lock()

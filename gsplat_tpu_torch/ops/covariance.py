@@ -17,6 +17,7 @@ import math
 import torch
 
 _LOG255 = math.log(255.0)
+DILATION = 0.3  # 3DGS's screen-space dilation, pixels^2
 
 
 def sigma_from_quat_scale(quat: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -137,8 +138,8 @@ def conic_and_radius(
         units of the OBB radius, capped at 2.
     """
     c00, cov01, c11 = _screen_cov(sigma, jac, view)
-    cov00 = c00 + 0.3
-    cov11 = c11 + 0.3
+    cov00 = c00 + DILATION
+    cov11 = c11 + DILATION
     if opacity_logit is not None:
         softplus = torch.logaddexp(-opacity_logit, torch.zeros_like(opacity_logit))
         r_cut = _log_opacity_cut(_LOG255 - softplus)

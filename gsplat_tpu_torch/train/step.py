@@ -51,10 +51,11 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.adam import masked_adam_update_
+from ..kernels.covariance import covariance
 from ..kernels.sh import sh_to_rgb
 from ..kernels.packing import exact_mode, packed  # noqa: F401  (exact_mode: exported here)
 from ..ops import adam as adam_ops
-from ..ops import covariance, mip, projection
+from ..ops import projection
 from ..ops.binning import TileTables, build_tile_tables
 from ..ops.loss import compute_psnr, fused_loss
 from ..ops.render import rasterize
@@ -155,23 +156,13 @@ def _geometry(params: GaussianParams, view, proj, campos, st: StepStatics):
         )
         & params.alive
     )
-    jac = projection.projection_jacobian(
-        xyz_c, st.focal_x, st.focal_y, st.tan_fovx, st.tan_fovy
-    )
-    sigma = covariance.sigma_from_quat_scale(params.quat, params.scale)
-    opacity_scale = None
-    if st.mip:
-        if params.filter_3d is None:
-            raise ValueError("Mip-Splatting statics need the parameters' filter_3d "
-                             "(train/state.py::with_filter_3d)")
-        conic, radius, opacity_scale = covariance.mip_conic_and_radius(
-            mip.filtered_sigma(sigma, params.filter_3d), jac, view, st.mh_dist,
-            params.opacity, mip.opacity_scale_3d(params.scale, params.filter_3d),
-            mip.KERNEL_2D)
-    else:
-        conic, radius = covariance.conic_and_radius(
-            sigma, jac, view, st.mh_dist, opacity_logit=params.opacity
-        )
+    if st.mip and params.filter_3d is None:
+        raise ValueError("Mip-Splatting statics need the parameters' filter_3d "
+                         "(train/state.py::with_filter_3d)")
+    conic, radius, opacity_scale = covariance(
+        xyz_c, params.quat, params.scale, params.opacity, view, focal_x=st.focal_x,
+        focal_y=st.focal_y, tan_fovx=st.tan_fovx, tan_fovy=st.tan_fovy, mh_dist=st.mh_dist,
+        filter_3d=params.filter_3d if st.mip else None)
     profiling.stage_done("geometry")
     rgb = sh_to_rgb(params.xyz, params.rgb, params.sh, campos, st.l_max)
     profiling.stage_done("sh")

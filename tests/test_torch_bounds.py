@@ -273,6 +273,22 @@ def test_kernel_bound_sh_hand_counted():
     assert r["bound_ms"] == pytest.approx(1e3 * 6_291_456 * 408 / 3.35e12)
 
 
+def test_kernel_bound_covariance_hand_counted():
+    # Covariance, bytes a row: the forward reads xyz_c 12, quat 16, scale 12
+    # and the opacity logit 4 and writes the conic 12 and the radius record
+    # 20; the backward reads the conic's gradient 12, xyz_c, quat and scale
+    # and writes their gradients 40. Mip-Splatting adds the filter's 4 to
+    # each pass and the opacity scale (or its gradient) 4.
+    r = chip_smoke.kernel_bound("covariance_forward", rows=10)
+    assert (r["bytes"], r["ops"], r["bound_by"]) == (10 * 76, 0, "bytes")
+    r = chip_smoke.kernel_bound("covariance_forward", rows=10, mip=True)
+    assert r["bytes"] == 10 * 84
+    r = chip_smoke.kernel_bound("covariance_backward", rows=6_291_456)
+    assert (r["bytes"], r["bound_by"]) == (6_291_456 * 92, "bytes")
+    r = chip_smoke.kernel_bound("covariance_backward", rows=6_291_456, mip=True)
+    assert r["bound_ms"] == pytest.approx(1e3 * 6_291_456 * 100 / 3.35e12)
+
+
 def test_kernel_bound_packed_hand_counted():
     # Packed mode: the rasterizers also round each pair up to every tile's
     # deepest n_splats (87 operations a pair); K2 writes 4-word rows (16

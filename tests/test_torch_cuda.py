@@ -3,9 +3,12 @@ against the port's CPU path, on the card (masked Adam bit-equal to its
 plain version, alone, through ``apply_adam`` and through a graph's
 replays; the SH colour kernels close to their plain versions, and in a
 graph replayed with another camera; a graph captured in the packed mode
-captured again, not replayed, under ``exact_mode()``; Mip-Splatting's 3D
-filter sweep bit-equal to its plain version, and a graphed Mip step that
-reads each sweep's filter).
+captured again, not replayed, under ``exact_mode()``; the covariance
+kernels, the forward bit-equal to the plain ops and the backward within
+their rounding, in a graph replayed with another view and on the graphed
+step's and render's path, and the tile-parallel step on one rank against
+its CPU run; Mip-Splatting's 3D filter sweep bit-equal to its plain
+version, and a graphed Mip step that reads each sweep's filter).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one
 (the ``cuda`` marker). This file imports neither JAX nor ``gsplat_tpu``, so
@@ -1139,6 +1142,184 @@ def test_graphed_step_and_render_launch_sh_once(dev):
     torch.cuda.synchronize()
     t_step.release_graphs()
     assert (_build.launches["sh_forward"], _build.launches["sh_backward"]) == (4, 0)
+
+
+def _covariance_kernels(inp):
+    """The covariance kernels' outputs and, through the autograd Function,
+    the gradients of (xyz_c, quat, scale) given ``inp``'s gradients."""
+    from gsplat_tpu_torch.kernels import covariance as kc
+
+    leaves = [inp[k].clone().requires_grad_() for k in ("xyz_c", "quat", "scale")]
+    out = kc.covariance(*leaves, inp["opacity"], inp["view"], mh_dist=3.0,
+                        filter_3d=inp["filter_3d"], **inp["kw"])
+    outs, grads = [out[0]], [inp["g_conic"]]
+    if out[2] is not None:
+        outs.append(out[2])
+        grads.append(inp["g_opacity_scale"])
+    return [t if t is None else t.detach() for t in out], torch.autograd.grad(
+        outs, leaves, grad_outputs=grads)
+
+
+def _covariance_plain(inp):
+    """The plain ops on the same tensors: their outputs and autograd's
+    gradients, in the inputs' dtype."""
+    from gsplat_tpu_torch.kernels import covariance as kc
+
+    leaves = [inp[k].clone().requires_grad_() for k in ("xyz_c", "quat", "scale")]
+    out = kc.covariance_plain(*leaves, inp["opacity"], inp["view"], mh_dist=3.0,
+                              filter_3d=inp["filter_3d"], **inp["kw"])
+    outs, grads = [out[0]], [inp["g_conic"]]
+    if out[2] is not None:
+        outs.append(out[2])
+        grads.append(inp["g_opacity_scale"])
+    return [t if t is None else t.detach() for t in out], torch.autograd.grad(
+        outs, leaves, grad_outputs=grads)
+
+
+def _gap(got, want) -> float:
+    """The worst leaf's distance from ``want``, over its norm."""
+    return max(float((a.double() - b.double()).norm() / b.double().norm())
+               for a, b in zip(got, want))
+
+
+def _f64(inp):
+    return {k: v.double() if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+
+
+def _within_rounding(grads, inp) -> None:
+    """The kernels' gradients no further from float64 autograd through the
+    plain ops than 3x the plain ops' own float32 chain: flat Gaussians make
+    the screen determinant cancel, so two float32 orders of the same sums
+    stray by ~1e-5 of a leaf's norm, the chain as much as the kernel."""
+    for g in grads:
+        assert g.is_contiguous() and bool(torch.isfinite(g).all())
+    truth = _covariance_plain(_f64(inp))[1]
+    assert _gap(grads, truth) <= 3.0 * _gap(_covariance_plain(inp)[1], truth)
+
+
+@pytest.mark.parametrize("model", ["3dgs", "mip"])
+def test_covariance_kernels_against_plain(dev, model):
+    """At 2^20 rows (``chip_smoke.covariance_inputs``, its edge rows
+    included): the forward kernel bit-equal to the plain ops on the card
+    (conic, the radius record and the opacity scale; the rows whose radius
+    differs are counted), one launch of each kernel, the conic's gradient a
+    strided view that is not copied; the backward no further from float64
+    autograd through the plain ops than 3x the plain ops' own float32
+    chain."""
+    from chip_smoke import covariance_inputs
+
+    inp = covariance_inputs(dev, 1 << 20, seed=7, mip=model == "mip")
+    assert not inp["g_conic"].is_contiguous()
+    before = dict(_build.launches)
+    out, grads = _covariance_kernels(inp)
+    torch.cuda.synchronize()
+    assert (_build.launches["covariance_forward"] - before["covariance_forward"],
+            _build.launches["covariance_backward"] - before["covariance_backward"]) == (1, 1)
+    plain = _covariance_plain(inp)[0]
+    radius_rows = int((out[1] != plain[1]).any(dim=1).sum())
+    assert radius_rows == 0, f"{radius_rows} rows' radius differ"
+    for name, a, b in zip(("conic", "radius", "opacity scale"), out, plain):
+        assert (a is None and b is None) or torch.equal(a.view(torch.int32),
+                                                        b.view(torch.int32)), name
+    _within_rounding(grads, inp)
+
+
+def test_covariance_graph_replay_takes_the_new_view(dev):
+    """The forward and backward kernels captured in one CUDA graph with the
+    view in a static buffer: after a copy of another view, a replay gives
+    that view's conic and radius bit for bit, and its gradients, as the
+    plain ops compute them there: the kernels read the view from device
+    memory."""
+    from chip_smoke import covariance_inputs, views
+
+    inp = covariance_inputs(dev, 100_003, seed=5)
+
+    def run():
+        out, grads = _covariance_kernels(inp)
+        return (*out[:2], *grads)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for cam in (views()[3], views()[2]):
+        inp["view"].copy_(torch.as_tensor(cam.view, dtype=torch.float32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        plain = _covariance_plain(inp)[0]
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        _within_rounding(got[2:], inp)
+    del graph
+
+
+@pytest.mark.parametrize("model", ["3dgs", "mip"])
+def test_graphed_step_and_render_launch_covariance_once(dev, model):
+    """On the main path: the graphed monitored step launches one covariance
+    forward and one backward a step, the graphed render one forward a
+    view, for plain 3DGS and Mip-Splatting."""
+    from gsplat_tpu_torch.train import state as t_state
+    from gsplat_tpu_torch.train import step as t_step
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    state = t_state.init_state(t_state.params_from_jax(params, alive, dev))
+    if model == "mip":
+        st = t_step.mip_statics(st)
+        t_state.with_filter_3d(state.params)
+        state.params.filter_3d.fill_(0.005)
+    monitor, step, render = t_step.fresh_monitor(dev), t_step.get_monitored_train_step(st), \
+        t_step.get_render_fn(st)
+    _build.reset_launches()
+    for it in range(4):
+        state, _, monitor = step(state, *cam_t[it % 2], gt, 0.1 * it, it, monitor)
+    torch.cuda.synchronize()
+    assert (_build.launches["covariance_forward"],
+            _build.launches["covariance_backward"]) == (4, 4)
+    _build.reset_launches()
+    for it in range(4):
+        render(state.params, *cam_t[it % 2], 0.1)
+    torch.cuda.synchronize()
+    t_step.release_graphs()
+    assert (_build.launches["covariance_forward"],
+            _build.launches["covariance_backward"]) == (4, 0)
+
+
+def test_tp_step_on_card_close_to_cpu(dev):
+    """The tile-parallel step (built on ``_geometry``) on one gloo rank, on
+    the card against its CPU run, as ``test_train_step_on_card_close_to_cpu``
+    holds the single step: exact mode, the kernels' sums in other orders."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch import parallel
+    from gsplat_tpu_torch.parallel import tile_parallel
+    from gsplat_tpu_torch.parallel.launch import free_port
+    from gsplat_tpu_torch.train import state as t_state
+
+    params, alive, cam_t, st, gt = _capped_scene(dev)
+    view, proj, campos = (t.cpu() for t in cam_t[1])
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
+    try:
+        results = []
+        for d in ("cpu", dev):
+            state = t_state.init_state(t_state.params_from_jax(params, alive, d))
+            with exact_mode():
+                r = tile_parallel.tp_loss_and_grads(state.params, view.to(d), proj.to(d),
+                                               campos.to(d), gt.to(d), 0.2, st)
+            results.append((float(r.loss), {k: v.cpu() for k, v in r.grads.items()},
+                            r.g_uv.cpu(), r.mask.cpu()))
+    finally:
+        dist.destroy_process_group()
+    (l_c, g_c, uv_c, m_c), (l_g, g_g, uv_g, m_g) = results
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-5)
+    for name in g_c:
+        scale = float(g_c[name].nan_to_num().abs().max())
+        torch.testing.assert_close(g_g[name], g_c[name], rtol=1e-3, atol=1e-3 * scale,
+                                   equal_nan=True)
+    torch.testing.assert_close(uv_g, uv_c, rtol=1e-3, atol=1e-3 * float(uv_c.abs().max()))
+    assert torch.equal(m_g, m_c)
 
 
 @pytest.mark.parametrize("n", [1000, 1 << 20])
